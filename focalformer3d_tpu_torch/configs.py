@@ -1,0 +1,349 @@
+"""Model configurations, mirrored field for field from the JAX package.
+
+Counterparts of ``focalformer3d_tpu.ops.voxelize.VoxelConfig``,
+``models.detector.DetectorConfig`` / ``with_compute_dtype``,
+``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig`` and
+``core.box_coder.BBoxCoderConfig``. Field names, defaults and the two named
+configs (``FocalFormer3D_L``, ``Tiny_L``) are identical, so
+``focalformer3d_tpu.utils.ref_keys.reference_state_shapes(cfg)`` accepts a
+config of either package. Only the dtype properties differ: they return
+torch dtypes here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelConfig:
+    point_cloud_range: Sequence[float]  # (x0, y0, z0, x1, y1, z1)
+    voxel_size: Sequence[float]  # (vx, vy, vz)
+    max_num_points: int = 10  # per-voxel cap (hard mode)
+    max_voxels: int = 120000
+    max_voxels_test: Optional[int] = None  # None = same as max_voxels
+
+    @property
+    def grid_size(self):
+        """(nx, ny, nz) — number of voxels along each axis."""
+        pcr = self.point_cloud_range
+        vs = self.voxel_size
+        return (
+            int(round((pcr[3] - pcr[0]) / vs[0])),
+            int(round((pcr[4] - pcr[1]) / vs[1])),
+            int(round((pcr[5] - pcr[2]) / vs[2])),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BBoxCoderConfig:
+    pc_range: Sequence[float]  # (x_min, y_min) of the point cloud range
+    voxel_size: Sequence[float]  # (vx, vy)
+    out_size_factor: int
+    post_center_range: Optional[Sequence[float]] = None
+    score_threshold: Optional[float] = None
+    code_size: int = 10
+
+    @property
+    def grid_step(self):
+        return (
+            self.out_size_factor * self.voxel_size[0],
+            self.out_size_factor * self.voxel_size[1],
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LSSConfig:
+    """Camera lift-splat settings; carried so ``DetectorConfig`` matches the
+    JAX one field for field. The camera branch is not ported yet."""
+
+    img_scale: Tuple[int, int] = (448, 800)
+    camera_depth_range: Tuple[float, float, float] = (4.0, 45.0, 1.0)
+    pc_range: Tuple[float, ...] = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
+    downsample: int = 4
+    grid: float = 0.6
+    input_channels: int = 256
+    cam_channels: int = 64
+    out_channels: int = 128
+
+    @property
+    def feat_hw(self) -> Tuple[int, int]:
+        return (self.img_scale[0] // self.downsample,
+                self.img_scale[1] // self.downsample)
+
+    @property
+    def depth_bins(self) -> int:
+        lo, hi, step = self.camera_depth_range
+        return int(math.ceil((hi - lo) / step))
+
+    @property
+    def nx(self) -> Tuple[int, int, int]:
+        return (
+            int((self.pc_range[3] - self.pc_range[0]) / self.grid),
+            int((self.pc_range[4] - self.pc_range[1]) / self.grid),
+            int((self.pc_range[5] - self.pc_range[2]) / self.grid),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FocalDecoderConfig:
+    num_classes: int = 10
+    hidden: int = 128
+    hidden_roi: int = 512
+    num_proposals: int = 300
+    num_decoder_layers: int = 2  # decoder rounds (outer)
+    inner_layers: int = 3  # deformable layers per round
+    num_heads: int = 8
+    nms_kernel_size: int = 3
+    mask_heatmap_mode: str = "poscls"  # only 'poscls' is ported
+    heatmap_box: bool = False
+    multistage_heatmap: int = 1
+    reuse_first_heatmap: bool = True
+    extra_feat: bool = True
+    multiscale: bool = True
+    bevpos: bool = True
+    roi_feats: int = 7
+    roi_dropout: float = 0.1
+    roi_based_reg: bool = True
+    roi_expand_ratio: float = 1.2
+    classaware_reg: bool = False
+    add_gt_groups: int = 3
+    add_gt_pos_thresh: float = 5.0
+    add_gt_pos_boxnoise_thresh: float = 0.75
+    gt_center_limit: float = 5.0
+    max_gts: int = 200
+    kernel1_classes: Tuple[int, ...] = (8, 9)
+    code_size: int = 10
+    pc_range: Tuple[float, ...] = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
+    voxel_size: Tuple[float, ...] = (0.075, 0.075, 0.2)
+    out_size_factor: int = 8
+    post_center_range: Tuple[float, ...] = (
+        -61.2, -61.2, -10.0, 61.2, 61.2, 10.0
+    )
+    score_threshold: float = 0.0
+    dtype: str = "float32"  # head compute dtype; params stay float32
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
+
+    @property
+    def total_stages(self) -> int:
+        return self.multistage_heatmap + int(self.reuse_first_heatmap)
+
+    @property
+    def with_vel(self) -> bool:
+        return self.code_size == 10
+
+    @property
+    def coder(self) -> BBoxCoderConfig:
+        return BBoxCoderConfig(
+            pc_range=self.pc_range[:2],
+            voxel_size=self.voxel_size[:2],
+            out_size_factor=self.out_size_factor,
+            post_center_range=self.post_center_range,
+            score_threshold=self.score_threshold,
+            code_size=self.code_size,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    voxel: VoxelConfig = dataclasses.field(
+        default_factory=lambda: VoxelConfig(
+            point_cloud_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
+            voxel_size=(0.075, 0.075, 0.2),
+            max_num_points=10,
+            max_voxels=120000,
+        )
+    )
+    vfe_type: str = "HardSimpleVFE"
+    vfe_channels: Tuple[int, ...] = (64,)
+    sparse_shape: Tuple[int, int, int] = (41, 1440, 1440)
+    sparse_out_channels: int = 128
+    encoder_channels: Tuple[Tuple[int, ...], ...] = (
+        (16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128)
+    )
+    down_paddings: Tuple[Tuple[int, int, int], ...] = (
+        (1, 1, 1), (1, 1, 1), (0, 1, 1)
+    )
+    capacities: Tuple[int, ...] = (160000, 245760, 188416, 77824)
+    out_capacity: int = 53248
+    # 'auto' runs the CUDA kernel engine for tensors on a card and the
+    # plain engine on the CPU; 'cuda' and 'plain' pick one explicitly
+    sparse_engine: str = "auto"
+    sparse_exact_fallback: bool = True  # no counterpart: rulebooks are exact
+    sparse_dense_from: int = 3
+    sparse_dense_from_eval: int = 2
+    second_channels: Tuple[int, ...] = (128, 256)
+    second_layers: Tuple[int, ...] = (5, 5)
+    fpn_channels: Tuple[int, ...] = (256, 256)
+    neck_layers: int = 1
+    hidden: int = 128
+    iterbev: str = "bevfusionmb2"
+    extra_feat: bool = True
+    input_img: bool = False
+    input_pts: bool = True
+    img_backbone_depth: int = 50
+    img_fpn_outs: int = 5
+    use_grid_mask: bool = False
+    cam_proj: str = "lss"
+    iter_bev_cam: bool = True
+    max_points_height: int = 10
+    lss: LSSConfig = dataclasses.field(default_factory=LSSConfig)
+    bev_shape: Tuple[int, int] = (180, 180)
+    freeze_img: bool = False
+    freeze_camlss: bool = False
+    freeze_pts: bool = False
+    compute_dtype: str = "float32"  # dense BEV path; params stay float32
+    decoder: FocalDecoderConfig = dataclasses.field(
+        default_factory=FocalDecoderConfig
+    )
+
+    @property
+    def point_dim(self) -> int:
+        return 5
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return _torch_dtype(self.compute_dtype)
+
+
+def with_compute_dtype(cfg: DetectorConfig, dtype: str) -> DetectorConfig:
+    """Set the compute dtype consistently on the detector and its decoder."""
+    return dataclasses.replace(
+        cfg, compute_dtype=dtype,
+        decoder=dataclasses.replace(cfg.decoder, dtype=dtype),
+    )
+
+
+_NUSC_CLASSES = (
+    "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+    "motorcycle", "bicycle", "pedestrian", "traffic_cone",
+)
+_NUSC_PC_RANGE = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
+_NUSC_VOXEL = (0.075, 0.075, 0.2)
+
+
+def _focalformer3d_l():
+    model = DetectorConfig(
+        voxel=VoxelConfig(
+            point_cloud_range=_NUSC_PC_RANGE,
+            voxel_size=_NUSC_VOXEL,
+            max_num_points=10,
+            max_voxels=120000,
+            max_voxels_test=160000,
+        ),
+        vfe_type="HardSimpleVFE",
+        sparse_shape=(41, 1440, 1440),
+        sparse_out_channels=128,
+        encoder_channels=((16, 16, 32), (32, 32, 64), (64, 64, 128),
+                          (128, 128)),
+        down_paddings=((1, 1, 1), (1, 1, 1), (0, 1, 1)),
+        capacities=(160000, 245760, 188416, 77824),
+        out_capacity=53248,
+        second_channels=(128, 256),
+        second_layers=(5, 5),
+        fpn_channels=(256, 256),
+        neck_layers=1,
+        hidden=128,
+        iterbev="bevfusionmb2",
+        extra_feat=True,
+        input_img=False,
+        decoder=FocalDecoderConfig(
+            num_classes=len(_NUSC_CLASSES),
+            hidden=128,
+            hidden_roi=512,
+            num_proposals=300,
+            num_decoder_layers=2,
+            inner_layers=3,
+            num_heads=8,
+            nms_kernel_size=3,
+            multistage_heatmap=1,
+            reuse_first_heatmap=True,
+            extra_feat=True,
+            multiscale=True,
+            bevpos=True,
+            roi_feats=7,
+            roi_dropout=0.1,
+            roi_based_reg=True,
+            roi_expand_ratio=1.2,
+            add_gt_groups=3,
+            add_gt_pos_thresh=5.0,
+            add_gt_pos_boxnoise_thresh=0.75,
+            gt_center_limit=5.0,
+            max_gts=200,
+            kernel1_classes=(8, 9),
+            code_size=10,
+            pc_range=_NUSC_PC_RANGE,
+            voxel_size=_NUSC_VOXEL,
+            out_size_factor=8,
+            post_center_range=(-61.2, -61.2, -10.0, 61.2, 61.2, 10.0),
+            score_threshold=0.0,
+        ),
+    )
+    return {"model": model, "class_names": _NUSC_CLASSES}
+
+
+def _tiny_l():
+    classes = ("car", "truck", "pedestrian", "traffic_cone")
+    pc_range = (-8.0, -8.0, -3.0, 8.0, 8.0, 3.0)
+    model = DetectorConfig(
+        voxel=VoxelConfig(
+            point_cloud_range=pc_range,
+            voxel_size=(0.25, 0.25, 0.24),
+            max_num_points=5,
+            max_voxels=512,
+        ),
+        sparse_shape=(25, 64, 64),
+        sparse_out_channels=32,
+        encoder_channels=((8, 8, 16), (16, 16, 24), (24, 24, 32), (32, 32)),
+        down_paddings=((1, 1, 1), (1, 1, 1), (0, 1, 1)),
+        capacities=(512, 384, 256, 192),
+        out_capacity=192,
+        second_channels=(32, 48),
+        second_layers=(2, 2),
+        fpn_channels=(48, 48),
+        hidden=32,
+        decoder=FocalDecoderConfig(
+            num_classes=len(classes),
+            hidden=32,
+            hidden_roi=64,
+            num_proposals=16,
+            num_decoder_layers=2,
+            inner_layers=1,
+            num_heads=4,
+            multistage_heatmap=1,
+            reuse_first_heatmap=True,
+            multiscale=True,
+            roi_feats=3,
+            add_gt_groups=2,
+            max_gts=24,
+            kernel1_classes=(2, 3),
+            pc_range=pc_range,
+            voxel_size=(0.25, 0.25, 0.75),
+            out_size_factor=8,
+            post_center_range=(-10, -10, -5, 10, 10, 5),
+        ),
+    )
+    return {"model": model, "class_names": classes}
+
+
+_REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l}
+
+
+def get_config(name: str):
+    """Named config: ``{"model": DetectorConfig, "class_names": ...}``.
+    Only the LiDAR-only configs of the ported slice are registered."""
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"config {name!r} is not ported; available: {sorted(_REGISTRY)}"
+        )
+    return _REGISTRY[name]()
