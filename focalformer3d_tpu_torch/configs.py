@@ -177,7 +177,8 @@ class DetectorConfig:
     capacities: Tuple[int, ...] = (160000, 245760, 188416, 77824)
     out_capacity: int = 53248
     # 'auto' runs the CUDA kernel engine for tensors on a card and the
-    # plain engine on the CPU; 'cuda' and 'plain' pick one explicitly
+    # plain engine on the CPU; 'cuda', 'cuda_mxu', 'cuda_zrun' and 'plain'
+    # pick one explicitly (models/sparse_encoder.py)
     sparse_engine: str = "auto"
     sparse_exact_fallback: bool = True  # no counterpart: rulebooks are exact
     sparse_dense_from: int = 3

@@ -15,28 +15,50 @@ the conv weights (``w * g`` in float32, then bias ``b``). Levels from
 to the active set after every conv (strided sets by a max-pool of the
 mask), which is the same function.
 
-Engines: ``cuda`` runs the sparse levels through the K1 kernel
-(``ops/sparse_conv_cuda.sparse_conv``: bf16 operands, f32 accumulation) and
-casts the dense tail to bfloat16, as the JAX ``pallas`` engine does;
-``plain`` runs them as float32 gather + matmul and keeps the dense tail in
-the input dtype, as the JAX ``voxel`` engine does. With absolute rulebooks
-there are no tile windows, so the JAX engine's spill lists, its checked
-reroute to the exact path and its ``diagnostics`` overflow counters have
-nothing to guard here.
+Engines (the JAX engine each mirrors in parentheses):
+
+- ``plain`` (``voxel``): float32 gather + matmul, the dense tail in the input
+  dtype.
+- ``cuda`` (``pallas``): the torch-op index build (``build_table_csr``,
+  ``build_downsample``, ``build_conv_rules``) and every sparse conv on K1
+  (``ops/sparse_conv_cuda.sparse_conv``: bf16 operands, f32 accumulation);
+  the dense tail in bfloat16.
+- ``cuda_zrun`` (``pallas_zrun``): the same index build, but one z-run plan
+  per conv (``ops/sparse_conv_zrun.build_zplan``) in place of its rulebook,
+  and every sparse conv on K3 (``ops/sparse_conv_zrun_cuda.zrun_conv``); the
+  dense tail in bfloat16.
+- ``cuda_mxu`` (``pallas_mxu``): the meta chain. Each level is known by its
+  column meta and packed sites (``downsample_meta``, ``colz_from_meta``), every
+  rulebook comes from K2 (``ops/plan_builder_cuda.plan_rules``) and every conv
+  runs on K1. Like the JAX engine it is all-sparse: L2, L3 and conv_out run
+  sparse and ``dense_from`` is not read. Also like it, a level's meta keeps
+  the voxels its capacity dropped, so on a scan that overflows a capacity
+  the next level's active set parts from the coordinate engines'.
+
+``auto`` is ``cuda`` for tensors on a card and ``plain`` on the CPU; the other
+engines are chosen explicitly. On CPU tensors the kernel wrappers run their
+plain versions. With absolute rulebooks there are no tile windows, so the JAX
+engines' spill lists, checked reroute to the exact path and ``diagnostics``
+overflow counters have nothing to guard here.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import plan_builder as pb
 from ..ops import sparse_conv as sc
+from ..ops.plan_builder_cuda import plan_rules
 from ..ops.sparse_conv_cuda import apply_conv_plain, sparse_conv
+from ..ops.sparse_conv_zrun import build_zplan
+from ..ops.sparse_conv_zrun_cuda import zrun_conv
 from .layers import bn_affine
 
-ENGINES = ("auto", "plain", "cuda")
+ENGINES = ("auto", "plain", "cuda", "cuda_mxu", "cuda_zrun")
 
 
 class SpConvWeight(nn.Module):
@@ -83,6 +105,76 @@ def _dense_conv(x, w27, ks, stride, padding, gain, bias):
                  padding)
     y = y.permute(0, 2, 3, 4, 1)
     return (y.float() + bias).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Level:
+    """The voxel sets of one resolution level, batched and CSR-ordered:
+    valid (B, V), column metas (B, H*W + 1, 4), and the sites as coords
+    (B, V, 3) zyx or, on the meta chain, as packed colz (B, V)."""
+
+    shape: Tuple[int, int, int]
+    valid: torch.Tensor
+    meta: torch.Tensor
+    coords: Optional[torch.Tensor] = None
+    colz: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.valid.shape[1]
+
+    def sites(self) -> torch.Tensor:
+        if self.coords is None:
+            return pb.coords_from_colz(self.colz, self.shape[2])
+        return self.coords
+
+    @staticmethod
+    def from_voxels(coords, valid, shape, meta_chain: bool) -> "Level":
+        meta = torch.stack([sc.build_table_csr(coords[b], valid[b],
+                                               shape).meta
+                            for b in range(valid.shape[0])])
+        if meta_chain:
+            return Level(shape, valid, meta,
+                         colz=pb.colz_from_coords(coords, valid, shape[2]))
+        return Level(shape, valid, meta, coords=coords)
+
+    def downsample(self, ks, stride, pad, capacity: int) -> "Level":
+        """The active output set of a strided conv: from the coordinate
+        lists (``build_downsample``) or, on the meta chain, from the metas
+        alone (``downsample_meta`` + ``colz_from_meta``, whose ``d`` is the
+        input level's depth, as the JAX engine calls it)."""
+        B = self.valid.shape[0]
+        if self.coords is None:
+            outs = [sc.downsample_meta(self.meta[b], self.shape, ks, stride,
+                                       pad) for b in range(B)]
+            total = torch.stack([o[2] for o in outs])
+            valid = (torch.arange(capacity, device=total.device)[None]
+                     < torch.clamp(total, max=capacity)[:, None])
+            colz = torch.stack([pb.colz_from_meta(o[0], capacity,
+                                                  d=self.shape[0])
+                                for o in outs])
+            return Level(outs[0][1], valid,
+                         torch.stack([o[0] for o in outs]), colz=colz)
+        outs = [sc.build_downsample(self.coords[b], self.valid[b], self.shape,
+                                    ks, stride, pad, capacity)
+                for b in range(B)]
+        return Level(outs[0][2], torch.stack([o[1] for o in outs]),
+                     torch.stack([o[4] for o in outs]),
+                     coords=torch.stack([o[0] for o in outs]))
+
+
+def conv_index(src: Level, dst: Level, ks, stride, pad, engine: str):
+    """What the sparse conv from ``src`` to ``dst`` reads on ``engine``: the
+    rulebook (B, K, V_out), from K2 on the meta chain, or the z-run plan
+    (B, ky*kx, V_out) on ``cuda_zrun``."""
+    if engine == "cuda_mxu":
+        return plan_rules(src.meta, dst.colz, src.capacity, ks, stride, pad,
+                          src.shape, dst.shape[2])
+    build = build_zplan if engine == "cuda_zrun" else sc.build_conv_rules
+    return torch.stack([
+        build(sc.VoxelTable(src.coords[b], src.valid[b], src.meta[b]),
+              src.shape, dst.coords[b], dst.valid[b], ks, stride, pad)
+        for b in range(src.valid.shape[0])])
 
 
 class SparseEncoder(nn.Module):
@@ -134,88 +226,68 @@ class SparseEncoder(nn.Module):
             return "cuda" if device.type == "cuda" else "plain"
         return self.engine
 
-    def _sparse_conv(self, x, rules, wmod, bn, valid, engine):
+    def _sparse_conv(self, x, index, wmod, bn, valid, engine):
         w, b = wmod.folded(bn)
-        if engine == "cuda":
-            return sparse_conv(x.to(torch.bfloat16), rules,
-                               w.to(torch.bfloat16), valid, b)
-        return apply_conv_plain(x, rules, w, valid, b, x.dtype)
+        if engine == "plain":
+            return apply_conv_plain(x, index, w, valid, b, x.dtype)
+        conv = zrun_conv if engine == "cuda_zrun" else sparse_conv
+        return conv(x.to(torch.bfloat16), index, w.to(torch.bfloat16), valid,
+                    b)
 
-    def _basic(self, blk, x, rules, valid, engine):
+    def _basic(self, blk, x, index, valid, engine):
         m = valid[..., None]
-        y = F.relu(self._sparse_conv(x, rules, blk.conv1, blk.bn1, valid,
+        y = F.relu(self._sparse_conv(x, index, blk.conv1, blk.bn1, valid,
                                      engine))
-        y = self._sparse_conv(y, rules, blk.conv2, blk.bn2, valid, engine)
+        y = self._sparse_conv(y, index, blk.conv2, blk.bn2, valid, engine)
         return torch.where(m, F.relu(y + x), 0.0)
 
     def forward(self, features, coords, valid):
         """features (B, V0, Cin), coords (B, V0, 3) int32 zyx in CSR order,
         valid (B, V0). Returns BEV features (B, H', W', C_out * D_out)."""
         engine = self._engine(features.device)
-        shape = self.sparse_shape
+        meta_chain = engine == "cuda_mxu"
         n_stage = len(self.encoder_channels)
         B = features.shape[0]
         x = torch.where(valid[..., None], features, 0.0)
-        tables = [sc.build_table_csr(coords[b], valid[b], shape)
-                  for b in range(B)]
-
-        def subm_rules(tabs, shp):
-            return torch.stack([sc.build_subm_rules(t, shp, 3)
-                                for t in tabs])
-
-        rules = subm_rules(tables, shape)
-        x = F.relu(self._sparse_conv(x, rules, self.conv_input[0],
-                                     self.conv_input[1], valid, engine))
+        lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
+        index = conv_index(lvl, lvl, 3, 1, 1, engine)
+        x = F.relu(self._sparse_conv(x, index, self.conv_input[0],
+                                     self.conv_input[1], lvl.valid, engine))
         for i, blocks in enumerate(self.encoder_channels):
             stage = self._stage(i)
             last = i == n_stage - 1
             n_basic = len(blocks) - 1 if not last else len(blocks)
             for j in range(n_basic):
-                x = self._basic(stage[j], x, rules, valid, engine)
+                x = self._basic(stage[j], x, index, lvl.valid, engine)
             if last:
                 break
             pad = self.down_paddings[i]
-            down = [sc.build_downsample(coords[b], valid[b], shape, 3, 2, pad,
-                                        self.capacities[i + 1])
-                    for b in range(B)]
-            out_shape = down[0][2]
-            d_rules = torch.stack([
-                sc.build_conv_rules(tables[b], shape, down[b][0], down[b][1],
-                                    3, 2, pad)
-                for b in range(B)])
-            coords = torch.stack([d[0] for d in down])
-            valid = torch.stack([d[1] for d in down])
-            x = F.relu(self._sparse_conv(x, d_rules, stage[-1][0],
-                                         stage[-1][1], valid, engine))
-            shape = out_shape
-            if i + 1 == self.dense_from:
-                dense = torch.stack([sc.to_dense(x[b], coords[b], valid[b],
-                                                 shape) for b in range(B)])
-                mask = torch.stack([
-                    sc.to_dense(valid.new_ones((valid.shape[1], 1),
-                                               dtype=torch.float32),
-                                coords[b], valid[b], shape)[..., 0] > 0
+            out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
+            index = conv_index(lvl, out, 3, 2, pad, engine)
+            x = F.relu(self._sparse_conv(x, index, stage[-1][0],
+                                         stage[-1][1], out.valid, engine))
+            lvl = out
+            if not meta_chain and i + 1 == self.dense_from:
+                sites = lvl.sites()
+                dense = torch.stack([
+                    sc.to_dense(x[b], sites[b], lvl.valid[b], lvl.shape)
                     for b in range(B)])
+                ones = lvl.valid.new_ones((lvl.capacity, 1),
+                                          dtype=torch.float32)
+                mask = torch.stack([
+                    sc.to_dense(ones, sites[b], lvl.valid[b],
+                                lvl.shape)[..., 0] > 0 for b in range(B)])
                 return self._dense_tail(dense, mask, i + 1, engine)
-            tables = [sc.table_from_meta(coords[b], valid[b], down[b][4])
-                      for b in range(B)]
-            rules = subm_rules(tables, shape)
+            index = conv_index(lvl, lvl, 3, 1, 1, engine)
 
         ks_out, st_out = (3, 1, 1), (2, 1, 1)
-        down = [sc.build_downsample(coords[b], valid[b], shape, ks_out,
-                                    st_out, 0, self.out_capacity)
-                for b in range(B)]
-        out_shape = down[0][2]
-        o_rules = torch.stack([
-            sc.build_conv_rules(tables[b], shape, down[b][0], down[b][1],
-                                ks_out, st_out, 0)
-            for b in range(B)])
-        coords = torch.stack([d[0] for d in down])
-        valid = torch.stack([d[1] for d in down])
-        x = F.relu(self._sparse_conv(x, o_rules, self.conv_out[0],
-                                     self.conv_out[1], valid, engine))
-        dense = torch.stack([sc.to_dense(x[b], coords[b], valid[b],
-                                         out_shape) for b in range(B)])
+        out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
+        index = conv_index(lvl, out, ks_out, st_out, 0, engine)
+        x = F.relu(self._sparse_conv(x, index, self.conv_out[0],
+                                     self.conv_out[1], out.valid, engine))
+        sites = out.sites()
+        dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
+                                         out.shape) for b in range(B)])
         return self._collapse(dense)
 
     @staticmethod
@@ -234,7 +306,7 @@ class SparseEncoder(nn.Module):
         """Levels >= ``start`` and conv_out on the dense grid. x (B, D, H, W,
         C) is zero at inactive cells; mask (B, D, H, W)."""
         in_dtype = x.dtype
-        if engine == "cuda":
+        if engine != "plain":
             x = x.to(torch.bfloat16)
         n_stage = len(self.encoder_channels)
         k3 = (3, 3, 3)

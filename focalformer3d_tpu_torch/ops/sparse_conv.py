@@ -156,12 +156,6 @@ def build_table_csr(coords: torch.Tensor, valid: torch.Tensor,
     return VoxelTable(coords, valid, meta)
 
 
-def table_from_meta(coords_csr, valid_csr, meta) -> VoxelTable:
-    """Table over a CSR-ordered set whose column meta is already known (the
-    out_meta of ``build_downsample``)."""
-    return VoxelTable(coords_csr, valid_csr, meta)
-
-
 def build_conv_rules(in_table: VoxelTable, in_shape, out_coords, out_valid,
                      kernel_size, stride, padding) -> torch.Tensor:
     """Rulebook (K, V_out) int32: the input CSR position feeding each
@@ -287,26 +281,16 @@ def _bev_union(z, in_hw, out_hw, ky, kx, sy, sx, py, px):
     return o
 
 
-def build_downsample(coords, valid, in_shape, kernel_size, stride, padding,
-                     out_capacity: int):
-    """Active output set of a strided sparse conv.
-
-    Returns (out_coords (Vo, 3) int32, out_valid (Vo,), out_shape, overflow
-    count, out_meta). Output order is CSR; out_meta is the next level's
-    column index (``table_from_meta``). Output z-bitmasks are word
-    arithmetic on the input bitmasks, the BEV union is ky*kx strided
-    slices, and the coordinate list is one scatter per candidate output
-    cell of each input voxel."""
+def _downsample_from_bits(u0, u1, in_shape, kernel_size, stride, padding):
+    """Output column meta of a strided conv from the input columns' z-bit
+    words (unsigned, (H*W,) each). Returns (out_meta, out_shape, total)."""
     kz, ky, kx = _as_triple(kernel_size)
     sz, sy, sx = _as_triple(stride)
     pz, py, px = _as_triple(padding)
     D, H, W = in_shape
     out_shape = conv_out_shape(in_shape, kernel_size, stride, padding)
     Do, Ho, Wo = out_shape
-    dev = coords.device
-
-    in0, in1 = _column_bits(coords, valid, in_shape)
-    z0, z1 = _downsample_bits(in0[:-1], in1[:-1], D, Do, kz, sz, pz)
+    z0, z1 = _downsample_bits(u0, u1, D, Do, kz, sz, pz)
     o0 = _bev_union(z0.reshape(H, W), (H, W), (Ho, Wo), ky, kx, sy, sx,
                     py, px)
     o1 = _bev_union(z1.reshape(H, W), (H, W), (Ho, Wo), ky, kx, sy, sx,
@@ -315,6 +299,38 @@ def build_downsample(coords, valid, in_shape, kernel_size, stride, padding,
     out_meta = _meta_from_bits(torch.cat([o0.reshape(-1), zero]),
                                torch.cat([o1.reshape(-1), zero]))
     total = out_meta[-2, 2].to(torch.int64) + out_meta[-2, 3]
+    return out_meta, out_shape, total
+
+
+def downsample_meta(meta, in_shape, kernel_size, stride, padding):
+    """Output-set column meta of a strided sparse conv from the input meta
+    alone: word arithmetic on the column bitmasks and ky*kx strided slices,
+    no per-voxel scatter (the coordinate list, where needed, comes from
+    ``plan_builder.colz_from_meta``). Returns (out_meta, out_shape, total
+    active outputs as a 0-dim int64 tensor)."""
+    return _downsample_from_bits(_u32(meta[:-1, 0]), _u32(meta[:-1, 1]),
+                                 in_shape, kernel_size, stride, padding)
+
+
+def build_downsample(coords, valid, in_shape, kernel_size, stride, padding,
+                     out_capacity: int):
+    """Active output set of a strided sparse conv.
+
+    Returns (out_coords (Vo, 3) int32, out_valid (Vo,), out_shape, overflow
+    count, out_meta). Output order is CSR; out_meta is the next level's
+    column index (``VoxelTable(out_coords, out_valid, out_meta)``). Output
+    z-bitmasks are word arithmetic on the input bitmasks, the BEV union is
+    ky*kx strided slices, and the coordinate list is one scatter per
+    candidate output cell of each input voxel."""
+    kz, ky, kx = _as_triple(kernel_size)
+    sz, sy, sx = _as_triple(stride)
+    pz, py, px = _as_triple(padding)
+    dev = coords.device
+
+    in0, in1 = _column_bits(coords, valid, in_shape)
+    out_meta, out_shape, total = _downsample_from_bits(
+        in0[:-1], in1[:-1], in_shape, kernel_size, stride, padding)
+    Do, Ho, Wo = out_shape
 
     # coordinate list: each input voxel writes its candidate output cells
     # (ceil(k/s) per dim) at their CSR rows; duplicates write equal values

@@ -42,7 +42,8 @@ from focalformer3d_tpu_torch.core import box_coder as tbc
 from focalformer3d_tpu_torch.core import nms as tnms
 from focalformer3d_tpu_torch.models import detector as tdet
 from focalformer3d_tpu_torch.models import layers as tlayers
-from focalformer3d_tpu_torch.models.sparse_encoder import SparseEncoder
+from focalformer3d_tpu_torch.models.sparse_encoder import (ENGINES,
+                                                           SparseEncoder)
 from focalformer3d_tpu_torch.ops import bilinear as tbil
 from focalformer3d_tpu_torch.ops import msda as tmsda
 from focalformer3d_tpu_torch.utils import ref_keys as tref_keys
@@ -239,6 +240,66 @@ def test_sparse_encoder_vs_jax_voxel_engine(setup, dense_from):
     if dense_from == 2:
         _close(got, setup["inter"]["pts_middle_encoder"], 2e-4,
                "sparse encoder BEV in the full model")
+
+
+@pytest.mark.parametrize("engine,dense_from", [("cuda_mxu", 4),
+                                               ("cuda_zrun", 2)])
+def test_kernel_engines_vs_jax_voxel_engine(setup, engine, dense_from):
+    """The meta-chain (K2 + K1) and z-run (K3) engines on the CPU, through
+    their kernels' plain versions (bf16 operands), against JAX ``voxel`` at
+    the dense boundary each computes (``cuda_mxu`` is all-sparse, the eval
+    path of ``cuda_zrun`` dense from L2): 1e-2 of the BEV scale, the bf16
+    tolerance of the ``cuda`` engine. Against ``cuda``, which runs the same
+    plain versions over the torch-op rulebooks, the BEV is equal. The
+    capacities hold every level of this scan: past a capacity the meta
+    chain keeps the dropped voxels in its metas, as JAX ``pallas_mxu``
+    does, and its active sets part from the coordinate engines'."""
+    kw = dict(_enc_kwargs(setup["jcfg"]), capacities=(512, 1024, 512, 256),
+              out_capacity=256)
+    enc = JaxEnc(engine="voxel", assume_csr=True, dense_from=dense_from,
+                 **kw)
+    v, vox = setup["variables"], setup["jvox"]
+    ev = {"params": v["params"]["pts_middle_encoder"],
+          "batch_stats": v["batch_stats"]["pts_middle_encoder"]}
+    ref = jax.jit(lambda e, f, c, m: enc.apply(e, f, c, m, False))(
+        ev, vox["features"], vox["coords"], vox["voxel_mask"])
+    args = (_t(vox["features"]), _t(vox["coords"]), _t(vox["voxel_mask"]))
+    bev = {}
+    for e in (engine, "cuda"):
+        tenc = SparseEncoder(in_channels=5, engine=e, dense_from=dense_from,
+                             **kw)
+        tenc.load_state_dict(
+            setup["tmodel"].pts_middle_encoder.state_dict(), strict=True)
+        bev[e] = tenc(*args)
+    _close(bev[engine], ref, 1e-2, f"{engine} BEV (bf16)")
+    assert torch.equal(bev[engine], bev["cuda"])
+
+
+@pytest.mark.parametrize("engine", ["cuda_mxu", "cuda_zrun"])
+def test_kernel_engine_slice_on_cpu(setup, engine):
+    """The whole Tiny_L slice on each new engine (bf16 compute, plain
+    kernel paths) gives finite boxes of the reference's shape."""
+    tcfg = tconfigs.with_compute_dtype(
+        dataclasses.replace(setup["tcfg"], sparse_engine=engine), "bfloat16")
+    m = tdet.FocalFormer3D(tcfg).eval()
+    m.load_state_dict(setup["tmodel"].state_dict(), strict=True)
+    vox = tdet.preprocess_points(tcfg, _t(setup["pts"]), _t(setup["mask"]))
+    dec = m.get_bboxes(m(vox), 200)
+    assert dec["bboxes"].shape == setup["jdec"]["bboxes"].shape
+    assert torch.isfinite(dec["bboxes"]).all()
+    assert torch.isfinite(dec["scores"]).all()
+
+
+def test_one_state_dict_loads_into_every_engine(setup):
+    """The engines add no parameters: the state dict converted from the JAX
+    variables loads strictly into the model on each of them."""
+    sd = from_jax_variables(setup["variables"], setup["tcfg"])
+    for engine in ENGINES:
+        m = tdet.FocalFormer3D(
+            dataclasses.replace(setup["tcfg"], sparse_engine=engine))
+        m.load_state_dict(sd, strict=True)
+        assert m.pts_middle_encoder.engine == engine
+        assert set(m.state_dict()) == set(sd)
 
 
 def test_second_fpn_vs_jax(setup):

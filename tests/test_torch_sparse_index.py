@@ -109,7 +109,7 @@ def test_downsample_and_strided_rules(shape, ks, stride, pad, cap):
     tr = tsc.build_conv_rules(tt, shape, toc, tov, ks, stride, pad)
     _eq(tr, jr)
     # the output set's meta indexes the next level: its subm rulebook
-    _eq(tsc.build_subm_rules(tsc.table_from_meta(toc, tov, tmeta), tshape),
+    _eq(tsc.build_subm_rules(tsc.VoxelTable(toc, tov, tmeta), tshape),
         jsc.build_subm_rules(jsc.table_from_meta(joc, jov, jmeta), jshape,
                              3, use_positions=True))
 
