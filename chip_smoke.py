@@ -6,9 +6,10 @@ Phases (any failure raises and exits non-zero):
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. build: compiles the three kernels from ``focalformer3d_tpu_torch/csrc/``
-   with one nvcc each, all started together (K1 sparse-conv apply, K2
-   rulebook builder, K3 z-run sparse-conv apply); prints the seconds of each.
+2. build: compiles the four kernel sources of
+   ``focalformer3d_tpu_torch/csrc/`` with one nvcc each, all started
+   together (K1 sparse-conv apply, which also runs dx; the dW kernel; K2
+   rulebook builder; K3 z-run sparse-conv apply); prints the seconds of each.
 3. kernels vs plain, on one radial 200k-point scan (the scan ``bench.py``
    builds), at the shapes the encoder engines give them:
    - index builds: the torch-op build of engine ``cuda``, the meta chain of
@@ -32,6 +33,36 @@ Phases (any failure raises and exits non-zero):
    ``cuda_zrun`` against the plain engine (dense from L2, the eval path),
    and on the all-sparse ``cuda_mxu`` against the plain engine with
    ``dense_from=4``: max |diff| / max |plain| <= 1e-2.
+6. K1's backward, at every conv of one training batch (two radial scans,
+   the training voxel cap, engine ``cuda`` with the training dense boundary
+   L3): ``sparse_conv_train`` (K1 forward; dx by K1 on the transposed
+   rulebook; dW by the dW kernel) on random bf16-valued features and
+   weights and a random f32 cotangent, against autograd through its plain
+   version with the same rounding (``apply_conv_bf16_plain``): forward, dx
+   and dW each within 1e-3 of the plain result's scale (the two differ only
+   in the order of f32 sums). Then each kernel alone, timed against its
+   plain version (CUDA events, median of 20).
+7. training: FocalFormer3D_L at full width and depth in float32, batch 2,
+   engine ``cuda``, ``TRAIN_STEPS`` steps of ``training.train_step`` on the
+   same two scans with their GT boxes: every loss term and ``grad_norm``
+   finite on every step, every parameter and every batch-norm running mean
+   moved, K1 forward / dx / dW launches per step exactly 16 / 15 / 16; ms
+   per step by host clock around a synchronise (the first step apart, the
+   median of the rest), its split into voxelize / forward / loss /
+   backward / optimizer by CUDA events, and peak memory per phase.
+8. one more training step under ``torch.profiler``: kernels launched,
+   device busy share, the largest kernels with their launches, and the
+   aten ops that launched the top three.
+
+The ``kernels`` line carries, per kernel, its launches on the main paths,
+its time and its plain version's (per eval scan for K1 forward, K2 and K3;
+per training step for dx and dW, and in ``train`` for K1 forward), and its
+bound: the larger of the bytes it must move (each input read once, each
+output written once) over 3.35 TB/s and its multiply-adds over the peak of
+their type (989 TFLOP/s bf16 for K1 and K3, whose operands are bf16; 67
+TFLOP/s float32 for dW, whose cotangent stays float32), counted from this
+run's rulebooks (rules that hit, at valid output sites). No single PyTorch
+call computes a sparse conv or a rulebook, so ``library_ms`` is null.
 
 Imports nothing of JAX and nothing of the JAX package
 (``focalformer3d_tpu``): weights and scans come from the port's own numpy
@@ -42,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,6 +84,9 @@ import torch
 
 N_POINTS = 200_000
 SCAN_SEEDS = (0, 1, 2)
+TRAIN_SEED = 10
+TRAIN_BATCH = 2
+TRAIN_STEPS = 4
 KERNEL_TOL = 1e-3
 ENGINE_TOL = 1e-2
 REPS = 20
@@ -59,15 +94,51 @@ ENGINES = ("cuda", "cuda_mxu", "cuda_zrun")
 # (K1, K2, K3) launches per scan on each engine
 LAUNCHES_PER_SCAN = {"cuda": (11, 0, 0), "cuda_mxu": (21, 8, 0),
                      "cuda_zrun": (0, 0, 11)}
+# K1 forward / dx / dW launches per training step on ``cuda`` (dense from
+# L3): 16 sparse convs (conv_input; per level L0-L2 four subm convs and the
+# strided one); conv_input's voxel features need no dx
+TRAIN_LAUNCHES_PER_STEP = {"forward": 16, "dx": 15, "wgrad": 16}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense, published
 CSRC = "focalformer3d_tpu_torch/csrc/"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "sparse_conv": (CSRC + "sparse_conv.cu",
                     "focalformer3d_tpu/ops/sparse_conv_pallas.py:357"),
+    "sparse_conv_dx": (CSRC + "sparse_conv.cu",
+                       "focalformer3d_tpu/ops/sparse_conv_pallas.py:715"),
+    "sparse_conv_wgrad": (CSRC + "sparse_conv_wgrad.cu",
+                          "focalformer3d_tpu/ops/sparse_conv_pallas.py:726"),
     "plan_rules": (CSRC + "plan_builder.cu",
                    "focalformer3d_tpu/ops/plan_builder.py:129"),
     "sparse_conv_zrun": (CSRC + "sparse_conv_zrun.cu",
                          "focalformer3d_tpu/ops/sparse_conv_zrun.py:312"),
 }
+
+
+class Bound:
+    """Least time of a run of launches: per launch the larger of bytes over
+    the memory rate and operations over the peak of their type, summed;
+    ``keys()`` names the side that bounds most of the sum."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.parts = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, nbytes, flops, peak, times=1):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[peak] * 1e3
+        side = "bytes" if t_bytes >= t_ops else "operations"
+        self.ms += times * max(t_bytes, t_ops)
+        self.parts[side] += times * max(t_bytes, t_ops)
+
+    def keys(self):
+        return {"bound_ms": self.ms,
+                "bound_by": max(self.parts, key=self.parts.get)}
+
+
+def _hits(rules, v_in, out_valid):
+    """Rules that read an input row, at valid output sites."""
+    return int(((rules < v_in) & out_valid[:, None]).sum())
 
 
 def _wrappers():
@@ -124,9 +195,11 @@ def phase_build():
 
     k1, k2, k3 = _wrappers()
     t0 = time.perf_counter()
-    secs = cuda_build.build(k1.SOURCE, k2.SOURCE, k3.SOURCE)
+    secs = cuda_build.build(k1.SOURCE, k1.WGRAD_SOURCE, k2.SOURCE,
+                            k3.SOURCE)
     for k in (k1, k2, k3):
         k._load()
+    k1._load_wgrad()
     print("build: " + ", ".join(f"{stem} {s:.2f} s" for stem, s in
                                 secs.items())
           + f" (in parallel; all loaded after "
@@ -134,13 +207,15 @@ def phase_build():
     return secs
 
 
-def _walk(cfg, vox, meta_chain, n_levels):
-    """The encoder's index chain on sample 0 of a scan, levels 0 ..
-    n_levels - 1: [(name, src level, dst level, kernel, stride, padding)],
-    subm then down per level, conv_out after the last stage."""
+def _walk(cfg, vox, meta_chain, n_levels, batch=1):
+    """The encoder's index chain on the first ``batch`` samples of a scan
+    batch, levels 0 .. n_levels - 1: [(name, src level, dst level, kernel,
+    stride, padding)], subm then down per level, conv_out after the last
+    stage."""
     from focalformer3d_tpu_torch.models.sparse_encoder import Level
 
-    lvl = Level.from_voxels(vox["coords"][:1], vox["voxel_mask"][:1],
+    lvl = Level.from_voxels(vox["coords"][:batch],
+                            vox["voxel_mask"][:batch],
                             tuple(cfg.sparse_shape), meta_chain)
     geoms = []
     for i in range(n_levels):
@@ -212,6 +287,7 @@ def phase_k2(cfg, vox, mxu_geoms):
 
     _, k2, _ = _wrappers()
     k2_ms = plain_ms = torch_ms = 0.0
+    bound = Bound()  # meta rows and sites read, rules written; no FLOPs
     rules_by_geom = []
     for name, src, dst, ks, st, pad in mxu_geoms:
         args = (src.meta, dst.colz, src.capacity, ks, st, pad, src.shape,
@@ -242,12 +318,16 @@ def phase_k2(cfg, vox, mxu_geoms):
               flush=True)
         k2_ms, plain_ms, torch_ms = (k2_ms + ms, plain_ms + p_ms,
                                      torch_ms + t_ms)
+        bound.add(src.meta.numel() * src.meta.element_size()
+                  + dst.colz.numel() * dst.colz.element_size()
+                  + got.numel() * got.element_size(), 0, "bf16")
         rules_by_geom.append(got)
     print(f"K2 per scan (8 rulebooks): kernel {k2_ms:.3f} ms, decode_rules "
-          f"{plain_ms:.3f} ms, build_conv_rules {torch_ms:.3f} ms",
-          flush=True)
+          f"{plain_ms:.3f} ms, build_conv_rules {torch_ms:.3f} ms, bound "
+          f"{bound.ms:.4f} ms", flush=True)
     return rules_by_geom, {"max_abs_err": 0, "ms": k2_ms,
-                           "plain_ms": plain_ms, "torch_op_ms": torch_ms}
+                           "plain_ms": plain_ms, "torch_op_ms": torch_ms,
+                           **bound.keys()}
 
 
 def _conv_vs_plain(tag, name, run, plain):
@@ -272,6 +352,7 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
     jobs += [(c, mxu_geoms, mxu_rules) for c in _convs(cfg, mxu_geoms)
              if c[1] >= n_coord]
     max_err, per_scan = 0.0, {}
+    bound = Bound()  # the 11 convs of a ``cuda`` scan
     for (name, g, c, cout, n), geoms, rules_by_geom in jobs:
         _, src, dst, *_rest = geoms[g]
         rules = rules_by_geom[g]
@@ -289,6 +370,9 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
               flush=True)
         max_err = max(max_err, err)
         per_scan[name] = (n, ms, p_ms)
+        if geoms is coord_geoms:
+            _conv_bound(bound, rules, src.capacity, dst.valid, c, cout,
+                        times=n)
 
     def total(names):
         return (sum(per_scan[x][0] * per_scan[x][1] for x in names),
@@ -298,16 +382,31 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
     ms, plain_ms = total(cuda_names)
     mxu_ms, mxu_plain = total(list(per_scan))
     print(f"K1 per scan: cuda (11 convs) kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; cuda_mxu (21 convs) kernel {mxu_ms:.3f} ms, "
-          f"plain {mxu_plain:.3f} ms", flush=True)
+          f"{plain_ms:.3f} ms, bound {bound.ms:.4f} ms; cuda_mxu (21 convs) "
+          f"kernel {mxu_ms:.3f} ms, plain {mxu_plain:.3f} ms", flush=True)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "ms_cuda_mxu": mxu_ms, "plain_ms_cuda_mxu": mxu_plain}
+            **bound.keys(), "ms_cuda_mxu": mxu_ms,
+            "plain_ms_cuda_mxu": mxu_plain}
+
+
+def _conv_bound(bound, rules, v_in, out_valid, c, cout, index_numel=None,
+                times=1):
+    """A forward conv (K1, K3): bf16 features and weights, the int32 index,
+    bias and out_valid read once, the f32 output written once; 2 FLOPs per
+    hit and (c, cout) pair, at the bf16 peak."""
+    B, v_out = out_valid.shape
+    K = rules.shape[1]
+    nbytes = (B * v_in * c * 2 + (index_numel or rules.numel()) * 4
+              + K * c * cout * 2 + cout * 4 + B * v_out
+              + B * v_out * cout * 4)
+    bound.add(nbytes, 2 * _hits(rules, v_in, out_valid) * c * cout, "bf16",
+              times)
 
 
 def phase_k3(cfg, vox, device):
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
     from focalformer3d_tpu_torch.ops.sparse_conv_zrun import (
-        apply_conv_zrun_plain)
+        apply_conv_zrun_plain, zrun_rules)
 
     _, _, k3 = _wrappers()
     gen = torch.Generator(device=device)
@@ -316,6 +415,7 @@ def phase_k3(cfg, vox, device):
     codes = [conv_index(src, dst, ks, st, pad, "cuda_zrun")
              for _, src, dst, ks, st, pad in geoms]
     max_err = k3_ms = plain_ms = 0.0
+    bound = Bound()  # hits counted on the rulebook the codes encode
     for name, g, c, cout, n in _convs(cfg, geoms):
         _, src, dst, *_rest = geoms[g]
         feats, w, bias = _rand_conv(gen, device, src.capacity, c,
@@ -331,9 +431,13 @@ def phase_k3(cfg, vox, device):
               f"{p_ms:.4f} ms", flush=True)
         max_err = max(max_err, err)
         k3_ms, plain_ms = k3_ms + n * ms, plain_ms + n * p_ms
+        _conv_bound(bound, zrun_rules(codes[g], src.capacity), src.capacity,
+                    dst.valid, c, cout, index_numel=codes[g].numel(),
+                    times=n)
     print(f"K3 per scan (11 convs): kernel {k3_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms", flush=True)
-    return {"max_abs_err": max_err, "ms": k3_ms, "plain_ms": plain_ms}
+          f"{plain_ms:.3f} ms, bound {bound.ms:.4f} ms", flush=True)
+    return {"max_abs_err": max_err, "ms": k3_ms, "plain_ms": plain_ms,
+            **bound.keys()}
 
 
 def _model(cfg, device):
@@ -442,6 +546,261 @@ def phase_engine_parity(cfg, model, device):
               f"(limit {ENGINE_TOL})", flush=True)
 
 
+def _train_batch(cfg, device):
+    from focalformer3d_tpu_torch.data import synthetic
+
+    batch = synthetic.make_batch(
+        np.random.RandomState(TRAIN_SEED), batch_size=TRAIN_BATCH,
+        n_points=N_POINTS, n_boxes=24, max_gts=32,
+        num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial",
+    )
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def phase_k1_grad(cfg, batch, device):
+    """K1's differentiable conv at each conv of a training batch (engine
+    ``cuda``, dense from L3), against autograd through its plain version;
+    then each kernel alone against its plain version. Returns per kernel
+    use (forward, dx, wgrad) the max error, per-step ms and bound."""
+    from focalformer3d_tpu_torch.models.detector import preprocess_points
+    from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
+    from focalformer3d_tpu_torch.ops import sparse_conv as sc
+
+    k1, _, _ = _wrappers()
+    bf16 = torch.bfloat16
+    vox = preprocess_points(cfg, batch["points"], batch["points_mask"],
+                            train=True)
+    B = vox["coords"].shape[0]
+    geoms = _walk(cfg, vox, False, cfg.sparse_dense_from, batch=B)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    stats = {kind: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                    "bound": Bound()}
+             for kind in ("forward", "dx", "wgrad")}
+    for name, g, c, cout, n in _convs(cfg, geoms):
+        _, src, dst, ks, st, pad = geoms[g]
+        rules = conv_index(src, dst, ks, st, pad, "cuda")
+        rules_t = rules if st == 1 else torch.stack([
+            sc.transpose_rules(rules[b], src.capacity) for b in range(B)])
+        K = rules.shape[1]
+        x = torch.where(src.valid[..., None], torch.randn(
+            B, src.capacity, c, device=device, generator=gen), 0.0)
+        w = (torch.randn(K, c, cout, device=device, generator=gen)
+             * (2.0 / (K * c)) ** 0.5)
+        cot = torch.where(dst.valid[..., None], torch.randn(
+            B, dst.capacity, cout, device=device, generator=gen), 0.0)
+        need_dx = name != "conv_input"  # as on the main path
+        res = {}
+        for tag in ("kernel", "plain"):
+            xx = x.clone().requires_grad_(need_dx)
+            ww = w.clone().requires_grad_(True)
+            with torch.enable_grad():
+                if tag == "kernel":
+                    y = k1.sparse_conv_train(xx, rules, rules_t, ww,
+                                             dst.valid)
+                else:
+                    y = k1.apply_conv_bf16_plain(xx, rules, ww, dst.valid)
+                y.backward(cot)
+            res[tag] = {"forward": y.detach(), "dx": xx.grad,
+                        "wgrad": ww.grad}
+        torch.cuda.synchronize()
+
+        xb, wb = x.to(bf16), w.to(bf16)
+        w_t = wb.flip(0).transpose(1, 2).contiguous().float()
+        every = torch.ones(B, src.capacity, dtype=torch.bool, device=device)
+        runs = {
+            "forward": (lambda: k1.sparse_conv(xb, rules, wb, dst.valid),
+                        lambda: k1.apply_conv_plain(
+                            xb.float(), rules, wb.float(), dst.valid)),
+            "dx": (lambda: k1.conv_dx(cot, rules_t, wb),
+                   lambda: k1.apply_conv_plain(
+                       cot.to(bf16).float(), rules_t, w_t, every)),
+            "wgrad": (lambda: k1.conv_wgrad(xb, cot, rules),
+                      lambda: k1.wgrad_plain(xb, cot, rules)),
+        }
+        hits = _hits(rules, src.capacity, dst.valid)
+        flops = 2 * hits * c * cout
+        w_elems = K * c * cout
+        nbytes = {  # each input read once, each output written once
+            "dx": (B * dst.capacity * cout * 4 + rules_t.numel() * 4
+                   + w_elems * 2 + B * src.capacity * c * 4),
+            "wgrad": (B * src.capacity * c * 2 + B * dst.capacity * cout * 4
+                      + rules.numel() * 4 + w_elems * 4),
+        }
+        line = []
+        for kind, (run, plain) in runs.items():
+            if kind == "dx" and not need_dx:
+                continue
+            got, ref = res["kernel"][kind], res["plain"][kind]
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            if not rel <= KERNEL_TOL:
+                raise RuntimeError(f"K1 {kind} {name}: rel err {rel:.3g} > "
+                                   f"{KERNEL_TOL}")
+            ms, p_ms = _median_ms(run), _median_ms(plain)
+            s = stats[kind]
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["ms"] += n * ms
+            s["plain_ms"] += n * p_ms
+            if kind == "forward":
+                _conv_bound(s["bound"], rules, src.capacity, dst.valid, c,
+                            cout, times=n)
+            else:
+                s["bound"].add(nbytes[kind], flops,
+                               "f32" if kind == "wgrad" else "bf16", times=n)
+            line.append(f"{kind} rel {rel:.3g}, {ms:.4f} / {p_ms:.4f} ms")
+        print(f"K1 train {name} x{n}: C {c} -> {cout}, K {K}, V_in "
+              f"{src.capacity} -> V_out {dst.capacity} (B {B}, "
+              f"{int(dst.valid.sum())} active, {hits} hits); kernel / plain: "
+              + "; ".join(line), flush=True)
+    out = {}
+    for kind, s in stats.items():
+        bound = s.pop("bound")
+        out[kind] = {**s, **bound.keys()}
+        print(f"K1 {kind} per training step ({TRAIN_LAUNCHES_PER_STEP[kind]}"
+              f" launches): kernel {s['ms']:.3f} ms, plain "
+              f"{s['plain_ms']:.3f} ms, bound {bound.ms:.4f} ms "
+              f"({out[kind]['bound_by']})", flush=True)
+    return out
+
+
+def phase_train(cfg, batch, device):
+    """``TRAIN_STEPS`` training steps of FocalFormer3D_L on engine ``cuda``;
+    returns the K1 forward / dx / dW launches, counted from zero just
+    before the first step and read just after the last."""
+    from focalformer3d_tpu_torch.models.detector import FocalFormer3D
+    from focalformer3d_tpu_torch.training import optim, train_step
+    from focalformer3d_tpu_torch.training.losses import LossConfig
+    from focalformer3d_tpu_torch.training.train_step import PHASES
+    from focalformer3d_tpu_torch.utils.ref_keys import make_fake_state_dict
+
+    k1, _, _ = _wrappers()
+    model = FocalFormer3D(cfg)
+    model.load_state_dict(make_fake_state_dict(model, seed=0), strict=True)
+    model = model.to(device)
+    tx = optim.make_optimizer(total_steps=100)
+    opt_state = tx.init(list(model.parameters()))
+    # FocalFormer3D_L's loss config is LossConfig's defaults
+    step = train_step.make_train_step(cfg, LossConfig(), tx)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, split, peaks = [], [], []
+    k1.reset_launch_count()
+    for i in range(TRAIN_STEPS):
+        events, mem = [], []
+
+        def mark(_name):  # no synchronise: an event and the allocator
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            mem.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+        t0 = time.perf_counter()
+        mark("start")
+        metrics = step(model, opt_state, batch, gen, mark)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        split.append([a.elapsed_time(b)
+                      for a, b in zip(events[:-1], events[1:])])
+        peaks.append(mem[1:])
+        vals = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in vals.items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"train step {i}: non-finite {bad}")
+        print(f"train step {i}: {wall[-1]:.1f} ms; " + ", ".join(
+            f"{k} {vals[k]:.5g}" for k in sorted(vals)), flush=True)
+    launches = {kind: k1.launch_count(kind)
+                for kind in TRAIN_LAUNCHES_PER_STEP}
+    want = {kind: n * TRAIN_STEPS
+            for kind, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    if launches != want:
+        raise RuntimeError(f"train: K1 forward/dx/dW launched {launches} "
+                           f"times in {TRAIN_STEPS} steps, expected {want}")
+    peak = max(max(p) for p in peaks)
+    phase_peak = [max(p[j] for p in peaks) for j in range(len(peaks[0]))]
+    after = model.state_dict()
+    params = [k for k, _ in model.named_parameters()]
+    still = [k for k in params if torch.equal(after[k], before[k])]
+    stats = [k for k in after if k.endswith("running_mean")]
+    still_bn = [k for k in stats if torch.equal(after[k], before[k])]
+    if still or still_bn:
+        raise RuntimeError(f"train: unchanged after {TRAIN_STEPS} steps: "
+                           f"{(still + still_bn)[:8]}")
+    rest = split[1:]
+    med = [statistics.median(s[j] for s in rest) for j in range(len(PHASES))]
+    print(f"train: FocalFormer3D_L float32, batch {TRAIN_BATCH}, engine "
+          f"cuda: ms/step first {wall[0]:.1f}, then "
+          + ", ".join(f"{t:.1f}" for t in wall[1:])
+          + f" (median {statistics.median(wall[1:]):.1f}); split median ms "
+          + ", ".join(f"{p} {t:.1f}" for p, t in zip(PHASES, med))
+          + f" (first step: " + ", ".join(f"{t:.1f}" for t in split[0])
+          + f"); peak memory {peak / 2**30:.2f} GiB (by phase, GiB: "
+          + ", ".join(f"{p} {m / 2**30:.2f}"
+                      for p, m in zip(PHASES, phase_peak))
+          + f"); {len(params)} "
+          f"parameters and {len(stats)} running means all moved; K1 "
+          f"launches {launches}", flush=True)
+    _profile_step(lambda: step(model, opt_state, batch, gen))
+    return launches
+
+
+def _profile_step(run):
+    """One more step under ``torch.profiler`` (after the counted, timed
+    ones): kernels launched, device busy time (union of kernel intervals)
+    against the step's host time, and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:  # union of intervals, us
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name, count = {}, {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"train profile (one step, profiler on): {len(kernels)} kernels, "
+          f"device busy {busy / 1e3:.1f} ms of {wall:.1f} ms host time "
+          f"(share {busy / 1e3 / wall:.2f}); top kernels ms (launches): "
+          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ({count[n]})" for n, t in top),
+          flush=True)
+    # who launched the three largest: the outermost aten op above each
+    # launch, with its input shapes, most time first (the profiler can list
+    # one kernel under several ops, so only the order is printed)
+    owners = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        op, p = e, e.cpu_parent
+        while p is not None:
+            if p.name.startswith("aten::"):
+                op = p
+            p = p.cpu_parent
+        label = f"{op.name} {op.input_shapes}"[:110]
+        for k in e.kernels:
+            d = owners.setdefault(k.name, {})
+            d[label] = d.get(label, 0.0) + k.duration
+    for name, _ in top[:3]:
+        ops = sorted(owners.get(name, {}).items(), key=lambda kv: -kv[1])
+        print(f"train profile: {name[:60]} launched by: "
+              + "; ".join(lab for lab, _ in ops[:3]), flush=True)
+
+
 def main():
     device = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -471,19 +830,37 @@ def main():
     by_path = {engine: phase_slice(cfg, model, engine, scans)
                for engine in ENGINES}
     phase_engine_parity(cfg, model, device)
+    del model, scans
+    torch.cuda.empty_cache()
+
+    # training: float32 (FocalFormer3D_L's compute dtype), engine cuda
+    tcfg = dataclasses.replace(get_config("FocalFormer3D_L")["model"],
+                               sparse_engine="cuda")
+    batch = _train_batch(tcfg, device)
+    grad = phase_k1_grad(tcfg, batch, device)
+    train = phase_train(tcfg, batch, device)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "focalformer3d_tpu")]
+        "jax", "jaxlib", "flax", "optax", "focalformer3d_tpu")]
     if jaxy:
         raise RuntimeError(f"JAX or the JAX package was imported: {jaxy[:5]}")
+    eval_paths = {f"eval_{e}": n for e, n in by_path.items()}
+    rows = [  # (name, stats, launches by path)
+        ("sparse_conv", {**k1, "train": grad["forward"]},
+         {**{p: n[0] for p, n in eval_paths.items()},
+          "train_cuda": train["forward"]}),
+        ("sparse_conv_dx", grad["dx"], {"train_cuda": train["dx"]}),
+        ("sparse_conv_wgrad", grad["wgrad"],
+         {"train_cuda": train["wgrad"]}),
+        ("plan_rules", k2, {p: n[1] for p, n in eval_paths.items()}),
+        ("sparse_conv_zrun", k3, {p: n[2] for p, n in eval_paths.items()}),
+    ]
     kernels = []
-    for i, (name, stats) in enumerate(zip(KERNELS, (k1, k2, k3))):
+    for name, stats, by in rows:
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": sum(n[i] for n in by_path.values()),
-            "launches_by_path": {e: n[i] for e, n in by_path.items()},
-            **stats})
+            "replaces": replaces, "launches": sum(by.values()),
+            "launches_by_path": by, "library_ms": None, **stats})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Ported box decoding and selection."""
+"""Ported box codec, selection, losses, targets and assignment."""

@@ -1,7 +1,7 @@
-"""TransFusion-style box decoding from BEV-grid units to world boxes.
+"""TransFusion-style box codec between world boxes and BEV-grid units.
 
-Port of the decode half of ``focalformer3d_tpu/core/box_coder.py``
-(``decode_center``, ``decode_box``, ``decode``): fixed-shape outputs plus a
+Port of ``focalformer3d_tpu/core/box_coder.py`` (``encode``,
+``decode_center``, ``decode_box``, ``decode``): fixed-shape outputs plus a
 validity mask instead of the reference's boolean filtering.
 """
 from __future__ import annotations
@@ -11,6 +11,26 @@ from typing import Dict, Optional
 import torch
 
 from ..configs import BBoxCoderConfig
+
+
+def encode(cfg: BBoxCoderConfig, boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7|9) world boxes -> (..., code_size) regression targets: xy in
+    grid units, z bottom -> gravity centre, log dims, (sin, cos) yaw and,
+    for code_size 10, the velocity (zero when the boxes carry none)."""
+    sx, sy = cfg.grid_step
+    out = [(boxes[..., 0] - cfg.pc_range[0]) / sx,
+           (boxes[..., 1] - cfg.pc_range[1]) / sy,
+           boxes[..., 2] + 0.5 * boxes[..., 5],
+           torch.log(boxes[..., 3] + 1e-6),
+           torch.log(boxes[..., 4] + 1e-6),
+           torch.log(boxes[..., 5] + 1e-6),
+           torch.sin(boxes[..., 6]),
+           torch.cos(boxes[..., 6])]
+    if cfg.code_size == 10:
+        vel = boxes[..., 7:9] if boxes.shape[-1] >= 9 else \
+            boxes.new_zeros(boxes.shape[:-1] + (2,))
+        out += [vel[..., 0], vel[..., 1]]
+    return torch.stack(out, dim=-1)
 
 
 def decode_center(cfg: BBoxCoderConfig, center_xy: torch.Tensor):

@@ -1,1 +1,1 @@
-"""Ported models (eval): sparse encoder, BEV backbone, neck, head."""
+"""Ported models: sparse encoder, BEV backbone, neck, head."""

@@ -1,17 +1,21 @@
-"""FocalFormer3D detector, LiDAR-only single-scan inference.
+"""FocalFormer3D detector, LiDAR only.
 
 Port of ``focalformer3d_tpu/models/detector.py`` (``preprocess_points``,
-``FocalFormer3D``, ``get_bboxes``) for the path ``bench.py`` times:
-voxelization with the mean VFE -> SparseEncoder -> SECOND -> SECONDFPN ->
-FocalEncoder -> FocalDecoder -> boxes. Submodules carry the reference
-checkpoint's top-level names (``pts_middle_encoder``, ``pts_backbone``,
-``pts_neck``, ``imgpts_neck``, ``pts_bbox_head``). Eval only: the sparse
-encoder uses ``sparse_dense_from_eval``, batch norm its running statistics.
+``FocalFormer3D``, ``get_bboxes``): voxelization with the mean VFE ->
+SparseEncoder -> SECOND -> SECONDFPN -> FocalEncoder -> FocalDecoder ->
+boxes. Submodules carry the reference checkpoint's top-level names
+(``pts_middle_encoder``, ``pts_backbone``, ``pts_neck``, ``imgpts_neck``,
+``pts_bbox_head``). The module's ``training`` flag is the JAX ``train``
+argument: in eval the sparse encoder's dense boundary is
+``sparse_dense_from_eval`` and batch norm uses its running statistics; in
+training the boundary is ``sparse_dense_from``, batch norm uses batch
+statistics and updates the running ones, and the head adds its denoising
+GT groups and dropouts (``training/train_step.py`` drives it).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -29,7 +33,8 @@ def preprocess_points(cfg: DetectorConfig, points: torch.Tensor,
                       ) -> Dict[str, torch.Tensor]:
     """Batched hard voxelization + mean VFE. points (B, N, D), mask (B, N).
 
-    Inference uses the test-time voxel cap when the config sets one."""
+    Inference uses the test-time voxel cap when the config sets one;
+    ``train=True`` keeps the training cap ``max_voxels``."""
     if cfg.vfe_type != "HardSimpleVFE":
         raise NotImplementedError(f"vfe {cfg.vfe_type!r} is not ported")
     vcfg = cfg.voxel
@@ -64,6 +69,7 @@ class FocalFormer3D(nn.Module):
             out_capacity=cfg.out_capacity,
             engine=cfg.sparse_engine,
             dense_from=cfg.sparse_dense_from_eval,
+            train_dense_from=cfg.sparse_dense_from,
         )
         self.pts_backbone = SECOND(
             cfg.sparse_out_channels * _sparse_out_z(cfg),
@@ -76,16 +82,24 @@ class FocalFormer3D(nn.Module):
         )
         self.pts_bbox_head = fd.FocalDecoder(cfg.decoder)
 
-    def forward(self, voxel_data: Dict[str, torch.Tensor]
+    def forward(self, voxel_data: Dict[str, torch.Tensor],
+                gt_boxes: Optional[torch.Tensor] = None,
+                gt_labels: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """voxel_data from ``preprocess_points``; returns the head's dict."""
+        """voxel_data from ``preprocess_points``; in training the padded GT
+        (boxes (B, G, 9), labels, validity) for the head's denoising groups
+        and the generator of its dropouts and noise. Returns the head's
+        dict."""
         dt = self.cfg.tdtype
         bev = self.pts_middle_encoder(voxel_data["features"],
                                       voxel_data["coords"],
                                       voxel_data["voxel_mask"])
         fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
         pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt)
-        return self.pts_bbox_head(pts_feat_conv, stage_feats)
+        return self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
+                                  gt_labels, gt_valid, generator)
 
     def get_bboxes(self, out: Dict[str, torch.Tensor], max_out: int = 200):
         return get_bboxes(self.cfg, out, max_out)

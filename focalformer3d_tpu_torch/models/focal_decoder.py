@@ -1,7 +1,7 @@
-"""FocalDecoder head, eval: Hard Instance Probing + box-level decoder.
+"""FocalDecoder head: Hard Instance Probing + box-level decoder.
 
-Port of the eval forward of ``focalformer3d_tpu/models/focal_decoder.py``
-and its ``get_bboxes``:
+Port of ``focalformer3d_tpu/models/focal_decoder.py`` and its
+``get_bboxes``:
 
 * per stage, a BEV heatmap (the first stage reuses ``heatmap_head``), the
   accumulated mask of earlier stages, max-pool peak suppression with
@@ -11,9 +11,16 @@ and its ``get_bboxes``:
   and ``num_decoder_layers`` rounds of the deformable decoder with FFN
   prediction heads.
 
-The denoising GT groups (training) and the ``pos`` / ``boxcls`` mask modes
-are not ported. Inputs and outputs keep the JAX layouts: BEV maps
-(B, H, W, C); per-round outputs (B, rounds, Q, d).
+* in training (the module's ``training`` flag): the denoising GT query
+  groups (``add_gt_groups`` noised copies of the GT boxes, their noise from
+  ``gt_group_noise``) behind an attention mask, RoI-MLP and decoder dropout
+  from the ``generator`` argument, and the ``gt_valid_mask`` /
+  ``gt_query_labels`` outputs the losses read. Stop-gradients sit where
+  the JAX head has them (heatmap picks, query positions, query boxes).
+
+The ``pos`` / ``boxcls`` mask modes are not ported (no shipped LiDAR config
+uses them). Inputs and outputs keep the JAX layouts: BEV maps (B, H, W, C);
+per-round outputs (B, rounds, Q, d).
 
 Top-k ties: after peak suppression many cells are exactly 0, and
 ``torch.topk`` does not promise an order among equal values, so proposals
@@ -22,7 +29,7 @@ come from a stable descending sort (ties to the lower flat index, as
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,8 +40,8 @@ from ..core import box_coder as bc
 from ..core.nms import top_k_mask
 from ..ops.bilinear import grid_sample_norm
 from .deformable_decoder import DeformableDecoder
-from .layers import (ConvBN, MLP, PredictionFFN, apply_bn, conv2d_nhwc,
-                     linear, sine_embed_2d)
+from .layers import (FLAX_BN_MOMENTUM, ConvBN, MLP, PredictionFFN,
+                     apply_bn, conv2d_nhwc, dropout, linear, sine_embed_2d)
 
 # shape of the reference checkpoint's bev_pos buffer (a 180 x 180 grid)
 REF_BEV_POS_SHAPE = (1, 32400, 2)
@@ -72,6 +79,14 @@ def _dilate_mask(mask, k: int, kernel1: Sequence[int]):
 def _stable_top_k(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest along the last axis, ties to lower index."""
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def gt_group_noise(generator: Optional[torch.Generator], shape,
+                   device) -> torch.Tensor:
+    """U(-1, 1) offsets of the denoising GT queries, (B, NG*G, 2) in units
+    of half the box extents (``jax.random.uniform(minval=-1, maxval=1)`` in
+    the JAX head)."""
+    return torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0
 
 
 def _rotate_z(points, angle):
@@ -136,7 +151,8 @@ class FocalDecoder(nn.Module):
             for li in range(3):
                 out = cfg.hidden_roi if li < 2 else h
                 layers += [nn.Linear(pre, out, bias=False),
-                           nn.BatchNorm1d(out), nn.ReLU(),
+                           nn.BatchNorm1d(out, momentum=FLAX_BN_MOMENTUM),
+                           nn.ReLU(),
                            nn.Dropout(cfg.roi_dropout)]
                 pre = out
             self.roi_mlp = nn.Sequential(*layers)
@@ -156,7 +172,7 @@ class FocalDecoder(nn.Module):
         local = (base + 0.5) / R * dims[..., None, :] - dims[..., None, :] / 2
         return _rotate_z(local, boxes_std[..., 6]) + boxes_std[..., None, :2]
 
-    def _roi_features(self, levels, query_box, dtype):
+    def _roi_features(self, levels, query_box, dtype, generator):
         cfg = self.cfg
         B, Qn = query_box.shape[:2]
         qb = query_box
@@ -179,12 +195,67 @@ class FocalDecoder(nn.Module):
         for li in range(3):
             y = F.relu(apply_bn(linear(y, mods[4 * li], dtype),
                                 mods[4 * li + 1]))
+            if self.training:
+                y = dropout(y, mods[4 * li + 3].p, generator)
         return y
 
+    def _gt_groups(self, gt_boxes, gt_labels, gt_valid, peaks, feats,
+                   bev_pos, generator):
+        """Denoising GT queries (JAX ``focal_decoder.py:374-436``): each GT
+        box repeated ``add_gt_groups`` times with its centre moved inside
+        the box by ``gt_group_noise``; a copy moved too far (centre offset
+        >= ``add_gt_pos_thresh`` or noise norm >= the box-noise threshold)
+        is labelled background. Returns (feats, pos, scores, labels, valid)
+        of the group queries; invalid GT slots are zeroed."""
+        cfg = self.cfg
+        B, H, W, C = feats.shape
+        ncls, NG, G = cfg.num_classes, cfg.add_gt_groups, gt_boxes.shape[1]
+        dev = feats.device
+        noise = gt_group_noise(generator, (B, NG * G, 2), dev)
+        gb = gt_boxes.repeat(1, NG, 1)
+        gl = gt_labels.repeat(1, NG)
+        gvalid = gt_valid.repeat(1, NG)
+        cy, sy = torch.cos(gb[..., 6]), torch.sin(gb[..., 6])
+        wvec = torch.stack([cy * gb[..., 3], sy * gb[..., 3]], -1)
+        hvec = torch.stack([-sy * gb[..., 4], cy * gb[..., 4]], -1)
+        center_noise = wvec / 2 * noise[..., 0:1] + hvec / 2 * noise[..., 1:2]
+        centers = gb[..., :2] + center_noise
+        positive = ((torch.linalg.norm(center_noise, dim=-1)
+                     < cfg.add_gt_pos_thresh)
+                    & (torch.linalg.norm(noise, dim=-1)
+                       < cfg.add_gt_pos_boxnoise_thresh))
+        labels = torch.where(positive & gvalid, gl, ncls).to(torch.int32)
+        pcr = torch.tensor(cfg.pc_range, dtype=torch.float32, device=dev)
+        cx = torch.clamp(centers[..., 0], pcr[0] + 1e-6, pcr[3] - 1e-5)
+        cyy = torch.clamp(centers[..., 1], pcr[1] + 1e-6, pcr[4] - 1e-5)
+        gx = ((cx - pcr[0]) / (pcr[3] - pcr[0]) * W).to(torch.int32)
+        gy = ((cyy - pcr[1]) / (pcr[4] - pcr[1]) * H).to(torch.int32)
+        p = (gy.clamp(0, H - 1) * W + gx.clamp(0, W - 1)).long()
+        gqf = torch.gather(feats.reshape(B, H * W, C), 1,
+                           p[..., None].expand(-1, -1, C))
+        heat_flat = peaks.reshape(B, ncls, H * W).transpose(1, 2)
+        gqs = torch.gather(heat_flat, 1, p[..., None].expand(-1, -1, ncls))
+        one_hot = F.one_hot(labels.long(), ncls + 1)[..., :ncls]
+        dt = cfg.tdtype
+        gqf = gqf + F.linear(one_hot.to(dt),
+                             self.class_encoding.weight[..., 0].to(dt),
+                             self.class_encoding.bias.to(dt))
+        vmask = gvalid[..., None].to(gqf.dtype)
+        return (gqf * vmask, bev_pos[p] * vmask, gqs * vmask, labels,
+                gvalid)
+
     def forward(self, lidar_feat: torch.Tensor,
-                stage_feats: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                stage_feats: List[torch.Tensor],
+                gt_boxes: Optional[torch.Tensor] = None,
+                gt_labels: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """lidar_feat (B, H, W, C) pts_feat_conv; stage_feats per-stage BEV
-        maps (+ extra map last). Returns the JAX head's eval output dict."""
+        maps (+ extra map last); in training the padded GT (B, G, 9) boxes,
+        (B, G) labels and validity for the denoising groups, and the
+        generator of the dropouts and the group noise. Returns the JAX
+        head's output dict."""
         cfg = self.cfg
         dt = cfg.tdtype
         dev = lidar_feat.device
@@ -214,7 +285,7 @@ class FocalDecoder(nn.Module):
                     masks.append(acc_mask)
             heatmaps.append(dh)
             masks.append(acc_mask)
-            heat = torch.sigmoid(dh.permute(0, 3, 1, 2)) * acc_mask
+            heat = torch.sigmoid(dh.permute(0, 3, 1, 2).detach()) * acc_mask
             peaks = _peak_suppress(heat, cfg.nms_kernel_size,
                                    cfg.kernel1_classes)
             top_i = _stable_top_k(peaks.reshape(B, ncls * HW), P)
@@ -244,6 +315,25 @@ class FocalDecoder(nn.Module):
         query_pos = torch.cat(q_pos, dim=1)
         query_score = torch.cat(q_score, dim=1)
         query_labels = torch.cat(q_labels, dim=1)
+        num_prop = query_feat.shape[1]
+
+        groups = None
+        attn_mask = None
+        if self.training and cfg.add_gt_groups > 0 and gt_boxes is not None:
+            groups = self._gt_groups(gt_boxes, gt_labels, gt_valid, peaks,
+                                     stage_feats[-1], bev_pos, generator)
+            gqf, gqp, gqs, glab, gv = groups
+            query_feat = torch.cat([query_feat, gqf], dim=1)
+            query_pos = torch.cat([query_pos, gqp], dim=1)
+            query_score = torch.cat([query_score, gqs], dim=1)
+            query_labels = torch.cat([query_labels, glab], dim=1)
+            # real queries see only real queries; a group query sees the
+            # real ones and every valid group query
+            Qn = query_feat.shape[1]
+            attn_mask = torch.ones((B, Qn, Qn), dtype=torch.bool, device=dev)
+            attn_mask[:, :, :num_prop] = False
+            attn_mask[:, num_prop:, num_prop:] = ~(gv[:, :, None]
+                                                   & gv[:, None, :])
 
         levels = [extra if cfg.extra_feat else stage_feats[-1]]
         level_pos = [_bev_pos(H, W, 1.0, dev)]
@@ -268,13 +358,14 @@ class FocalDecoder(nn.Module):
                     for v, lp in zip(levels, level_pos)
                 ]
             if cfg.roi_feats and query_box is not None:
-                y = self._roi_features(levels, query_box, dt)
+                y = self._roi_features(levels, query_box, dt, generator)
                 query_feat = (query_feat + y).to(y.dtype)
-            query_feat = self.decoder[r](query_feat, vals, ref, qpe, dt)
+            query_feat = self.decoder[r](query_feat, vals, ref, qpe, dt,
+                                         attn_mask, generator)
 
             res = self.prediction_heads[r](query_feat, dt)
             res["center"] = res["center"] + query_pos
-            query_pos = res["center"]
+            query_pos = res["center"].detach()
             if cfg.roi_based_reg and query_box is not None:
                 res["dim"] = torch.cat(
                     [res["dim"][..., :2] + query_box[..., 3:5],
@@ -283,7 +374,7 @@ class FocalDecoder(nn.Module):
             parts = [res["center"], res["height"], res["dim"], res["rot"]]
             if cfg.with_vel:
                 parts.append(res["vel"])
-            query_box = torch.cat(parts, dim=-1)
+            query_box = torch.cat(parts, dim=-1).detach()
             rounds.append(res)
 
         out = {k: torch.stack([r[k] for r in rounds], dim=1)
@@ -293,6 +384,9 @@ class FocalDecoder(nn.Module):
         out["dense_heatmap"] = torch.stack(heatmaps, dim=1)
         out["multistage_masks"] = torch.stack(
             [m.permute(0, 2, 3, 1) for m in masks], dim=1)
+        if groups is not None:
+            out["gt_valid_mask"] = groups[4]
+            out["gt_query_labels"] = groups[3]
         return out
 
 

@@ -1,4 +1,4 @@
-"""FocalEncoder fusion neck, LiDAR-only ``bevfusionmb2`` branch, eval, NHWC.
+"""FocalEncoder fusion neck, LiDAR-only ``bevfusionmb2`` branch, NHWC.
 
 Port of ``focalformer3d_tpu/models/focal_encoder.py`` without the camera
 branch: a shared 3x3 conv projects the SECOND-FPN BEV to the hidden width,

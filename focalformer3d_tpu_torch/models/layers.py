@@ -1,7 +1,7 @@
-"""Shared building blocks, eval mode, NHWC at every forward.
+"""Shared building blocks, NHWC at every forward.
 
-Port of ``focalformer3d_tpu/models/layers.py`` (``ConvBN``, the eval affine
-of ``MaskedBatchNorm``, ``InvertedResidual``, ``MLP``, ``PredictionFFN``,
+Port of ``focalformer3d_tpu/models/layers.py`` (``ConvBN``,
+``MaskedBatchNorm``, ``InvertedResidual``, ``MLP``, ``PredictionFFN``,
 ``sine_embed_2d``). Submodules carry the reference checkpoint's names (mmcv
 ConvModule ``.conv``/``.bn``, torchvision ``InvertedResidual.conv.N``, DINO
 ``MLP.layers.N``, TransFusion FFN ``{head}.0.conv``/``{head}.0.bn``/
@@ -9,8 +9,10 @@ ConvModule ``.conv``/``.bn``, torchvision ``InvertedResidual.conv.N``, DINO
 
 Every forward takes and returns channels-last tensors, as the JAX modules
 do; the convs run on NCHW views of them. Compute runs in the ``dtype``
-argument (parameters stay float32 and are cast at use), batch norm uses its
-running statistics as a per-channel affine.
+argument (parameters stay float32 and are cast at use). Batch norm follows
+its module's ``training`` flag (``apply_bn``): in eval it is the running
+statistics' per-channel affine; in training it normalises with the batch
+statistics and updates the running ones as flax does.
 """
 from __future__ import annotations
 
@@ -28,10 +30,40 @@ def bn_affine(bn: nn.modules.batchnorm._BatchNorm):
     return g, bn.bias - bn.running_mean * g
 
 
-def apply_bn(x: torch.Tensor, bn) -> torch.Tensor:
-    """Eval batch norm over the last (channel) axis, in x's dtype."""
-    g, b = bn_affine(bn)
-    return x * g.to(x.dtype) + b.to(x.dtype)
+def apply_bn(x: torch.Tensor, bn,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch norm over the last (channel) axis, in x's dtype.
+
+    Eval: the running statistics' affine. Training, with flax's semantics
+    (statistics in f32, the biased variance, running averages updated in
+    place with decay ``1 - bn.momentum``):
+
+    - ``mask`` None: ``flax.linen.BatchNorm`` over every row, variance
+      ``E[x^2] - E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) *
+      scale) + bias``;
+    - ``mask`` given (broadcastable to x[..., 0]): ``MaskedBatchNorm``,
+      statistics over the masked rows only (at least one counted), variance
+      ``E[(x - mean)^2]``; every row is normalised."""
+    if not bn.training:
+        g, b = bn_affine(bn)
+        return x * g.to(x.dtype) + b.to(x.dtype)
+    xf = x.float()
+    dims = tuple(range(x.dim() - 1))
+    if mask is None:
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    else:
+        m = mask.float()[..., None]
+        cnt = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(dims) / cnt
+        var = (m * (xf - mean) ** 2).sum(dims) / cnt
+        y = (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+    with torch.no_grad():
+        decay = 1.0 - bn.momentum
+        bn.running_mean.mul_(decay).add_(mean.detach() * bn.momentum)
+        bn.running_var.mul_(decay).add_(var.detach() * bn.momentum)
+    return y.to(x.dtype)
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
@@ -53,6 +85,18 @@ def linear(x: torch.Tensor, lin: nn.Module,
     return F.linear(x.to(dt), lin.weight.to(dt), b)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training, its bits from ``generator``: keep
+    each element with probability ``1 - rate``, scaled by ``1 / (1 - rate)``.
+    The caller applies it only in training."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 class ConvBN(nn.Module):
     """mmcv ConvModule: Conv2d (no bias) + BatchNorm2d (+ ReLU)."""
 
@@ -70,10 +114,15 @@ class ConvBN(nn.Module):
         return F.relu(y) if self.act else y
 
 
+# flax's BatchNorm decay 0.99 as torch's momentum (InvertedResidual,
+# SECOND, the prediction heads and the RoI MLP; ConvBN keeps 0.9 = 0.1)
+FLAX_BN_MOMENTUM = 0.01
+
+
 def _conv_bn_relu6(cin: int, cout: int, k: int, groups: int = 1):
     return nn.Sequential(
         nn.Conv2d(cin, cout, k, 1, (k - 1) // 2, groups=groups, bias=False),
-        nn.BatchNorm2d(cout),
+        nn.BatchNorm2d(cout, momentum=FLAX_BN_MOMENTUM),
         nn.ReLU6(),
     )
 
@@ -92,7 +141,7 @@ class InvertedResidual(nn.Module):
         layers += [
             _conv_bn_relu6(hidden, hidden, 3, groups=hidden),
             nn.Conv2d(hidden, cout, 1, bias=False),
-            nn.BatchNorm2d(cout),
+            nn.BatchNorm2d(cout, momentum=FLAX_BN_MOMENTUM),
         ]
         self.conv = nn.Sequential(*layers)
         self.use_res = cin == cout
@@ -132,7 +181,7 @@ class _ConvModule1d(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, 1, bias=False)
-        self.bn = nn.BatchNorm1d(cout)
+        self.bn = nn.BatchNorm1d(cout, momentum=FLAX_BN_MOMENTUM)
 
 
 class PredictionFFN(nn.ModuleDict):

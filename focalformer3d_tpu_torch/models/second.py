@@ -1,9 +1,10 @@
-"""SECOND BEV backbone + SECONDFPN neck, eval mode, NHWC.
+"""SECOND BEV backbone + SECONDFPN neck, NHWC.
 
 Port of ``focalformer3d_tpu/models/second.py``. The modules mirror mmdet3d's
 layout (``blocks.{i}`` = [Conv2d, BN, ReLU] * (layers + 1), ``deblocks.{i}``
 = [Conv2d 1x1 or ConvTranspose2d 2x2/s2, BN, ReLU]) so reference checkpoint
-keys load as they are. Batch norm eps is 1e-3 here, as in the reference.
+keys load as they are. Batch norm eps is 1e-3 and its decay 0.99, as in
+the JAX modules; it follows the module's ``training`` flag (``apply_bn``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import apply_bn, conv2d_nhwc
+from .layers import FLAX_BN_MOMENTUM, apply_bn, conv2d_nhwc
 
 
 class SECOND(nn.Module):
@@ -29,7 +30,9 @@ class SECOND(nn.Module):
             layers = []
             for j in range(n + 1):
                 layers += [nn.Conv2d(cin if j == 0 else ch, ch, 3, bias=False),
-                           nn.BatchNorm2d(ch, eps=1e-3), nn.ReLU()]
+                           nn.BatchNorm2d(ch, eps=1e-3,
+                                          momentum=FLAX_BN_MOMENTUM),
+                           nn.ReLU()]
             blocks.append(nn.Sequential(*layers))
             cin = ch
         self.blocks = nn.ModuleList(blocks)
@@ -58,8 +61,9 @@ class SECONDFPN(nn.Module):
         for cin, ch, s in zip(in_channels, out_channels, upsample_strides):
             up = (nn.Conv2d(cin, ch, 1, bias=False) if s == 1 else
                   nn.ConvTranspose2d(cin, ch, s, stride=s, bias=False))
-            deblocks.append(nn.Sequential(up, nn.BatchNorm2d(ch, eps=1e-3),
-                                          nn.ReLU()))
+            deblocks.append(nn.Sequential(
+                up, nn.BatchNorm2d(ch, eps=1e-3, momentum=FLAX_BN_MOMENTUM),
+                nn.ReLU()))
         self.deblocks = nn.ModuleList(deblocks)
 
     def forward(self, feats: Sequence[torch.Tensor],

@@ -1,28 +1,40 @@
-"""VoxelNet sparse middle encoder (mmdet3d SparseEncoder, basicblock), eval.
+"""VoxelNet sparse middle encoder (mmdet3d SparseEncoder, basicblock).
 
-Port of the eval forward of ``focalformer3d_tpu/models/sparse_encoder.py``
-(the exact ``voxel`` path and ``_dense_tail``):
+Port of ``focalformer3d_tpu/models/sparse_encoder.py`` (the exact ``voxel``
+path, the ``pallas`` engines and ``_dense_tail``):
 
     conv_input: SubM(in -> c0) + BN + ReLU
     stage s:    SparseBasicBlocks, then a strided SparseConv (s2) + BN + ReLU
     conv_out:   SparseConv(k(3,1,1), s(2,1,1)) + BN + ReLU
     -> BEV (B, H, W, C * D_out), channel = c * D_out + d (mmdet3d .view)
 
-Levels below ``dense_from`` are sparse: CSR rulebooks from
-``ops/sparse_conv.py`` and the sparse-conv apply, with batch norm folded into
-the conv weights (``w * g`` in float32, then bias ``b``). Levels from
-``dense_from`` on run as dense 3D convs on the zero-filled grid, re-masked
-to the active set after every conv (strided sets by a max-pool of the
-mask), which is the same function.
+Levels below the dense boundary are sparse: CSR rulebooks from
+``ops/sparse_conv.py`` and the sparse-conv apply. Levels from it on run as
+dense 3D convs on the zero-filled grid, re-masked to the active set after
+every conv (strided sets by a max-pool of the mask), which is the same
+function. The module's ``training`` flag picks the mode, as the JAX
+``train`` argument does:
+
+- eval: boundary ``dense_from`` (the config's ``sparse_dense_from_eval``),
+  batch norm folded into the conv weights (``w * g`` in float32, then bias
+  ``b``);
+- training: boundary ``train_dense_from`` (``sparse_dense_from``), conv
+  without bias, then ``MaskedBatchNorm`` with batch statistics over the
+  active sites (``layers.apply_bn``); the dense tail runs in float32. On
+  ``cuda`` each sparse conv is the differentiable
+  ``sparse_conv_cuda.sparse_conv_train`` (K1 forward, K1 on the transposed
+  rulebook for dx, the dW kernel), on ``plain`` autograd through the
+  float32 gather + matmul. ``cuda_mxu`` and ``cuda_zrun`` run eval only.
 
 Engines (the JAX engine each mirrors in parentheses):
 
 - ``plain`` (``voxel``): float32 gather + matmul, the dense tail in the input
   dtype.
 - ``cuda`` (``pallas``): the torch-op index build (``build_table_csr``,
-  ``build_downsample``, ``build_conv_rules``) and every sparse conv on K1
-  (``ops/sparse_conv_cuda.sparse_conv``: bf16 operands, f32 accumulation);
-  the dense tail in bfloat16.
+  ``build_downsample``, ``build_conv_rules``, and ``transpose_rules`` for
+  the strided convs' dx in training) and every sparse conv on K1
+  (``ops/sparse_conv_cuda``: bf16 operands, f32 accumulation); the dense
+  tail's input rounded to bfloat16 (computed in bfloat16 at eval).
 - ``cuda_zrun`` (``pallas_zrun``): the same index build, but one z-run plan
   per conv (``ops/sparse_conv_zrun.build_zplan``) in place of its rulebook,
   and every sparse conv on K3 (``ops/sparse_conv_zrun_cuda.zrun_conv``); the
@@ -53,10 +65,11 @@ from torch import nn
 from ..ops import plan_builder as pb
 from ..ops import sparse_conv as sc
 from ..ops.plan_builder_cuda import plan_rules
-from ..ops.sparse_conv_cuda import apply_conv_plain, sparse_conv
+from ..ops.sparse_conv_cuda import (apply_conv_plain, sparse_conv,
+                                    sparse_conv_train)
 from ..ops.sparse_conv_zrun import build_zplan
 from ..ops.sparse_conv_zrun_cuda import zrun_conv
-from .layers import bn_affine
+from .layers import apply_bn, bn_affine
 
 ENGINES = ("auto", "plain", "cuda", "cuda_mxu", "cuda_zrun")
 
@@ -75,19 +88,23 @@ class SpConvWeight(nn.Module):
         return w * g, b
 
 
+def _sparse_bn(c: int) -> nn.BatchNorm1d:
+    """``MaskedBatchNorm``: eps 1e-3, running decay 0.99 (momentum 0.01)."""
+    return nn.BatchNorm1d(c, eps=1e-3, momentum=0.01)
+
+
 def _conv_module(ks, cin, cout) -> nn.ModuleList:
     """mmdet3d SparseConvModule: ``.0`` conv weight, ``.1`` BN (eps 1e-3)."""
-    return nn.ModuleList([SpConvWeight(ks, cin, cout),
-                          nn.BatchNorm1d(cout, eps=1e-3)])
+    return nn.ModuleList([SpConvWeight(ks, cin, cout), _sparse_bn(cout)])
 
 
 class SparseBasicBlock(nn.Module):
     def __init__(self, c: int):
         super().__init__()
         self.conv1 = SpConvWeight((3, 3, 3), c, c)
-        self.bn1 = nn.BatchNorm1d(c, eps=1e-3)
+        self.bn1 = _sparse_bn(c)
         self.conv2 = SpConvWeight((3, 3, 3), c, c)
-        self.bn2 = nn.BatchNorm1d(c, eps=1e-3)
+        self.bn2 = _sparse_bn(c)
 
 
 def _pool_mask(mask, kernel, stride, padding):
@@ -96,14 +113,18 @@ def _pool_mask(mask, kernel, stride, padding):
     return m[:, 0] > 0
 
 
-def _dense_conv(x, w27, ks, stride, padding, gain, bias):
+def _dense_conv(x, w27, ks, stride, padding, gain=None, bias=None):
     """3D conv of (B, D, H, W, C) with the sparse weight layout, the eval BN
-    folded in as in the JAX ``_dense_conv``."""
+    (``gain``, ``bias``) folded in as in the JAX ``_dense_conv``."""
     cin, cout = w27.shape[-2:]
-    w = (w27.reshape(*ks, cin, cout) * gain).permute(4, 3, 0, 1, 2)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype), None, stride,
-                 padding)
+    w = w27.reshape(*ks, cin, cout)
+    if gain is not None:
+        w = w * gain
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2)
+                 .to(x.dtype), None, stride, padding)
     y = y.permute(0, 2, 3, 4, 1)
+    if bias is None:
+        return y
     return (y.float() + bias).to(x.dtype)
 
 
@@ -163,6 +184,11 @@ class Level:
                      coords=torch.stack([o[0] for o in outs]))
 
 
+def _transposed(rules: torch.Tensor, in_capacity: int) -> torch.Tensor:
+    """The transposed rulebooks (B, K, V_in) a strided conv's dx reads."""
+    return torch.stack([sc.transpose_rules(r, in_capacity) for r in rules])
+
+
 def conv_index(src: Level, dst: Level, ks, stride, pad, engine: str):
     """What the sparse conv from ``src`` to ``dst`` reads on ``engine``: the
     rulebook (B, K, V_out), from K2 on the meta chain, or the z-run plan
@@ -188,7 +214,8 @@ class SparseEncoder(nn.Module):
                  capacities: Sequence[int] = (120000, 90000, 60000, 40000),
                  out_capacity: int = 40000,
                  engine: str = "auto",
-                 dense_from: int = 4):
+                 dense_from: int = 4,
+                 train_dense_from: Optional[int] = None):
         super().__init__()
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r} not in {ENGINES}")
@@ -199,6 +226,8 @@ class SparseEncoder(nn.Module):
         self.out_capacity = out_capacity
         self.engine = engine
         self.dense_from = dense_from
+        self.train_dense_from = (dense_from if train_dense_from is None
+                                 else train_dense_from)
 
         base = self.encoder_channels[0][0]
         self.conv_input = _conv_module((3, 3, 3), in_channels, base)
@@ -222,23 +251,39 @@ class SparseEncoder(nn.Module):
 
     # ------------------------------------------------------------------
     def _engine(self, device) -> str:
-        if self.engine == "auto":
-            return "cuda" if device.type == "cuda" else "plain"
-        return self.engine
+        engine = self.engine
+        if engine == "auto":
+            engine = "cuda" if device.type == "cuda" else "plain"
+        if self.training and engine not in ("plain", "cuda"):
+            raise NotImplementedError(
+                f"training on engine {engine!r} is not ported; use 'cuda' "
+                "or 'plain'")
+        return engine
 
-    def _sparse_conv(self, x, index, wmod, bn, valid, engine):
-        w, b = wmod.folded(bn)
+    def _sparse_conv(self, x, index, wmod, bn, valid, engine, index_t=None):
+        """One sparse conv + BN: folded at eval; at training conv, batch
+        norm over the active sites, re-mask. ``index_t`` is the transposed
+        rulebook the ``cuda`` engine's dx reads."""
+        if not self.training:
+            w, b = wmod.folded(bn)
+            if engine == "plain":
+                return apply_conv_plain(x, index, w, valid, b, x.dtype)
+            conv = zrun_conv if engine == "cuda_zrun" else sparse_conv
+            return conv(x.to(torch.bfloat16), index, w.to(torch.bfloat16),
+                        valid, b)
+        w = wmod.weight.reshape(-1, *wmod.weight.shape[-2:])
         if engine == "plain":
-            return apply_conv_plain(x, index, w, valid, b, x.dtype)
-        conv = zrun_conv if engine == "cuda_zrun" else sparse_conv
-        return conv(x.to(torch.bfloat16), index, w.to(torch.bfloat16), valid,
-                    b)
+            y = apply_conv_plain(x, index, w, valid, None, x.dtype)
+        else:
+            y = sparse_conv_train(x, index, index_t, w, valid)
+        return torch.where(valid[..., None], apply_bn(y, bn, valid), 0.0)
 
     def _basic(self, blk, x, index, valid, engine):
         m = valid[..., None]
         y = F.relu(self._sparse_conv(x, index, blk.conv1, blk.bn1, valid,
-                                     engine))
-        y = self._sparse_conv(y, index, blk.conv2, blk.bn2, valid, engine)
+                                     engine, index))
+        y = self._sparse_conv(y, index, blk.conv2, blk.bn2, valid, engine,
+                              index)
         return torch.where(m, F.relu(y + x), 0.0)
 
     def forward(self, features, coords, valid):
@@ -246,13 +291,17 @@ class SparseEncoder(nn.Module):
         valid (B, V0). Returns BEV features (B, H', W', C_out * D_out)."""
         engine = self._engine(features.device)
         meta_chain = engine == "cuda_mxu"
+        dense_from = (self.train_dense_from if self.training
+                      else self.dense_from)
+        want_t = self.training and engine == "cuda"
         n_stage = len(self.encoder_channels)
         B = features.shape[0]
         x = torch.where(valid[..., None], features, 0.0)
         lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
         index = conv_index(lvl, lvl, 3, 1, 1, engine)
         x = F.relu(self._sparse_conv(x, index, self.conv_input[0],
-                                     self.conv_input[1], lvl.valid, engine))
+                                     self.conv_input[1], lvl.valid, engine,
+                                     index))
         for i, blocks in enumerate(self.encoder_channels):
             stage = self._stage(i)
             last = i == n_stage - 1
@@ -264,10 +313,11 @@ class SparseEncoder(nn.Module):
             pad = self.down_paddings[i]
             out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
             index = conv_index(lvl, out, 3, 2, pad, engine)
-            x = F.relu(self._sparse_conv(x, index, stage[-1][0],
-                                         stage[-1][1], out.valid, engine))
+            x = F.relu(self._sparse_conv(
+                x, index, stage[-1][0], stage[-1][1], out.valid, engine,
+                _transposed(index, lvl.capacity) if want_t else None))
             lvl = out
-            if not meta_chain and i + 1 == self.dense_from:
+            if not meta_chain and i + 1 == dense_from:
                 sites = lvl.sites()
                 dense = torch.stack([
                     sc.to_dense(x[b], sites[b], lvl.valid[b], lvl.shape)
@@ -283,8 +333,9 @@ class SparseEncoder(nn.Module):
         ks_out, st_out = (3, 1, 1), (2, 1, 1)
         out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
         index = conv_index(lvl, out, ks_out, st_out, 0, engine)
-        x = F.relu(self._sparse_conv(x, index, self.conv_out[0],
-                                     self.conv_out[1], out.valid, engine))
+        x = F.relu(self._sparse_conv(
+            x, index, self.conv_out[0], self.conv_out[1], out.valid, engine,
+            _transposed(index, lvl.capacity) if want_t else None))
         sites = out.sites()
         dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
                                          out.shape) for b in range(B)])
@@ -297,14 +348,20 @@ class SparseEncoder(nn.Module):
         return dense.permute(0, 2, 3, 4, 1).reshape(B, H, W, C * D)
 
     def _dense_conv_bn(self, x, mask, wmod, bn, ks, stride, padding, act):
-        g, b = bn_affine(bn)
-        y = _dense_conv(x, wmod.weight, ks, stride, padding, g, b)
+        if self.training:  # float32, batch statistics over the active cells
+            y = _dense_conv(x.float(), wmod.weight, ks, stride, padding)
+            y = apply_bn(y, bn, mask)
+        else:
+            g, b = bn_affine(bn)
+            y = _dense_conv(x, wmod.weight, ks, stride, padding, g, b)
         y = torch.where(mask[..., None], y, 0.0)
         return F.relu(y) if act else y
 
     def _dense_tail(self, x, mask, start: int, engine: str):
         """Levels >= ``start`` and conv_out on the dense grid. x (B, D, H, W,
-        C) is zero at inactive cells; mask (B, D, H, W)."""
+        C) is zero at inactive cells; mask (B, D, H, W). The kernel engines
+        round the tail's input to bfloat16, as the JAX ``pallas`` engines
+        do (its convs then compute in float32 in training)."""
         in_dtype = x.dtype
         if engine != "plain":
             x = x.to(torch.bfloat16)

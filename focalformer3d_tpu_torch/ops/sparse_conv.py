@@ -23,7 +23,10 @@ emit that order), so a CSR position is a table row and the JAX engine's
 rulebook these functions build is the contract of the sparse-conv apply
 (``ops/sparse_conv_cuda.py``): ``(K, V_out)`` CSR positions in dz-major
 tap order ((dz, dy, dx) with dx fastest) with ``V_in`` as the miss
-sentinel.
+sentinel. Training's dx reads the transposed rulebook, (K, V_in) with
+``V_out`` as the sentinel, from ``transpose_rules`` (a scatter) or
+``transposed_conv_rules`` (a decode from the output level's meta); the
+two are equal, and a submanifold rulebook is its own transpose.
 """
 from __future__ import annotations
 
@@ -189,6 +192,61 @@ def build_conv_rules(in_table: VoxelTable, in_shape, out_coords, out_valid,
     ok = bev_ok[None] & (zi >= 0) & (zi < D) & _test_bit(u0, u1, zi)
     pos = torch.where(ok, start + _rank(u0, u1, zi), V)
     return pos.reshape(kz * ky * kx, -1).clamp(0, V).to(torch.int32)
+
+
+def transpose_rules(rules: torch.Tensor, in_capacity: int) -> torch.Tensor:
+    """Transposed rulebook (K, V_in): ``rt[K-1-k, rules[k, j]] = j``, misses
+    at the V_out sentinel (``sparse_conv_pallas.transpose_rules``). The tap
+    flip pairs with the weight flip of the backward's dx, ``W[K-1-k]^T``.
+    Each input site feeds at most one output site per tap (the geometry is
+    a function of the output site), so the scatter has no collisions. A
+    submanifold rulebook is its own transpose."""
+    K, v_out = rules.shape
+    rt = torch.full((K, in_capacity + 1), v_out, dtype=torch.int32,
+                    device=rules.device)
+    taps = torch.arange(K - 1, -1, -1, device=rules.device)[:, None]
+    j = torch.arange(v_out, dtype=torch.int32, device=rules.device)
+    rt[taps.expand(K, v_out), rules.clamp(max=in_capacity).long()] = \
+        j.expand(K, v_out)
+    return rt[:, :in_capacity].contiguous()
+
+
+def transposed_conv_rules(out_meta, out_shape, in_coords, in_valid,
+                          out_capacity: int, kernel_size, stride,
+                          padding) -> torch.Tensor:
+    """``transpose_rules`` by decode instead of scatter: input site i feeds
+    output j through tap d iff ``j*s - p + d == i`` with j active, so the
+    row of tap K-1-k holds, per input site, the output CSR position reached
+    through tap k (one meta fetch per BEV tap, as ``build_conv_rules``)."""
+    kz, ky, kx = _as_triple(kernel_size)
+    sz, sy, sx = _as_triple(stride)
+    pz, py, px = _as_triple(padding)
+    Do, Ho, Wo = out_shape
+    n_col_o = Ho * Wo
+    K = kz * ky * kx
+    dev = in_coords.device
+    c = in_coords.to(torch.int64)
+
+    dy = torch.arange(ky, device=dev).repeat_interleave(kx)  # (ky*kx,)
+    dx = torch.arange(kx, device=dev).repeat(ky)
+    yn = c[None, :, 1] + py - dy[:, None]  # (ky*kx, V_in)
+    xn = c[None, :, 2] + px - dx[:, None]
+    yj = torch.div(yn, sy, rounding_mode="floor")
+    xj = torch.div(xn, sx, rounding_mode="floor")
+    bev_ok = (in_valid[None] & (yn == yj * sy) & (yj >= 0) & (yj < Ho)
+              & (xn == xj * sx) & (xj >= 0) & (xj < Wo))
+    m = out_meta[torch.where(bev_ok, yj * Wo + xj, n_col_o)]
+    u0, u1 = _u32(m[None, ..., 0]), _u32(m[None, ..., 1])
+    start = m[None, ..., 2].to(torch.int64)
+
+    dz = torch.arange(kz, device=dev)[:, None, None]
+    zn = (c[None, None, :, 0] + pz - dz).expand(kz, ky * kx, -1)
+    zj = torch.div(zn, sz, rounding_mode="floor")
+    ok = (bev_ok[None] & (zn == zj * sz) & (zj >= 0) & (zj < Do)
+          & _test_bit(u0, u1, zj))
+    pos = start + _rank(u0, u1, zj)
+    pos = torch.where(ok & (pos < out_capacity), pos, out_capacity)
+    return pos.reshape(K, -1).flip(0).to(torch.int32).contiguous()
 
 
 def build_subm_rules(table: VoxelTable, shape,

@@ -1,14 +1,14 @@
 """Weight bridge between the JAX package's flax variables and the port.
 
 The port's modules are named by the reference checkpoint's keys, so a
-reference-format state dict (``focalformer3d_tpu.utils.ref_keys
-.make_fake_state_dict`` or a converted release) loads with
-``load_state_dict(..., strict=True)`` as it is; spconv weights keep their
-(kz, ky, kx, I, O) layout and are reshaped to (K, I, O) at call time.
+reference-format state dict (``utils/ref_keys.make_fake_state_dict`` or a
+converted release) loads with ``load_state_dict(..., strict=True)`` as it
+is; spconv weights keep their (kz, ky, kx, I, O) layout and are reshaped to
+(K, I, O) at call time.
 
-``from_jax_variables`` goes the other way round from
-``focalformer3d_tpu.utils.convert.convert_tree``: it inverts that module's
-``build_mapping`` and its ``t2f_*`` layout transforms. Every transform is a
+``from_jax_variables`` goes the other way round from the JAX package's
+``convert_tree``: it inverts ``build_mapping`` and its ``t2f_*`` layout
+transforms (the port's copy in ``utils/jax_keys.py``). Every transform is a
 pure rearrangement (transpose, flip, reshape, slice), so instead of writing
 each inverse by hand it pushes an index array through the forward transform
 and scatters the flax values back to the positions they came from; a key
@@ -21,8 +21,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from focalformer3d_tpu.utils.convert import build_mapping
-from focalformer3d_tpu.utils.ref_keys import reference_state_shapes
+from .jax_keys import build_mapping, reference_state_shapes
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -38,7 +37,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 def from_jax_variables(variables: Mapping[str, Any],
                        cfg) -> Dict[str, torch.Tensor]:
-    """Flax variables of ``focalformer3d_tpu.models.detector.FocalFormer3D``
+    """Flax variables of the JAX package's ``FocalFormer3D``
     (``{"params": ..., "batch_stats": ...}`` as numpy arrays) -> the port's
     state dict for the same ``cfg``. Buffers that carry no learned state
     (``num_batches_tracked``, ``bev_pos``) are returned as zeros."""

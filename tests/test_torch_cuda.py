@@ -11,8 +11,11 @@ It holds the K1 and K3 kernels against their plain PyTorch versions (1e-3
 of the output scale, the bf16-operand / f32-accumulate contract), K2's
 rulebooks against ``decode_rules`` and ``build_conv_rules`` (exactly), the
 index build and the voxelizer on the card against the same functions on the
-CPU (exactly), and the Tiny_L slice's encoder on each kernel engine against
-the plain engine (1e-2, bf16 scale).
+CPU (exactly), the Tiny_L slice's encoder on each kernel engine against
+the plain engine (1e-2, bf16 scale), K1's backward (dx on the transposed
+rulebook, the dW kernel, the autograd Function; 1e-3) against its plain
+versions, and one Tiny_L training step on the card against the same step
+on the CPU (1e-3).
 """
 import dataclasses
 
@@ -259,3 +262,135 @@ def test_new_engines_on_card(dev, engine, dense_from, counts):
             assert torch.isfinite(dec["bboxes"]).all()
     err = (bev[engine] - bev["plain"]).abs().max() / bev["plain"].abs().max()
     assert float(err) <= 1e-2
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+@pytest.mark.parametrize("cin,cout", [(5, 16), (16, 16), (16, 32), (32, 64),
+                                      (64, 128), (128, 64)])
+def test_backward_kernels_vs_plain(dev, geom, cin, cout):
+    """dx (K1 on the transposed rulebook) and dW (the dW kernel) against
+    their plain versions, 1e-3 of the output scale (same rounding, f32
+    sums in another order); the differentiable conv's dx, dW and db
+    against autograd through its plain version."""
+    coords, valid = _voxels(6)
+    coords, valid = coords.to(dev), valid.to(dev)
+    rules, ov = _rules(coords, valid, geom)
+    v_in, K = coords.shape[0], rules.shape[0]
+    rules_t = tsc.transpose_rules(rules, v_in)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    x = torch.where(valid[:, None], torch.randn(v_in, cin, device=dev,
+                                                generator=g), 0.0)[None]
+    w = torch.randn(K, cin, cout, device=dev, generator=g) * 0.2
+    cot = torch.where(ov[:, None], torch.randn(rules.shape[1], cout,
+                                               device=dev, generator=g),
+                      0.0)[None]
+    xb, wb = x.bfloat16(), w.bfloat16()
+    n0 = {kind: k1.launch_count(kind) for kind in ("dx", "wgrad")}
+    dx = k1.conv_dx(cot, rules_t[None], wb)
+    dw = k1.conv_wgrad(xb, cot, rules[None])
+    torch.cuda.synchronize()
+    assert {kind: k1.launch_count(kind) - n0[kind] for kind in n0} == \
+        {"dx": 1, "wgrad": 1}
+    every = torch.ones(1, v_in, dtype=torch.bool, device=dev)
+    dx_ref = k1.apply_conv_plain(cot.bfloat16().float(), rules_t[None],
+                                 wb.flip(0).transpose(1, 2).float(), every)
+    dw_ref = k1.wgrad_plain(xb, cot, rules[None])
+    assert dx.shape == (1, v_in, cin) and dw.shape == (K, cin, cout)
+    assert float((dx - dx_ref).abs().max() / dx_ref.abs().max()) <= 1e-3
+    assert float((dw - dw_ref).abs().max() / dw_ref.abs().max()) <= 1e-3
+    assert torch.all(dx[0][~valid] == 0)  # padded rows get no gradient
+
+    res = {}
+    for tag in ("kernel", "plain"):
+        xx = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        bb = torch.zeros(cout, device=dev, requires_grad=True)
+        with torch.enable_grad():  # other test modules may turn it off
+            if tag == "kernel":
+                y = k1.sparse_conv_train(xx, rules[None], rules_t[None], ww,
+                                         ov[None], bb)
+            else:
+                y = k1.apply_conv_bf16_plain(xx, rules[None], ww, ov[None],
+                                             bb)
+            y.backward(torch.randn(
+                y.shape, device=dev,
+                generator=torch.Generator(dev).manual_seed(3)))
+        res[tag] = (y.detach(), xx.grad, ww.grad, bb.grad)
+    for got, ref in zip(res["kernel"], res["plain"]):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-3
+
+
+def test_wgrad_random_rulebook_with_misses(dev):
+    """dW over a batch of two random rulebooks (a third of the rules miss)
+    against its plain version; repeated launches give the same bits (the
+    per-slice partials are summed in a fixed order)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    B, v_in, v_out, K = 2, 3000, 2500, 27
+    rules = torch.randint(0, v_in, (B, K, v_out), device=dev, generator=g,
+                          dtype=torch.int32)
+    miss = torch.rand(B, K, v_out, device=dev, generator=g) < 1 / 3
+    rules = torch.where(miss, v_in, rules).to(torch.int32)
+    x = torch.randn(B, v_in, 32, device=dev, generator=g).bfloat16()
+    cot = torch.randn(B, v_out, 64, device=dev, generator=g)
+    dw = k1.conv_wgrad(x, cot, rules)
+    ref = k1.wgrad_plain(x, cot, rules)
+    assert float((dw - ref).abs().max() / ref.abs().max()) <= 1e-3
+    assert torch.equal(k1.conv_wgrad(x, cot, rules), dw)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One Tiny_L training step on engine ``cuda`` on the card (K1 forward,
+    dx and dW kernels) against the same step on the CPU (their plain
+    versions, the same rounding): every loss term and the gradient norm
+    within 1e-3 relative, with 16 / 15 / 16 launches. Dropout is off and
+    the GT-group noise is one draw, handed to both, so the two steps see
+    the same numbers."""
+    from focalformer3d_tpu_torch.models import focal_decoder as tfd
+    from focalformer3d_tpu_torch.training import losses, optim, train_step
+
+    cfg = get_config("Tiny_L")["model"]
+    cfg = dataclasses.replace(cfg, sparse_engine="cuda",
+                              decoder=dataclasses.replace(cfg.decoder,
+                                                          roi_dropout=0.0))
+    batch = synthetic.make_batch(
+        np.random.RandomState(5), batch_size=2, n_points=2000, n_boxes=4,
+        max_gts=8, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    noise = torch.from_numpy(np.random.RandomState(9).uniform(
+        -1, 1, (2, cfg.decoder.add_gt_groups * 8, 2)).astype(np.float32))
+    sd = make_fake_state_dict(tdet.FocalFormer3D(cfg), 2)
+    lcfg = losses.LossConfig(code_weights=(1.0,) * 8 + (0.2, 0.2))
+    metrics = {}
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tfd, "gt_group_noise",
+               lambda gen, shape, device: noise.to(device))
+    try:
+        for device in ("cpu", dev):
+            m = tdet.FocalFormer3D(cfg)
+            m.load_state_dict(sd, strict=True)
+            for mod in m.modules():
+                if isinstance(getattr(mod, "dropout", None), float):
+                    mod.dropout = 0.0
+            m = m.to(device)
+            tx = optim.make_optimizer(total_steps=10)
+            state = tx.init(list(m.parameters()))
+            b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            k1.reset_launch_count()
+            met = train_step.make_train_step(cfg, lcfg, tx)(m, state, b,
+                                                            None)
+            metrics[str(device)] = {k: float(v) for k, v in met.items()}
+            on_card = device != "cpu"
+            assert [k1.launch_count(kind) for kind in
+                    ("forward", "dx", "wgrad")] == \
+                ([16, 15, 16] if on_card else [0, 0, 0])
+    finally:
+        mp.undo()
+    cpu, card = metrics["cpu"], metrics[str(dev)]
+    assert card["num_pos"] == cpu["num_pos"]
+    for k, v in cpu.items():
+        if k == "assign_iterations":
+            continue
+        assert np.isfinite(card[k]), k
+        assert abs(card[k] - v) <= 1e-3 * max(abs(v), 1e-6), (k, card[k], v)

@@ -231,7 +231,7 @@ def test_sparse_encoder_vs_jax_voxel_engine(setup, dense_from):
     ref = jax.jit(lambda e, f, c, m: enc.apply(e, f, c, m, False))(
         ev, vox["features"], vox["coords"], vox["voxel_mask"])
     tenc = SparseEncoder(in_channels=5, engine="plain", dense_from=dense_from,
-                         **_enc_kwargs(setup["tcfg"]))
+                         **_enc_kwargs(setup["tcfg"])).eval()
     tenc.load_state_dict(
         setup["tmodel"].pts_middle_encoder.state_dict(), strict=True)
     got = tenc(_t(vox["features"]), _t(vox["coords"]),
@@ -267,7 +267,7 @@ def test_kernel_engines_vs_jax_voxel_engine(setup, engine, dense_from):
     bev = {}
     for e in (engine, "cuda"):
         tenc = SparseEncoder(in_channels=5, engine=e, dense_from=dense_from,
-                             **kw)
+                             **kw).eval()
         tenc.load_state_dict(
             setup["tmodel"].pts_middle_encoder.state_dict(), strict=True)
         bev[e] = tenc(*args)
