@@ -6,10 +6,12 @@ Phases (any failure raises and exits non-zero):
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
-2. build: compiles the four kernel sources of
+2. build: compiles the seven kernel sources of
    ``focalformer3d_tpu_torch/csrc/`` with one nvcc each, all started
-   together (K1 sparse-conv apply, which also runs dx; the dW kernel; K2
-   rulebook builder; K3 z-run sparse-conv apply); prints the seconds of each.
+   together (K1 sparse-conv apply, which also runs dx and the phase probe;
+   the dW kernel; K2 rulebook builder; K3 z-run sparse-conv apply; the
+   probes' kernels A ``micro_dot``, B ``micro_gather``, C
+   ``micro_widen``); prints the seconds of each.
 3. kernels vs plain, on one radial 200k-point scan (the scan ``bench.py``
    builds), at the shapes the encoder engines give them:
    - index builds: the torch-op build of engine ``cuda``, the meta chain of
@@ -53,6 +55,16 @@ Phases (any failure raises and exits non-zero):
 8. one more training step under ``torch.profiler``: kernels launched,
    device busy share, the largest kernels with their launches, and the
    aten ops that launched the top three.
+9. probes: the nine TPU probes P1-P9 of ``tools/micro_*.py`` as their
+   ports in ``focalformer3d_tpu_torch/tools/`` (``run(device, "full")``,
+   the originals' shapes, each once), one line per probe. Every kernel
+   case is held against its plain version: kernel A (``micro_dot``) and
+   B's ``gather_taps`` within 1e-3 of the output's scale (sums in another
+   order), B's ``gather_rows`` and C (``micro_widen``) bit for bit, K1's
+   phase probe in full mode bit for bit against production K1 and within
+   1e-3 of the plain conv (its other modes compute zeros, held exactly);
+   launches of the five probe kernels are counted from zero just before
+   the phase and must all be non-zero.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths,
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
@@ -62,7 +74,17 @@ output written once) over 3.35 TB/s and its multiply-adds over the peak of
 their type (989 TFLOP/s bf16 for K1 and K3, whose operands are bf16; 67
 TFLOP/s float32 for dW, whose cotangent stays float32), counted from this
 run's rulebooks (rules that hit, at valid output sites). No single PyTorch
-call computes a sparse conv or a rulebook, so ``library_ms`` is null.
+call computes a sparse conv or a rulebook, so ``library_ms`` is null. The
+five probe kernels carry their headline case (``case``): ``micro_dot`` P1a's
+``gk`` beside one ``torch.matmul`` over the same operand;
+``micro_gather_taps`` P6 at pack 1 (where the three TPU kernels are one
+function) beside ``embedding_bag(mode="sum")``; ``micro_gather_rows`` P7's
+4 MiB table beside ``torch.index_select``; ``micro_widen`` P9 at L0 beside
+``torch.cat`` of the nine slices; ``sparse_conv_probe`` P1b's L0 in full
+mode (no library call). Their times are per call, from calls replayed in
+a CUDA graph (``tools/_common.time_ms``: the device's time, without the
+host's); their launches count each replay's launches; ``max_abs_err`` is
+the largest over all their cases.
 
 Imports nothing of JAX and nothing of the JAX package
 (``focalformer3d_tpu``): weights and scans come from the port's own numpy
@@ -112,7 +134,30 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                    "focalformer3d_tpu/ops/plan_builder.py:129"),
     "sparse_conv_zrun": (CSRC + "sparse_conv_zrun.cu",
                          "focalformer3d_tpu/ops/sparse_conv_zrun.py:312"),
+    "micro_dot": (CSRC + "micro_dot.cu", "tools/micro_mxu_probe.py:85"),
+    "micro_gather_taps": (CSRC + "micro_gather.cu",
+                          "tools/micro_gather_kernel.py:46"),
+    "micro_gather_rows": (CSRC + "micro_gather.cu",
+                          "tools/micro_gather2.py:98"),
+    "micro_widen": (CSRC + "micro_widen.cu", "tools/micro_meta9.py:88"),
+    "sparse_conv_probe": (CSRC + "sparse_conv.cu",
+                          "tools/micro_mxu_probe.py:115"),
 }
+# the other Pallas functions each probe kernel stands for
+ALSO_REPLACES = {
+    "micro_dot": ["tools/micro_dotshape.py:38", "tools/micro_dotshape.py:50",
+                  "tools/micro_dotshape2.py:29"],
+    "micro_gather_taps": ["tools/micro_gather_kernel.py:61",
+                          "tools/micro_gather_kernel.py:73"],
+    "micro_gather_rows": ["tools/micro_gather2.py:131"],
+    "micro_widen": [],
+    "sparse_conv_probe": ["tools/micro_kernel_v2.py:54",
+                          "tools/micro_pallas_attr.py:37",
+                          "tools/micro_batch_grid.py:45"],
+}
+PROBES = ("micro_mxu_probe", "micro_dotshape", "micro_dotshape2",
+          "micro_kernel_v2", "micro_pallas_attr", "micro_gather_kernel",
+          "micro_gather2", "micro_batch_grid", "micro_meta9")
 
 
 class Bound:
@@ -147,6 +192,13 @@ def _wrappers():
     from focalformer3d_tpu_torch.ops import sparse_conv_zrun_cuda as k3
 
     return k1, k2, k3
+
+
+def _probe_wrappers():
+    from focalformer3d_tpu_torch.ops import micro_dot, micro_gather, \
+        micro_widen
+
+    return micro_dot, micro_gather, micro_widen
 
 
 def _scan(cfg, seed, device):
@@ -194,12 +246,17 @@ def phase_build():
     from focalformer3d_tpu_torch.ops import cuda_build
 
     k1, k2, k3 = _wrappers()
+    dot, gather, widen = _probe_wrappers()
     t0 = time.perf_counter()
     secs = cuda_build.build(k1.SOURCE, k1.WGRAD_SOURCE, k2.SOURCE,
-                            k3.SOURCE)
-    for k in (k1, k2, k3):
+                            k3.SOURCE, dot.SOURCE, gather.SOURCE,
+                            widen.SOURCE)
+    for k in (k1, k2, k3, dot, widen):
         k._load()
     k1._load_wgrad()
+    k1._load_probe()
+    gather._load("taps")
+    gather._load("rows")
     print("build: " + ", ".join(f"{stem} {s:.2f} s" for stem, s in
                                 secs.items())
           + f" (in parallel; all loaded after "
@@ -801,6 +858,79 @@ def _profile_step(run):
               + "; ".join(lab for lab, _ in ops[:3]), flush=True)
 
 
+def _probe_launches():
+    k1, _, _ = _wrappers()
+    dot, gather, widen = _probe_wrappers()
+    return {"micro_dot": dot.launch_count(),
+            "micro_gather_taps": gather.launch_count("taps"),
+            "micro_gather_rows": gather.launch_count("rows"),
+            "micro_widen": widen.launch_count(),
+            "sparse_conv_probe": k1.launch_count("probe")}
+
+
+def _probe_line(name, rows, secs, launches):
+    def case(r):
+        if r["kernel"] is None:
+            return f"{r['case']}: {r['op']} {r['library_ms']:.4f}"
+        text = f"{r['case']}: {r['ms']:.4f} (plain {r['plain_ms']:.3f}"
+        if r["library_ms"] is not None:
+            text += f", {r['op']} {r['library_ms']:.4f}"
+        return text + ")"
+
+    probes = ", ".join(sorted({r["probe"] for r in rows}))
+    launched = ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+    return (f"probe {name} ({probes}, {len(rows)} cases, all "
+            f"checks passed, {secs:.1f} s; launches: {launched}; kernel ms"
+            f"): " + "; ".join(case(r) for r in rows))
+
+
+def phase_probes(device):
+    """Every probe module at its full size; returns the headline row and
+    the largest error of each probe kernel, and the launches of the five
+    probe kernels, counted from zero just before the first probe and read
+    just after the last."""
+    import importlib
+
+    k1, _, _ = _wrappers()
+    for k in (k1, *_probe_wrappers()):
+        k.reset_launch_count()
+    rows = []
+    t_all = time.perf_counter()
+    for name in PROBES:
+        mod = importlib.import_module(f"focalformer3d_tpu_torch.tools.{name}")
+        before = _probe_launches()
+        t0 = time.perf_counter()
+        got = mod.run(device, "full")
+        torch.cuda.synchronize()
+        bad = [r["case"] for r in got if not r["ok"]]
+        if bad:
+            raise RuntimeError(f"probe {name}: checks failed: {bad}")
+        mine = {k: n - before[k] for k, n in _probe_launches().items()}
+        print(_probe_line(name, got, time.perf_counter() - t0, mine),
+              flush=True)
+        rows += got
+        torch.cuda.empty_cache()
+    launches = _probe_launches()
+    if not all(launches.values()):
+        raise RuntimeError(f"probes: a kernel was not launched: {launches}")
+    print(f"probes: {len(rows)} cases in {time.perf_counter() - t_all:.1f} "
+          f"s; launches {launches}", flush=True)
+    out = {}
+    for name in launches:
+        mine = [r for r in rows if r["kernel"] == name]
+        head = [r for r in mine if r["headline"]]
+        if len(head) != 1:
+            raise RuntimeError(f"probes: {len(head)} headline cases of {name}")
+        h = head[0]
+        out[name] = {
+            "case": f"{h['probe']} {h['case']}",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": h["ms"], "plain_ms": h["plain_ms"], "library_ms": h["library_ms"],
+            "library": h["op"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"]}
+    return out, launches
+
+
 def main():
     device = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -839,6 +969,9 @@ def main():
     batch = _train_batch(tcfg, device)
     grad = phase_k1_grad(tcfg, batch, device)
     train = phase_train(tcfg, batch, device)
+    del batch
+    torch.cuda.empty_cache()
+    probes, probe_launches = phase_probes(device)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "focalformer3d_tpu")]
     if jaxy:
@@ -861,6 +994,13 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by.values()),
             "launches_by_path": by, "library_ms": None, **stats})
+    for name, stats in probes.items():
+        source, replaces = KERNELS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "also_replaces": ALSO_REPLACES[name],
+            "launches": probe_launches[name],
+            "launches_by_path": {"probes": probe_launches[name]}, **stats})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

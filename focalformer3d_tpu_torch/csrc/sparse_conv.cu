@@ -28,6 +28,19 @@
 // (WMMA bf16 16x16x16, f32 accumulators held in registers across all taps).
 // Bias, the out_valid mask and the store happen once, in the epilogue.
 // TMA, wgmma and multi-stage pipelining of the gather are later work.
+//
+// Phase switches (the probe of focalformer3d_tpu_torch/tools/): the template
+// parameter PHASES keeps the gather (kGather: staging the gathered rows)
+// and the product (kMma: staging W[k] and the tensor-core MMAs) or drops
+// either, to split the kernel's time as the TPU probes did with copies of
+// their kernel (tools/micro_mxu_probe.py:_variant_kernel,
+// micro_pallas_attr.py:variant_kernel, micro_batch_grid.py:_kernel_flat,
+// micro_kernel_v2.py:_kernel_v2). Without kGather the product reads a
+// staging tile zeroed once; with neither bit only the rule loads, the tap
+// vote and the epilogue run. A mode without both bits computes
+// out_valid ? bias : 0. sparse_conv_forward instantiates PHASES = kFull
+// only, so production K1 is this same code; sparse_conv_probe takes the
+// mode at run time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,8 +54,11 @@ namespace {
 constexpr int kTile = 128;      // output sites per block
 constexpr int kWarps = 8;       // one 16-row strip of the tile per warp
 constexpr int kThreads = kWarps * 32;
+constexpr int kGather = 1;  // stage the tile's gathered rows
+constexpr int kMma = 2;     // stage W[k] and run the tensor-core product
+constexpr int kFull = kGather | kMma;
 
-template <int COUT>
+template <int COUT, int PHASES>
 __global__ void __launch_bounds__(kThreads)
 sparse_conv_kernel(const __nv_bfloat16* __restrict__ feats,  // (B, V_in, C)
                    const int32_t* __restrict__ rules,        // (B, K, V_out)
@@ -69,6 +85,12 @@ sparse_conv_kernel(const __nv_bfloat16* __restrict__ feats,  // (B, V_in, C)
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[COUT / 16];
 #pragma unroll
   for (int n = 0; n < COUT / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  if constexpr ((PHASES & kGather) == 0) {
+    // the product alone reads a zeroed tile (barriers follow before it)
+    for (int i = tid; i < kTile * chunks; i += kThreads) {
+      reinterpret_cast<uint4*>(a_s)[i] = make_uint4(0, 0, 0, 0);
+    }
+  }
 
   for (int k = 0; k < n_taps; ++k) {
     int hit = 0;
@@ -80,29 +102,35 @@ sparse_conv_kernel(const __nv_bfloat16* __restrict__ feats,  // (B, V_in, C)
     }
     if (!__syncthreads_or(hit)) continue;  // no site of the tile uses tap k
 
-    for (int i = tid; i < kTile * chunks; i += kThreads) {
-      const int row = i / chunks;
-      const int r = r_s[row];
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if ((unsigned)r < (unsigned)v_in) {  // misses read as zero rows
-        v = reinterpret_cast<const uint4*>(feats_b + (size_t)r * c)[i - row * chunks];
+    if constexpr ((PHASES & kGather) != 0) {
+      for (int i = tid; i < kTile * chunks; i += kThreads) {
+        const int row = i / chunks;
+        const int r = r_s[row];
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if ((unsigned)r < (unsigned)v_in) {  // misses read as zero rows
+          v = reinterpret_cast<const uint4*>(feats_b + (size_t)r * c)[i - row * chunks];
+        }
+        reinterpret_cast<uint4*>(a_s)[i] = v;
       }
-      reinterpret_cast<uint4*>(a_s)[i] = v;
     }
-    const uint4* w_k = reinterpret_cast<const uint4*>(w + (size_t)k * c * COUT);
-    for (int i = tid; i < c * COUT / 8; i += kThreads) {
-      reinterpret_cast<uint4*>(b_s)[i] = w_k[i];
+    if constexpr ((PHASES & kMma) != 0) {
+      const uint4* w_k = reinterpret_cast<const uint4*>(w + (size_t)k * c * COUT);
+      for (int i = tid; i < c * COUT / 8; i += kThreads) {
+        reinterpret_cast<uint4*>(b_s)[i] = w_k[i];
+      }
     }
     __syncthreads();
 
-    for (int kc = 0; kc < c / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_s + warp * 16 * c + kc * 16, c);
+    if constexpr ((PHASES & kMma) != 0) {
+      for (int kc = 0; kc < c / 16; ++kc) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, a_s + warp * 16 * c + kc * 16, c);
 #pragma unroll
-      for (int n = 0; n < COUT / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, b_s + kc * 16 * COUT + n * 16, COUT);
-        wmma::mma_sync(acc[n], a, bf, acc[n]);
+        for (int n = 0; n < COUT / 16; ++n) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
+          wmma::load_matrix_sync(bf, b_s + kc * 16 * COUT + n * 16, COUT);
+          wmma::mma_sync(acc[n], a, bf, acc[n]);
+        }
       }
     }
     __syncthreads();
@@ -129,7 +157,7 @@ sparse_conv_kernel(const __nv_bfloat16* __restrict__ feats,  // (B, V_in, C)
   }
 }
 
-template <int COUT>
+template <int COUT, int PHASES>
 cudaError_t launch(const void* feats, const int32_t* rules, const void* w,
                    const float* bias, const uint8_t* out_valid, float* out,
                    int batch, int v_in, int v_out, int n_taps, int c,
@@ -138,15 +166,35 @@ cudaError_t launch(const void* feats, const int32_t* rules, const void* w,
   const size_t epilogue = (size_t)kTile * COUT * 4;
   const size_t smem = stage > epilogue ? stage : epilogue;
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_conv_kernel<COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sparse_conv_kernel<COUT, PHASES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((v_out + kTile - 1) / kTile, batch);
-  sparse_conv_kernel<COUT><<<grid, kThreads, smem, stream>>>(
+  sparse_conv_kernel<COUT, PHASES><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(feats), rules,
       static_cast<const __nv_bfloat16*>(w), bias, out_valid, out, v_in, v_out,
       n_taps, c);
   return cudaGetLastError();
+}
+
+template <int PHASES>
+int dispatch(const void* feats, const void* rules, const void* w,
+             const void* bias, const void* out_valid, void* out, int batch,
+             int v_in, int v_out, int n_taps, int c, int cout,
+             void* stream) {
+  if (v_out == 0 || batch == 0) return 0;
+  const int32_t* r = static_cast<const int32_t*>(rules);
+  const float* bs = static_cast<const float*>(bias);
+  const uint8_t* vl = static_cast<const uint8_t*>(out_valid);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cout) {
+    case 16: return launch<16, PHASES>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
+    case 32: return launch<32, PHASES>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
+    case 64: return launch<64, PHASES>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
+    case 128: return launch<128, PHASES>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -159,17 +207,22 @@ extern "C" int sparse_conv_forward(const void* feats, const void* rules,
                                    const void* out_valid, void* out, int batch,
                                    int v_in, int v_out, int n_taps, int c,
                                    int cout, void* stream) {
-  if (v_out == 0 || batch == 0) return 0;
-  const int32_t* r = static_cast<const int32_t*>(rules);
-  const float* bs = static_cast<const float*>(bias);
-  const uint8_t* vl = static_cast<const uint8_t*>(out_valid);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cout) {
-    case 16: return launch<16>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
-    case 32: return launch<32>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
-    case 64: return launch<64>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
-    case 128: return launch<128>(feats, r, w, bs, vl, o, batch, v_in, v_out, n_taps, c, st);
+  return dispatch<kFull>(feats, rules, w, bias, out_valid, out, batch, v_in,
+                         v_out, n_taps, c, cout, stream);
+}
+
+// The same kernel with the phases of `phases` (bits kGather = 1, kMma = 2);
+// phases 3 is sparse_conv_forward's instantiation itself.
+extern "C" int sparse_conv_probe(const void* feats, const void* rules,
+                                 const void* w, const void* bias,
+                                 const void* out_valid, void* out, int batch,
+                                 int v_in, int v_out, int n_taps, int c,
+                                 int cout, int phases, void* stream) {
+  switch (phases) {
+    case 0: return dispatch<0>(feats, rules, w, bias, out_valid, out, batch, v_in, v_out, n_taps, c, cout, stream);
+    case kGather: return dispatch<kGather>(feats, rules, w, bias, out_valid, out, batch, v_in, v_out, n_taps, c, cout, stream);
+    case kMma: return dispatch<kMma>(feats, rules, w, bias, out_valid, out, batch, v_in, v_out, n_taps, c, cout, stream);
+    case kFull: return dispatch<kFull>(feats, rules, w, bias, out_valid, out, batch, v_in, v_out, n_taps, c, cout, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

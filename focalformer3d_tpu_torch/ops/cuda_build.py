@@ -16,7 +16,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -97,8 +99,72 @@ def load(source: Path, symbol: str, argtypes: Sequence):
     return fn
 
 
+def on_card(*tensors) -> bool:
+    """Whether a kernel's operands lie on a card (launch the kernel) or on
+    the CPU (run its plain version); raises for operands on several devices
+    or on another kind of device."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all operands must be on one device")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def check_aligned(*tensors) -> None:
+    """The kernels read and write 16-byte vectors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("operands must be 16-byte aligned")
+
+
 def check_launch(err: int, name: str) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never
     runs, and a later synchronise would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+_COUNTERS: List["Launches"] = []
+
+
+class Launches:
+    """Launch counts of one module's kernels, by kind. A wrapper calls
+    ``add(kind)`` where it launches its kernel. A call made while the
+    current stream is being captured into a CUDA graph launches nothing: it
+    is held apart until ``take_captured`` hands it to the code that replays
+    the graph, and ``add_replays`` counts it once per replay."""
+
+    def __init__(self, *kinds: str):
+        self.counts = dict.fromkeys(kinds, 0)
+        self.captured = dict.fromkeys(kinds, 0)
+        _COUNTERS.append(self)
+
+    def add(self, kind: str) -> None:
+        held = (self.captured if torch.cuda.is_current_stream_capturing()
+                else self.counts)
+        held[kind] += 1
+
+    def reset(self) -> None:
+        for kind in self.counts:
+            self.counts[kind] = 0
+
+
+def take_captured() -> list:
+    """The launches recorded in graph captures since the last call, as
+    (counter, {kind: n}) pairs; clears them."""
+    taken = []
+    for counter in _COUNTERS:
+        taken.append((counter, dict(counter.captured)))
+        for kind in counter.captured:
+            counter.captured[kind] = 0
+    return taken
+
+
+def add_replays(captured: list, replays: int) -> None:
+    """Count ``replays`` replays of a graph whose capture recorded
+    ``captured`` (from ``take_captured``)."""
+    for counter, kinds in captured:
+        for kind, n in kinds.items():
+            counter.counts[kind] += n * replays

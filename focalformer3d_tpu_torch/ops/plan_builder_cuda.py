@@ -26,17 +26,16 @@ from .plan_builder import decode_rules
 SOURCE = cuda_build.CSRC / "plan_builder.cu"
 
 _fn = None
-_launches = 0
+_launches = cuda_build.Launches("rules")
 
 
 def launch_count() -> int:
     """Kernel launches since the last ``reset_launch_count``."""
-    return _launches
+    return _launches.counts["rules"]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    _launches.reset()
 
 
 def _load():
@@ -65,8 +64,6 @@ def plan_rules(meta: torch.Tensor, colz: torch.Tensor, in_capacity: int,
         out_w = W
     if meta.dtype != torch.int32 or colz.dtype != torch.int32:
         raise TypeError("meta and colz must be int32")
-    if meta.device != colz.device:
-        raise ValueError("meta and colz must be on one device")
     if not (meta.is_contiguous() and colz.is_contiguous()):
         raise ValueError("meta and colz must be contiguous")
     B, V_out = colz.shape
@@ -75,14 +72,11 @@ def plan_rules(meta: torch.Tensor, colz: torch.Tensor, in_capacity: int,
                          f"{H * W + 1}, 4) for the input grid {in_shape}")
     if D > 64:
         raise ValueError(f"z extent {D} > 64 (bitmask words)")
-    if meta.device.type == "cpu":
+    if not cuda_build.on_card(meta, colz):
         return torch.stack([
             decode_rules(colz[b], in_capacity, meta[b], kernel_size, stride,
                          padding, in_shape, out_w) for b in range(B)])
-    if meta.device.type != "cuda":
-        raise ValueError(f"unsupported device {meta.device}")
-    if meta.data_ptr() % 16:
-        raise ValueError("meta must be 16-byte aligned")
+    cuda_build.check_aligned(meta)
     geom = (ctypes.c_int * 13)(
         kz, ky, kx, *sc._as_triple(stride), *sc._as_triple(padding),
         D, H, W, out_w)
@@ -93,6 +87,5 @@ def plan_rules(meta: torch.Tensor, colz: torch.Tensor, in_capacity: int,
     cuda_build.check_launch(fn(
         meta.data_ptr(), colz.data_ptr(), rules.data_ptr(), geom, B, V_out,
         in_capacity, stream), "plan_rules")
-    global _launches
-    _launches += 1
+    _launches.add("rules")
     return rules

@@ -23,6 +23,13 @@ CPU it runs ``apply_conv_plain`` with the kernel's rounding. Both compute
   spill correction (``sparse_conv_pallas.py:726-767``);
 - db: the sum of the masked cotangent.
 
+``sparse_conv_probe`` is the same forward kernel with its phases switched
+(``PHASES`` of ``csrc/sparse_conv.cu``): ``PHASE_GATHER`` stages the gathered
+rows, ``PHASE_MMA`` stages W and runs the tensor-core product. ``PHASE_FULL``
+is production K1's own instantiation; the other modes time a part of it, as
+the TPU probes P1b, P4, P5 and P8 did with copies of their kernel, and
+compute ``out_valid ? bias : 0``. It counts its launches apart (``probe``).
+
 Each kernel's plain version sits beside it and is what a CPU tensor gets.
 The kernels are compiled with ``nvcc`` into ``focalformer3d_tpu_torch/_build/``
 at first use (a few seconds each; plain C interfaces loaded with
@@ -44,21 +51,25 @@ MAX_C = 256
 WGRAD_BLOCKS = 2048  # target blocks per dW launch (taps x site slices)
 WGRAD_CHUNK = 64  # sites per staged chunk (kChunk of the dW kernel)
 
+PHASE_GATHER = 1
+PHASE_MMA = 2
+PHASE_FULL = PHASE_GATHER | PHASE_MMA
+
 _fn = None
+_probe_fn = None
 _wgrad_fn = None
-_launches = {"forward": 0, "dx": 0, "wgrad": 0}
+_launches = cuda_build.Launches("forward", "dx", "wgrad", "probe")
 
 
 def launch_count(kind: str = "forward") -> int:
     """Launches of one kernel use since the last ``reset_launch_count``:
-    ``forward`` (K1), ``dx`` (K1 on a transposed rulebook) or ``wgrad``
-    (the dW kernel)."""
-    return _launches[kind]
+    ``forward`` (K1), ``dx`` (K1 on a transposed rulebook), ``wgrad`` (the
+    dW kernel) or ``probe`` (K1 with its phases switched)."""
+    return _launches.counts[kind]
 
 
 def reset_launch_count() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    _launches.reset()
 
 
 def _load():
@@ -68,6 +79,15 @@ def _load():
             SOURCE, "sparse_conv_forward",
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return _fn
+
+
+def _load_probe():
+    global _probe_fn
+    if _probe_fn is None:
+        _probe_fn = cuda_build.load(
+            SOURCE, "sparse_conv_probe",
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    return _probe_fn
 
 
 def _load_wgrad():
@@ -162,38 +182,30 @@ def pad_operands(features, weights, bias, max_c: int):
         weights = torch.nn.functional.pad(weights, (0, cout_k - c_out))
         if bias is not None:
             bias = torch.nn.functional.pad(bias, (0, cout_k - c_out))
-    for t in (features, weights):
-        if t.data_ptr() % 16:
-            raise ValueError("features and weights must be 16-byte aligned")
+    cuda_build.check_aligned(features, weights)
     return features, weights, bias
 
 
-def _run_forward(features, rules, weights, out_valid, bias):
-    """Launch the forward kernel (checked operands on a card)."""
+def _run_forward(features, rules, weights, out_valid, bias, phases=None):
+    """Launch the forward kernel, or with ``phases`` its probe (checked
+    operands on a card)."""
     c_out = weights.shape[2]
     features, weights, bias = pad_operands(features, weights, bias, MAX_C)
     B, V_in, C = features.shape
     K, _, C_out = weights.shape
     V_out = rules.shape[2]
-    fn = _load()
     out = torch.empty((B, V_out, C_out), dtype=torch.float32,
                       device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
-    cuda_build.check_launch(fn(
-        features.data_ptr(), rules.data_ptr(), weights.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        out_valid.data_ptr(), out.data_ptr(), B, V_in, V_out, K, C, C_out,
-        stream,
-    ), "sparse_conv")
+    args = (features.data_ptr(), rules.data_ptr(), weights.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            out_valid.data_ptr(), out.data_ptr(), B, V_in, V_out, K, C, C_out)
+    if phases is None:
+        cuda_build.check_launch(_load()(*args, stream), "sparse_conv")
+    else:
+        cuda_build.check_launch(_load_probe()(*args, phases, stream),
+                                "sparse_conv_probe")
     return out if C_out == c_out else out[..., :c_out].contiguous()
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
 
 
 def sparse_conv(features: torch.Tensor, rules: torch.Tensor,
@@ -210,11 +222,47 @@ def sparse_conv(features: torch.Tensor, rules: torch.Tensor,
     raises); on the CPU it runs ``apply_conv_plain`` with the same
     rounding."""
     check_operands(features, rules, weights, out_valid, bias)
-    if not _on_card(features):
+    if not cuda_build.on_card(features):
         return apply_conv_plain(features, rules, weights, out_valid,
                                 bias, torch.float32)
     out = _run_forward(features, rules, weights, out_valid, bias)
-    _launches["forward"] += 1
+    _launches.add("forward")
+    return out
+
+
+def sparse_conv_probe_plain(features, rules, weights, out_valid, bias=None,
+                            phases: int = PHASE_FULL) -> torch.Tensor:
+    """What each mode computes: ``apply_conv_plain`` in full mode, else
+    ``out_valid ? bias : 0`` (the product never reaches the output)."""
+    if phases == PHASE_FULL:
+        return apply_conv_plain(features, rules, weights, out_valid, bias,
+                                torch.float32)
+    B, V_out = out_valid.shape
+    out = torch.zeros((B, V_out, weights.shape[2]), dtype=torch.float32,
+                      device=features.device)
+    if bias is not None:
+        out = out + bias
+    return torch.where(out_valid[..., None], out, 0.0)
+
+
+def sparse_conv_probe(features: torch.Tensor, rules: torch.Tensor,
+                      weights: torch.Tensor, out_valid: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      phases: int = PHASE_FULL) -> torch.Tensor:
+    """K1's forward kernel with only the phases in ``phases`` (bits
+    ``PHASE_GATHER``, ``PHASE_MMA``); operands as ``sparse_conv``. Full mode
+    runs production K1's own code, so it equals ``sparse_conv`` bit for bit.
+    On a CUDA device this launches the kernel (or raises); on the CPU it
+    runs ``sparse_conv_probe_plain``."""
+    if phases not in (0, PHASE_GATHER, PHASE_MMA, PHASE_FULL):
+        raise ValueError(f"phases={phases} is not a mode of the probe")
+    check_operands(features, rules, weights, out_valid, bias)
+    if not cuda_build.on_card(features):
+        return sparse_conv_probe_plain(features.float(), rules,
+                                       weights.float(), out_valid, bias,
+                                       phases)
+    out = _run_forward(features, rules, weights, out_valid, bias, phases)
+    _launches.add("probe")
     return out
 
 
@@ -233,10 +281,10 @@ def conv_dx(grad: torch.Tensor, rules_t: torch.Tensor,
     every = torch.ones(rules_t.shape[0], rules_t.shape[2], dtype=torch.bool,
                        device=g.device)
     check_operands(g, rules_t, w_t, every, None)
-    if not _on_card(g):
+    if not cuda_build.on_card(g):
         return apply_conv_plain(g, rules_t, w_t, every, None, torch.float32)
     out = _run_forward(g, rules_t, w_t, every, None)
-    _launches["dx"] += 1
+    _launches.add("dx")
     return out
 
 
@@ -286,7 +334,7 @@ def conv_wgrad(features: torch.Tensor, grad: torch.Tensor,
     B, V_in, C = features.shape
     K, V_out = rules.shape[1], rules.shape[2]
     c_out = grad.shape[2]
-    if not _on_card(features):
+    if not cuda_build.on_card(features):
         return wgrad_plain(features, grad, rules)
     if C > COUTS[-1] or c_out > COUTS[-1]:
         raise ValueError(f"dW kernel takes C, Cout <= {COUTS[-1]}; got "
@@ -297,8 +345,7 @@ def conv_wgrad(features: torch.Tensor, grad: torch.Tensor,
         else features
     g = torch.nn.functional.pad(grad, (0, op - c_out)) if op != c_out \
         else grad
-    if x.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("features and grad must be 16-byte aligned")
+    cuda_build.check_aligned(x, g)
     n_chunks = max(1, -(-(B * V_out) // WGRAD_CHUNK))
     n_slices = min(n_chunks, -(-WGRAD_BLOCKS // K))
     partial = torch.empty((n_slices, K, cp, op), dtype=torch.float32,
@@ -310,7 +357,7 @@ def conv_wgrad(features: torch.Tensor, grad: torch.Tensor,
         x.data_ptr(), g.data_ptr(), rules.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), B, V_in, V_out, K, cp, op, n_slices, stream,
     ), "sparse_conv_wgrad")
-    _launches["wgrad"] += 1
+    _launches.add("wgrad")
     return dw[:, :C, :c_out].contiguous() if (cp, op) != (C, c_out) else dw
 
 

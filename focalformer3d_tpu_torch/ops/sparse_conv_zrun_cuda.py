@@ -25,17 +25,16 @@ SOURCE = cuda_build.CSRC / "sparse_conv_zrun.cu"
 MAX_C = 128  # 3C-wide A rows and 3C x Cout weights fit in shared memory
 
 _fn = None
-_launches = 0
+_launches = cuda_build.Launches("zrun")
 
 
 def launch_count() -> int:
     """Kernel launches since the last ``reset_launch_count``."""
-    return _launches
+    return _launches.counts["zrun"]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    _launches.reset()
 
 
 def _load():
@@ -59,11 +58,9 @@ def zrun_conv(features: torch.Tensor, codes: torch.Tensor,
     device this launches the kernel (or raises); on the CPU it runs
     ``apply_conv_zrun_plain`` with the same rounding."""
     check_operands(features, codes, weights, out_valid, bias, ZTAPS)
-    if features.device.type == "cpu":
+    if not cuda_build.on_card(features):
         return apply_conv_zrun_plain(features, codes, weights, out_valid,
                                      bias, torch.float32)
-    if features.device.type != "cuda":
-        raise ValueError(f"unsupported device {features.device}")
     c_out = weights.shape[2]
     features, weights, bias = pad_operands(features, weights, bias, MAX_C)
     B, V_in, C = features.shape
@@ -79,6 +76,5 @@ def zrun_conv(features: torch.Tensor, codes: torch.Tensor,
         out_valid.data_ptr(), out.data_ptr(), B, V_in, V_out, R, C, C_out,
         stream,
     ), "sparse_conv_zrun")
-    global _launches
-    _launches += 1
+    _launches.add("zrun")
     return out if C_out == c_out else out[..., :c_out].contiguous()

@@ -15,7 +15,11 @@ CPU (exactly), the Tiny_L slice's encoder on each kernel engine against
 the plain engine (1e-2, bf16 scale), K1's backward (dx on the transposed
 rulebook, the dW kernel, the autograd Function; 1e-3) against its plain
 versions, and one Tiny_L training step on the card against the same step
-on the CPU (1e-3).
+on the CPU (1e-3). For the probes (``focalformer3d_tpu_torch/tools/``): kernel
+A and B's ``gather_taps`` against their plain versions (1e-3), B's
+``gather_rows`` and C exactly, K1's phase probe in full mode against
+production K1 bit for bit and in its other modes exactly, and every probe
+module at its small size.
 """
 import dataclasses
 
@@ -394,3 +398,143 @@ def test_train_step_on_card_matches_cpu(dev):
             continue
         assert np.isfinite(card[k]), k
         assert abs(card[k] - v) <= 1e-3 * max(abs(v), 1e-6), (k, card[k], v)
+
+
+# ---------------------------------------------------------------------------
+# the probes' kernels: A (micro_dot), B (micro_gather), C (micro_widen) and
+# K1's phase probe, against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_a,m,k,n,reps,n_blocks,rows_out,store", [
+    (1, 2304, 64, 128, 3, 40, 8, 0),      # P2's shape, fewer blocks
+    (6, 200, 80, 48, 2, 6, 200, 3),       # ragged M, K and N tiles
+    (3, 256, 1152, 16, 1, 7, 33, 6),      # block 6 reads a[6 mod 3]
+])
+def test_micro_dot_vs_plain(dev, n_a, m, k, n, reps, n_blocks, rows_out,
+                            store):
+    from focalformer3d_tpu_torch.ops import micro_dot
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    a = torch.randn(n_a, m, k, device=dev, generator=g).bfloat16()
+    b = torch.randn(k, n, device=dev, generator=g).bfloat16()
+    n0 = micro_dot.launch_count()
+    got = micro_dot.dot_probe(a, b, n_blocks, reps, rows_out, store)
+    torch.cuda.synchronize()
+    assert micro_dot.launch_count() == n0 + 1
+    ref = micro_dot.dot_probe_plain(a, b, reps, rows_out, store)
+    assert got.shape == (rows_out, n)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("r_rows,l,div", [(512, 128, 8), (256, 128, 1),
+                                          (100, 24, 3)])
+def test_gather_taps_vs_plain(dev, r_rows, l, div):
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    # a few indices past the window or negative: zero rows
+    rel = torch.randint(-5, r_rows * div + 40, (37, 128, 27), device=dev,
+                        generator=g, dtype=torch.int32)
+    window = torch.randn(r_rows, l, device=dev, generator=g).bfloat16()
+    n0 = micro_gather.launch_count("taps")
+    got = micro_gather.gather_taps(rel, window, div)
+    torch.cuda.synchronize()
+    assert micro_gather.launch_count("taps") == n0 + 1
+    ref = micro_gather.gather_taps_plain(rel, window, div)
+    err = (got.float() - ref.float()).abs().max()
+    assert float(err / ref.float().abs().max()) <= 1e-3
+
+
+def test_gather_rows_exact(dev):
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    x = torch.randn(5000, 40, device=dev, generator=g).bfloat16()
+    idx = torch.randint(-3, 5010, (100_003,), device=dev, generator=g,
+                        dtype=torch.int32)
+    n0 = micro_gather.launch_count("rows")
+    got = micro_gather.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert micro_gather.launch_count("rows") == n0 + 1
+    assert torch.equal(got, micro_gather.gather_rows_plain(x, idx))
+
+
+@pytest.mark.parametrize("W", [1, 37, 360])
+def test_widen_meta9_exact(dev, W):
+    from focalformer3d_tpu_torch.ops import micro_widen
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    meta = torch.randint(0, 2**30, (W * W + 1, 4), device=dev, generator=g,
+                         dtype=torch.int32)
+    n0 = micro_widen.launch_count()
+    got = micro_widen.widen_meta9(meta, W)
+    torch.cuda.synchronize()
+    assert micro_widen.launch_count() == n0 + 1
+    assert torch.equal(got, micro_widen.widen_meta9_plain(meta, W))
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+@pytest.mark.parametrize("cin,cout", [(5, 16), (32, 64), (64, 128)])
+def test_sparse_conv_probe_modes(dev, geom, cin, cout):
+    """Full mode equals production K1 bit for bit; the modes with a phase
+    off give the bias at the valid sites and zeros elsewhere, exactly."""
+    coords, valid = _voxels(9)
+    rules, ov = _rules(coords.to(dev), valid.to(dev), geom)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    f = torch.randn(1, coords.shape[0], cin, device=dev, generator=g)
+    w = torch.randn(rules.shape[0], cin, cout, device=dev, generator=g)
+    b = torch.randn(cout, device=dev, generator=g)
+    args = (f.bfloat16(), rules[None], w.bfloat16(), ov[None], b)
+    n0 = k1.launch_count("probe")
+    full = k1.sparse_conv_probe(*args)
+    assert torch.equal(full, k1.sparse_conv(*args))
+    for phases in (0, k1.PHASE_GATHER, k1.PHASE_MMA):
+        got = k1.sparse_conv_probe(*args, phases=phases)
+        assert torch.equal(got, k1.sparse_conv_probe_plain(
+            args[0].float(), args[1], args[2].float(), args[3], b, phases))
+    torch.cuda.synchronize()
+    assert k1.launch_count("probe") == n0 + 4
+
+
+@pytest.mark.parametrize("name", [
+    "micro_mxu_probe", "micro_dotshape", "micro_dotshape2",
+    "micro_kernel_v2", "micro_pallas_attr", "micro_gather_kernel",
+    "micro_gather2", "micro_batch_grid", "micro_meta9"])
+def test_probe_runs_small_on_card(dev, name):
+    """Every probe at its small size on the card: all checks pass, and
+    every kernel case has its time and its plain version's."""
+    import importlib
+
+    mod = importlib.import_module(f"focalformer3d_tpu_torch.tools.{name}")
+    rows = mod.run(dev, "small")
+    assert rows and all(r["ok"] for r in rows), [
+        r["case"] for r in rows if not r["ok"]]
+    for r in rows:
+        if r["kernel"] is not None:
+            assert r["ms"] > 0 and r["plain_ms"] > 0
+        else:
+            assert r["library_ms"] > 0
+
+
+def test_probe_timing_counts_graph_replays(dev):
+    """A timed call is one eager launch, ``reps`` captured calls that
+    launch nothing, and two replays that launch ``reps`` kernels each; the
+    result is the replay's, equal to the plain version's."""
+    from focalformer3d_tpu_torch.ops import micro_gather
+    from focalformer3d_tpu_torch.tools import _common
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    x = torch.randn(300, 32, device=dev, generator=g).bfloat16()
+    idx = torch.randint(0, 300, (1000,), device=dev, generator=g,
+                        dtype=torch.int32)
+    n0 = micro_gather.launch_count("rows")
+    ms, got = _common.time_ms(dev, lambda: micro_gather.gather_rows(x, idx),
+                              reps=3)
+    assert ms > 0 and micro_gather.launch_count("rows") == n0 + 1 + 2 * 3
+    assert torch.equal(got, micro_gather.gather_rows_plain(x, idx))
