@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero):
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles the seven kernel sources of
-   ``focalformer3d_tpu_torch/csrc/`` with one nvcc each, all started
+   ``focalformer3d_tpu_torch/csrc/`` (K1 and kernel A share the header
+   ``mma_sm90.cuh``) with one nvcc each, all started
    together (K1 sparse-conv apply, which also runs dx and the phase probe;
    the dW kernel; K2 rulebook builder; K3 z-run sparse-conv apply; the
    probes' kernels A ``micro_dot``, B ``micro_gather``, C
@@ -21,10 +22,19 @@ Phases (any failure raises and exits non-zero):
      (its plain version) and ``build_conv_rules`` exactly;
    - K1: the 5 conv geometries of ``cuda`` and the 4 more of ``cuda_mxu``
      (L2, L3, conv_out), same bf16 inputs as the plain gather + matmul:
-     max |diff| / max |plain| <= 1e-3;
+     max |diff| / max |plain| <= 1e-3, and two runs equal bit for bit. Per
+     geometry one line with the share of (128-site tile, tap), (64-row
+     group, tap), (16-row strip, tap) and (site, tap) pairs that hold a hit
+     (what skipping at each granularity leaves of the product), the
+     launch's plan (route, persistent grid, stages, W resident or
+     streamed), and its time on the route production takes and on the
+     other one;
    - K3: the 5 conv geometries of ``cuda_zrun`` against its plain version,
      <= 1e-3.
-   Each with median times by CUDA events.
+   K1's times (here and in phase 6) are per call from calls replayed in a
+   CUDA graph (``tools/_common.time_ms``: the device's time, since a short
+   launch runs at the host's pace under CUDA events); K2's and K3's are
+   medians by CUDA events.
 4. slices: FocalFormer3D_L (full width, random weights from a seed, bf16
    compute) answers three radial scans (seeds 0-2) through
    ``preprocess_points`` -> model -> ``get_bboxes`` on each engine: finite
@@ -43,7 +53,8 @@ Phases (any failure raises and exits non-zero):
    version with the same rounding (``apply_conv_bf16_plain``): forward, dx
    and dW each within 1e-3 of the plain result's scale (the two differ only
    in the order of f32 sums). Then each kernel alone, timed against its
-   plain version (CUDA events, median of 20).
+   plain version (K1 forward and dx by CUDA-graph replay, with the hit
+   shares of their rulebooks; dW by CUDA events, median of 20).
 7. training: FocalFormer3D_L at full width and depth in float32, batch 2,
    engine ``cuda``, ``TRAIN_STEPS`` steps of ``training.train_step`` on the
    same two scans with their GT boxes: every loss term and ``grad_norm``
@@ -255,6 +266,7 @@ def phase_build():
         k._load()
     k1._load_wgrad()
     k1._load_probe()
+    k1._load_grid()
     gather._load("taps")
     gather._load("rows")
     print("build: " + ", ".join(f"{stem} {s:.2f} s" for stem, s in
@@ -398,6 +410,49 @@ def _conv_vs_plain(tag, name, run, plain):
     return err, rel, _median_ms(run), _median_ms(plain)
 
 
+def _k1_geometry(tag, name, k1, args, plain, device):
+    """K1 (``args`` of ``sparse_conv``) at one geometry: against ``plain``
+    within ``KERNEL_TOL`` of its scale, two runs equal bit for bit, the hit
+    shares of its rulebook, the launch's plan, and per-call times from
+    CUDA-graph replay of production's route, the other route and the plain
+    version. Returns (max abs err, ms, plain ms)."""
+    from focalformer3d_tpu_torch.tools import _common
+
+    feats, rules, w = args[:3]
+    got, ref = k1.sparse_conv(*args), plain()
+    again = k1.sparse_conv(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= KERNEL_TOL:
+        raise RuntimeError(f"{tag} {name}: rel err {rel:.3g} > {KERNEL_TOL}")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{tag} {name}: two runs differ")
+    c, cout = k1.kernel_widths(feats.shape[2], w.shape[2])
+    plan = k1.launch_plan(feats.shape[0], rules.shape[2], rules.shape[1],
+                          c, cout)
+    other = 1 - k1.route_for(c, cout)
+    ms = _common.time_ms(device, lambda: k1.sparse_conv(*args))[0]
+    other_ms, alt = _common.time_ms(
+        device, lambda: k1.sparse_conv_probe(*args, route=other))
+    if not float((alt - ref).abs().max()) <= KERNEL_TOL * float(ref.abs().max()):
+        raise RuntimeError(f"{tag} {name}: route {k1.ROUTE_NAMES[other]} "
+                           f"differs from plain")
+    p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
+    sh = k1.hit_shares(rules, feats.shape[1])
+    print(f"{tag} {name}: C {feats.shape[2]} -> {w.shape[2]}, K "
+          f"{rules.shape[1]}, B {feats.shape[0]}, V_in {feats.shape[1]} -> "
+          f"V_out {rules.shape[2]}; hit share tile128/group64/strip16/site "
+          f"{sh['tile']:.4f}/{sh['group64']:.4f}/{sh['strip16']:.4f}/"
+          f"{sh['site']:.4f}; {plan['route']}, grid {plan['grid']}, "
+          f"{plan['stages']} stages, W "
+          f"{'resident' if plan['w_resident'] else 'streamed'}, "
+          f"{plan['smem_bytes']} B shared; rel {rel:.3g}, two runs equal; "
+          f"kernel {ms:.4f} ms ({k1.ROUTE_NAMES[other]} {other_ms:.4f}), "
+          f"plain {p_ms:.4f} ms", flush=True)
+    return err, ms, p_ms
+
+
 def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
     """K1 at the 5 conv geometries of ``cuda`` (torch-op rulebooks) and the
     4 more that ``cuda_mxu`` runs (K2's rulebooks)."""
@@ -416,15 +471,11 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
         feats, w, bias = _rand_conv(gen, device, src.capacity, c,
                                     rules.shape[1], cout)
         args = (feats, rules, w, dst.valid, bias)
-        err, rel, ms, p_ms = _conv_vs_plain(
-            "K1", name, lambda: k1.sparse_conv(*args),
+        err, ms, p_ms = _k1_geometry(
+            "K1", f"{name} ({int(dst.valid.sum())} active)", k1, args,
             lambda: k1.apply_conv_plain(feats.float(), rules, w.float(),
-                                        dst.valid, bias, torch.float32))
-        print(f"K1 {name}: C {c} -> {cout}, K {rules.shape[1]}, V_in "
-              f"{src.capacity} -> V_out {dst.capacity} "
-              f"({int(dst.valid.sum())} active), max|diff| {err:.3g}, rel "
-              f"{rel:.3g}, kernel {ms:.4f} ms, plain {p_ms:.4f} ms",
-              flush=True)
+                                        dst.valid, bias, torch.float32),
+            device)
         max_err = max(max_err, err)
         per_scan[name] = (n, ms, p_ms)
         if geoms is coord_geoms:
@@ -623,6 +674,7 @@ def phase_k1_grad(cfg, batch, device):
     from focalformer3d_tpu_torch.models.detector import preprocess_points
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
     from focalformer3d_tpu_torch.ops import sparse_conv as sc
+    from focalformer3d_tpu_torch.tools import _common
 
     k1, _, _ = _wrappers()
     bf16 = torch.bfloat16
@@ -664,7 +716,8 @@ def phase_k1_grad(cfg, batch, device):
         torch.cuda.synchronize()
 
         xb, wb = x.to(bf16), w.to(bf16)
-        w_t = wb.flip(0).transpose(1, 2).contiguous().float()
+        w_tb = wb.flip(0).transpose(1, 2).contiguous()
+        w_t = w_tb.float()
         every = torch.ones(B, src.capacity, dtype=torch.bool, device=device)
         runs = {
             "forward": (lambda: k1.sparse_conv(xb, rules, wb, dst.valid),
@@ -676,6 +729,9 @@ def phase_k1_grad(cfg, batch, device):
             "wgrad": (lambda: k1.conv_wgrad(xb, cot, rules),
                       lambda: k1.wgrad_plain(xb, cot, rules)),
         }
+        # K1's operands per use, for the route production does not take
+        k1_args = {"forward": (xb, rules, wb, dst.valid),
+                   "dx": (cot.to(bf16), rules_t, w_tb, every)}
         hits = _hits(rules, src.capacity, dst.valid)
         flops = 2 * hits * c * cout
         w_elems = K * c * cout
@@ -695,7 +751,29 @@ def phase_k1_grad(cfg, batch, device):
             if not rel <= KERNEL_TOL:
                 raise RuntimeError(f"K1 {kind} {name}: rel err {rel:.3g} > "
                                    f"{KERNEL_TOL}")
-            ms, p_ms = _median_ms(run), _median_ms(plain)
+            if kind == "wgrad":
+                ms, p_ms = _median_ms(run), _median_ms(plain)
+                note = ""
+            else:  # K1: the device's time, from CUDA-graph replay
+                ms = _common.time_ms(device, run)[0]
+                p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
+                a = k1_args[kind]
+                kc, kcout = k1.kernel_widths(a[0].shape[2], a[2].shape[2])
+                plan = k1.launch_plan(B, a[1].shape[2], K, kc, kcout)
+                # the kernel alone on prepared operands, on each route (the
+                # wrapper's time above includes dx's casts and transposes)
+                alone = {name: _common.time_ms(
+                    device, lambda r=r: k1.sparse_conv_probe(*a, route=r))[0]
+                    for r, name in k1.ROUTE_NAMES.items()}
+                sh = k1.hit_shares(a[1], a[0].shape[1])
+                note = (f" [{plan['route']}, grid {plan['grid']}, W "
+                        f"{'resident' if plan['w_resident'] else 'streamed'}"
+                        f"; kernel alone " + ", ".join(
+                            f"{n} {t:.4f}" for n, t in alone.items())
+                        + " ms; hit share "
+                        f"tile128/group64/strip16/site {sh['tile']:.4f}/"
+                        f"{sh['group64']:.4f}/{sh['strip16']:.4f}/"
+                        f"{sh['site']:.4f}]")
             s = stats[kind]
             s["max_abs_err"] = max(s["max_abs_err"], err)
             s["ms"] += n * ms
@@ -706,7 +784,8 @@ def phase_k1_grad(cfg, batch, device):
             else:
                 s["bound"].add(nbytes[kind], flops,
                                "f32" if kind == "wgrad" else "bf16", times=n)
-            line.append(f"{kind} rel {rel:.3g}, {ms:.4f} / {p_ms:.4f} ms")
+            line.append(f"{kind} rel {rel:.3g}, {ms:.4f} / {p_ms:.4f} ms"
+                        + note)
         print(f"K1 train {name} x{n}: C {c} -> {cout}, K {K}, V_in "
               f"{src.capacity} -> V_out {dst.capacity} (B {B}, "
               f"{int(dst.valid.sum())} active, {hits} hits); kernel / plain: "

@@ -3,8 +3,8 @@
 Each source in ``focalformer3d_tpu_torch/csrc/`` has a plain C interface and
 compiles with ``nvcc`` into a shared library of its own in
 ``focalformer3d_tpu_torch/_build/``, loaded with ``ctypes``. A library is
-named by a hash of its source and flags, so an edited source is never served
-by a stale build. ``build`` starts one nvcc per missing library, all at once,
+named by a hash of its source, the headers of ``csrc/`` (``*.cuh``) and the
+flags, so an edited source is never served by a stale build. ``build`` starts one nvcc per missing library, all at once,
 and waits for all of them; nothing is built when a module is imported.
 """
 from __future__ import annotations
@@ -39,7 +39,8 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    tag = hashlib.sha1(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha1(source.read_bytes() + headers
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 

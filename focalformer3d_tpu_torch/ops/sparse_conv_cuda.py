@@ -24,11 +24,18 @@ CPU it runs ``apply_conv_plain`` with the kernel's rounding. Both compute
 - db: the sum of the masked cotangent.
 
 ``sparse_conv_probe`` is the same forward kernel with its phases switched
-(``PHASES`` of ``csrc/sparse_conv.cu``): ``PHASE_GATHER`` stages the gathered
-rows, ``PHASE_MMA`` stages W and runs the tensor-core product. ``PHASE_FULL``
+(``PHASES`` of ``csrc/sparse_conv.cu``): ``PHASE_GATHER`` copies the gathered
+rows, ``PHASE_MMA`` copies W and runs the tensor-core product. ``PHASE_FULL``
 is production K1's own instantiation; the other modes time a part of it, as
 the TPU probes P1b, P4, P5 and P8 did with copies of their kernel, and
-compute ``out_valid ? bias : 0``. It counts its launches apart (``probe``).
+compute ``out_valid ? bias : 0``. It counts its launches apart (``probe``)
+and can force either instruction route (``route``).
+
+Host-side parts of the kernel's design, each with a version the CPU runs:
+``pack_weights`` (W as the kernel's shared-memory image; ``unpack_weights``
+inverts it), ``tile_schedule`` (which tiles each persistent block visits),
+``hit_shares`` (how much work skipping at 128-, 64- and 16-row granularity
+leaves) and ``route_for`` (the instruction chosen per width).
 
 Each kernel's plain version sits beside it and is what a CPU tensor gets.
 The kernels are compiled with ``nvcc`` into ``focalformer3d_tpu_torch/_build/``
@@ -38,6 +45,7 @@ at first use (a few seconds each; plain C interfaces loaded with
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -48,6 +56,12 @@ SOURCE = cuda_build.CSRC / "sparse_conv.cu"
 WGRAD_SOURCE = cuda_build.CSRC / "sparse_conv_wgrad.cu"
 COUTS = (16, 32, 64, 128)
 MAX_C = 256
+KERNEL_MAX_C = 128  # channels per launch; wider inputs run in halves
+MAX_TAPS = 32  # one bit per tap in the kernel's hit masks
+TILE = 128  # output sites per tile of the kernel
+ROUTE_WGMMA = 0  # wgmma.mma_async m64nNk16 on 64-row groups
+ROUTE_MMA_SYNC = 1  # mma.sync m16n8k16 on 16-row strips
+ROUTE_NAMES = {ROUTE_WGMMA: "wgmma", ROUTE_MMA_SYNC: "mma.sync"}
 WGRAD_BLOCKS = 2048  # target blocks per dW launch (taps x site slices)
 WGRAD_CHUNK = 64  # sites per staged chunk (kChunk of the dW kernel)
 
@@ -57,6 +71,7 @@ PHASE_FULL = PHASE_GATHER | PHASE_MMA
 
 _fn = None
 _probe_fn = None
+_grid_fn = None
 _wgrad_fn = None
 _launches = cuda_build.Launches("forward", "dx", "wgrad", "probe")
 
@@ -77,7 +92,7 @@ def _load():
     if _fn is None:
         _fn = cuda_build.load(
             SOURCE, "sparse_conv_forward",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     return _fn
 
 
@@ -86,8 +101,17 @@ def _load_probe():
     if _probe_fn is None:
         _probe_fn = cuda_build.load(
             SOURCE, "sparse_conv_probe",
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     return _probe_fn
+
+
+def _load_grid():
+    global _grid_fn
+    if _grid_fn is None:
+        _grid_fn = cuda_build.load(
+            SOURCE, "sparse_conv_grid",
+            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    return _grid_fn
 
 
 def _load_wgrad():
@@ -186,26 +210,189 @@ def pad_operands(features, weights, bias, max_c: int):
     return features, weights, bias
 
 
-def _run_forward(features, rules, weights, out_valid, bias, phases=None):
-    """Launch the forward kernel, or with ``phases`` its probe (checked
-    operands on a card)."""
-    c_out = weights.shape[2]
-    features, weights, bias = pad_operands(features, weights, bias, MAX_C)
+def _pack_layout(t: torch.Tensor) -> torch.Tensor:
+    """(K, C, Cout) -> (K, C / 16, Cout, 2, 8): per tap and 16-channel
+    K-block the transposed tile, row n holding its 16 channels as two
+    8-value halves, swapped where bit 2 of n is set (the 32-byte swizzle of
+    ``csrc/mma_sm90.cuh``)."""
+    K, C, c_out = t.shape
+    t = t.reshape(K, C // 16, 2, 8, c_out).permute(0, 1, 4, 2, 3)
+    swap = ((torch.arange(c_out, device=t.device) >> 2) & 1).bool()
+    return torch.where(swap[None, None, :, None, None], t.flip(3), t)
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_index(K: int, C: int, c_out: int, device: torch.device):
+    """Flat positions in a (K, C, Cout) tensor of the packed image's
+    elements, in the image's order."""
+    pos = torch.arange(K * C * c_out, device=device).reshape(K, C, c_out)
+    return _pack_layout(pos).reshape(-1).contiguous()
+
+
+def pack_weights(weights: torch.Tensor) -> torch.Tensor:
+    """W (K, C, Cout), C a multiple of 16 and Cout of 8, as the kernel keeps
+    it in shared memory: (K, C / 16, Cout, 16), ``W[k]^T`` cut into K-blocks
+    of 16 channels with the swizzle of ``_pack_layout``. One gather through
+    a cached index."""
+    K, C, c_out = weights.shape
+    if C % 16 or c_out % 8:
+        raise ValueError(f"pack_weights takes C % 16 == 0 and Cout % 8 == 0;"
+                         f" got C={C}, Cout={c_out}")
+    idx = _pack_index(K, C, c_out, weights.device)
+    return weights.reshape(-1).index_select(0, idx).reshape(
+        K, C // 16, c_out, 16)
+
+
+def unpack_weights(packed: torch.Tensor) -> torch.Tensor:
+    """The (K, C, Cout) tensor that ``pack_weights`` packed."""
+    K, J, c_out, _ = packed.shape
+    idx = _pack_index(K, J * 16, c_out, packed.device)
+    flat = torch.empty_like(packed).reshape(-1)
+    flat[idx] = packed.reshape(-1)
+    return flat.reshape(K, J * 16, c_out)
+
+
+def tile_schedule(batch: int, v_out: int, grid: int):
+    """The tiles each persistent block visits, as the kernel's loop walks
+    them: block i takes tiles i, i + grid, ... of the batch's
+    ``batch * ceil(v_out / TILE)`` tiles, tile t being sites
+    ``(t % per_sample) * TILE ..`` of sample ``t // per_sample``. Returns a
+    list per block of (sample, first site)."""
+    per_sample = -(-v_out // TILE)
+    n_tiles = batch * per_sample
+    return [[(t // per_sample, (t % per_sample) * TILE)
+             for t in range(i, n_tiles, grid)] for i in range(grid)]
+
+
+def hit_shares(rules: torch.Tensor, v_in: int) -> dict:
+    """How much of the product's work skipping leaves, at each granularity
+    the kernel could skip at: the share of (128-site tile, tap), (64-row
+    group, tap), (16-row strip, tap) and (site, tap) pairs of a rulebook
+    (B, K, V_out) that hold at least one hit (a rule below ``v_in``), over
+    the tiles the kernel launches (the last tile of a sample is padded with
+    misses). Keys ``tile``, ``group64``, ``strip16``, ``site``."""
+    B, K, v_out = rules.shape
+    hit = (rules >= 0) & (rules < v_in)
+    pad = -v_out % TILE
+    if pad:
+        hit = torch.nn.functional.pad(hit, (0, pad))
+    out = {}
+    for name, rows in (("tile", TILE), ("group64", 64), ("strip16", 16),
+                       ("site", 1)):
+        groups = hit.reshape(B, K, -1, rows).any(-1)
+        out[name] = float(groups.float().mean()) if groups.numel() else 0.0
+    return out
+
+
+def kernel_widths(c: int, c_out: int):
+    """The (C, Cout) one launch runs for a conv of widths (c, c_out): C
+    padded to a multiple of 16 (at most ``KERNEL_MAX_C`` per launch), Cout
+    to the next width in ``COUTS``."""
+    return (min(-(-c // 16) * 16, KERNEL_MAX_C),
+            next(n for n in COUTS if n >= c_out))
+
+
+def route_for(c: int, c_out: int) -> int:
+    """The instruction route production K1 takes at kernel widths (C, Cout):
+    ``wgmma`` from C = 64 on, ``mma.sync`` below.
+
+    Measured on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` prints
+    both routes' times per conv geometry of a radial 200k-point scan and of
+    a training batch of two; the P2 probe prints kernel A's rate per route
+    at K1's widths). A route's worth is its product rate at the width
+    divided by the share of (group, tap) pairs its skipping leaves: 64-row
+    groups for wgmma, 16-row strips for mma.sync.
+
+    - C = Cout = 16: kernel A runs 18.7 (wgmma) against 19.9 TFLOP/s
+      (mma.sync), the shares on the scan are 0.87 against 0.69, and K1
+      itself takes 0.0730 against 0.0641 ms: mma.sync.
+    - 32: 72.8 against 75.7 TFLOP/s, shares 0.98 against 0.93, K1 0.1474
+      against 0.1483 ms at 32 -> 32 (a tie) and 0.1987 against 0.1689 ms at
+      32 -> 64: mma.sync.
+    - 64: 210.5 against 143.7 TFLOP/s, shares 0.98 against 0.96, K1 0.2176
+      against 0.2337 ms at 64 -> 64 and 0.1212 against 0.1618 ms at
+      64 -> 128: wgmma. dx at 64 -> 32 agrees (0.2815 against 0.2895 ms).
+    - 128: 292.0 against 174.9 TFLOP/s, K1 0.2330 against 0.3331 ms: wgmma.
+
+    On real scans nearly every strip of a used tile has a hit (0.64-0.96),
+    so the finer skipping of mma.sync pays only where both routes run at
+    the same rate, below C = 64."""
+    return ROUTE_WGMMA if c >= 64 else ROUTE_MMA_SYNC
+
+
+@functools.lru_cache(maxsize=256)
+def _grid(B: int, V_out: int, K: int, C: int, c_out: int, route: int):
+    """(persistent blocks, stages, W resident, shared bytes) of one conv on
+    the current card."""
+    info = (ctypes.c_int * 3)()
+    grid = _load_grid()(B, V_out, K, C, c_out, route, info)
+    if grid <= 0:
+        raise RuntimeError(f"sparse_conv_grid failed: cudaError {-grid} for "
+                           f"K={K}, C={C}, Cout={c_out}")
+    return grid, info[0], bool(info[1]), info[2]
+
+
+def launch_plan(B: int, V_out: int, K: int, C: int, c_out: int,
+                route: Optional[int] = None) -> dict:
+    """What one launch at kernel widths does on the current card: its
+    route, persistent grid, pipeline stages, whether W stays in shared
+    memory, and the shared bytes a block takes."""
+    route = route_for(C, c_out) if route is None else route
+    grid, stages, resident, smem = _grid(B, V_out, K, C, c_out, route)
+    return {"route": ROUTE_NAMES[route], "grid": grid, "stages": stages,
+            "w_resident": resident, "smem_bytes": smem}
+
+
+def _launch(features, rules, weights, out_valid, bias, phases, route, kind):
+    """One launch at kernel widths (C <= KERNEL_MAX_C), counted as
+    ``kind``."""
     B, V_in, C = features.shape
     K, _, C_out = weights.shape
     V_out = rules.shape[2]
     out = torch.empty((B, V_out, C_out), dtype=torch.float32,
                       device=features.device)
+    if B == 0 or V_out == 0:
+        return out
+    route = route_for(C, C_out) if route is None else route
+    grid = _grid(B, V_out, K, C, C_out, route)[0]
+    packed = pack_weights(weights)
     stream = torch.cuda.current_stream(features.device).cuda_stream
-    args = (features.data_ptr(), rules.data_ptr(), weights.data_ptr(),
+    args = (features.data_ptr(), rules.data_ptr(), packed.data_ptr(),
             bias.data_ptr() if bias is not None else None,
-            out_valid.data_ptr(), out.data_ptr(), B, V_in, V_out, K, C, C_out)
+            out_valid.data_ptr(), out.data_ptr(), B, V_in, V_out, K, C, C_out,
+            route, grid)
     if phases is None:
         cuda_build.check_launch(_load()(*args, stream), "sparse_conv")
     else:
         cuda_build.check_launch(_load_probe()(*args, phases, stream),
                                 "sparse_conv_probe")
-    return out if C_out == c_out else out[..., :c_out].contiguous()
+    _launches.add(kind)
+    return out
+
+
+def _run_forward(features, rules, weights, out_valid, bias, kind,
+                 phases=None, route=None):
+    """Launch the forward kernel, or with ``phases`` its probe (checked
+    operands on a card), counting each launch as ``kind``. Inputs wider than ``KERNEL_MAX_C`` channels run as
+    one launch per 128-channel part, summed (the bias rides on the
+    first)."""
+    c_out = weights.shape[2]
+    if weights.shape[0] > MAX_TAPS:
+        raise ValueError(f"kernel takes K <= {MAX_TAPS} taps; got "
+                         f"K={weights.shape[0]}")
+    features, weights, bias = pad_operands(features, weights, bias, MAX_C)
+    C = features.shape[2]
+    out = None
+    for c0 in range(0, C, KERNEL_MAX_C):
+        whole = C <= KERNEL_MAX_C
+        part = _launch(
+            features if whole else
+            features[..., c0:c0 + KERNEL_MAX_C].contiguous(), rules,
+            weights if whole else
+            weights[:, c0:c0 + KERNEL_MAX_C].contiguous(), out_valid,
+            bias if c0 == 0 else None, phases, route, kind)
+        out = part if out is None else out + part
+    return out if out.shape[2] == c_out else out[..., :c_out].contiguous()
 
 
 def sparse_conv(features: torch.Tensor, rules: torch.Tensor,
@@ -225,9 +412,7 @@ def sparse_conv(features: torch.Tensor, rules: torch.Tensor,
     if not cuda_build.on_card(features):
         return apply_conv_plain(features, rules, weights, out_valid,
                                 bias, torch.float32)
-    out = _run_forward(features, rules, weights, out_valid, bias)
-    _launches.add("forward")
-    return out
+    return _run_forward(features, rules, weights, out_valid, bias, "forward")
 
 
 def sparse_conv_probe_plain(features, rules, weights, out_valid, bias=None,
@@ -248,22 +433,26 @@ def sparse_conv_probe_plain(features, rules, weights, out_valid, bias=None,
 def sparse_conv_probe(features: torch.Tensor, rules: torch.Tensor,
                       weights: torch.Tensor, out_valid: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
-                      phases: int = PHASE_FULL) -> torch.Tensor:
+                      phases: int = PHASE_FULL,
+                      route: Optional[int] = None) -> torch.Tensor:
     """K1's forward kernel with only the phases in ``phases`` (bits
     ``PHASE_GATHER``, ``PHASE_MMA``); operands as ``sparse_conv``. Full mode
-    runs production K1's own code, so it equals ``sparse_conv`` bit for bit.
-    On a CUDA device this launches the kernel (or raises); on the CPU it
-    runs ``sparse_conv_probe_plain``."""
+    runs production K1's own code, so it equals ``sparse_conv`` bit for bit
+    on production's route (``route=None``: ``route_for``'s choice;
+    ``ROUTE_WGMMA`` or ``ROUTE_MMA_SYNC`` forces one). On a CUDA device this
+    launches the kernel (or raises); on the CPU it runs
+    ``sparse_conv_probe_plain``."""
     if phases not in (0, PHASE_GATHER, PHASE_MMA, PHASE_FULL):
         raise ValueError(f"phases={phases} is not a mode of the probe")
+    if route not in (None, ROUTE_WGMMA, ROUTE_MMA_SYNC):
+        raise ValueError(f"route={route} is not a route of the kernel")
     check_operands(features, rules, weights, out_valid, bias)
     if not cuda_build.on_card(features):
         return sparse_conv_probe_plain(features.float(), rules,
                                        weights.float(), out_valid, bias,
                                        phases)
-    out = _run_forward(features, rules, weights, out_valid, bias, phases)
-    _launches.add("probe")
-    return out
+    return _run_forward(features, rules, weights, out_valid, bias, "probe",
+                        phases, route)
 
 
 def conv_dx(grad: torch.Tensor, rules_t: torch.Tensor,
@@ -283,9 +472,7 @@ def conv_dx(grad: torch.Tensor, rules_t: torch.Tensor,
     check_operands(g, rules_t, w_t, every, None)
     if not cuda_build.on_card(g):
         return apply_conv_plain(g, rules_t, w_t, every, None, torch.float32)
-    out = _run_forward(g, rules_t, w_t, every, None)
-    _launches.add("dx")
-    return out
+    return _run_forward(g, rules_t, w_t, every, None, "dx")
 
 
 def wgrad_plain(features: torch.Tensor, grad: torch.Tensor,

@@ -170,26 +170,33 @@ PHASE_NAMES = {k1.PHASE_FULL: "full", k1.PHASE_GATHER: "gather only",
 
 def conv_case(device, probe: str, name: str, feats, rules, w, out_valid,
               phases: int = k1.PHASE_FULL, headline: bool = False,
-              keep: Optional[list] = None) -> dict:
+              keep: Optional[list] = None,
+              route: Optional[int] = None) -> dict:
     """K1's probe in one mode on bf16 features (B, V, C) and weights
-    (K, C, Cout). Full mode: within ``TOL`` of the plain conv and, on a
-    card, equal bit for bit to production K1 (``sparse_conv``, timed as
-    ``k1_ms``). The other modes compute zeros here (no bias), held exactly;
-    their bound is the full conv's."""
+    (K, C, Cout). Full mode on production's route (``route=None``): within
+    ``TOL`` of the plain conv and, on a card, equal bit for bit to
+    production K1 (``sparse_conv``, timed as ``k1_ms``); with a route forced
+    only the plain conv is the reference. The other modes compute zeros
+    here (no bias), held exactly; their bound is the full conv's."""
     nbytes, flops, hits = conv_bytes_flops(feats, rules, w, out_valid)
     full = phases == k1.PHASE_FULL
     kept = [] if keep is None else keep
+    took = k1.route_for(*k1.kernel_widths(feats.shape[2], w.shape[2])) \
+        if route is None else route
     row = case(device, probe, name, kernel="sparse_conv_probe",
                run=lambda: k1.sparse_conv_probe(feats, rules, w, out_valid,
-                                                phases=phases),
+                                                phases=phases, route=route),
                plain=lambda: k1.sparse_conv_probe_plain(
                    feats.float(), rules, w.float(), out_valid,
                    phases=phases),
                check="scale" if full else "exact", nbytes=nbytes,
                flops=flops, rate=(flops, 1e12, "TFLOP/s") if full else None,
-               headline=headline, keep=kept, mode=PHASE_NAMES[phases],
-               hits=hits, c=feats.shape[2], cout=w.shape[2])
-    if full:
+               headline=headline, keep=kept,
+               mode=PHASE_NAMES[phases] + (", route forced"
+                                           if route is not None else ""),
+               hits=hits, c=feats.shape[2], cout=w.shape[2],
+               route=k1.ROUTE_NAMES[took])
+    if full and route is None:
         def production():
             return k1.sparse_conv(feats, rules, w, out_valid)
 
@@ -222,7 +229,9 @@ def fmt(row: dict) -> str:
 
     parts = [f"{row['probe']} {row['case']}:"]
     if row["kernel"] is not None:
-        parts.append(f"{row['kernel']} {t(row['ms'])} ms, plain "
+        route = f" [{row['route']}]" if (
+            row["kernel"] == "sparse_conv_probe" and row.get("route")) else ""
+        parts.append(f"{row['kernel']}{route} {t(row['ms'])} ms, plain "
                      f"{t(row['plain_ms'])} ms")
     if row.get("op"):
         parts.append(f"{row['op']} {t(row['library_ms'])} ms")

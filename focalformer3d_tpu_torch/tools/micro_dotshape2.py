@@ -6,7 +6,8 @@ per-call floor from a per-step one. Here kernel A (``ops/micro_dot.py``)
 runs the same products (see ``micro_dotshape``) with one block per step.
 The original's two rows with "parallel" grid semantics repeat two shapes:
 blocks of a CUDA grid always run in parallel, so those rows are the same
-launch as their "arbitrary" twins and run once.
+launch as their "arbitrary" twins and run once. Every shape runs on both
+instruction routes of the kernel.
 
     python -m focalformer3d_tpu_torch.tools.micro_dotshape2
 """
@@ -27,8 +28,10 @@ SMALL_SHAPES = ((32, 16, 32, 3, 4), (32, 16, 32, 3, 2), (64, 16, 32, 3, 1))
 
 def run(device: torch.device, size: str = "full") -> list:
     shapes = SHAPES if size == "full" else SMALL_SHAPES
-    return [shape_case(device, "P3", m, k, n, reps, tiles, 100 + seed)
-            for seed, (m, k, n, reps, tiles) in enumerate(shapes)]
+    rows = []
+    for seed, (m, k, n, reps, tiles) in enumerate(shapes):
+        rows += shape_case(device, "P3", m, k, n, reps, tiles, 100 + seed)
+    return rows
 
 
 def main():

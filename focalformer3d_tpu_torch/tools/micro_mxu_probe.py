@@ -17,7 +17,9 @@ The TPU probe (``tools/micro_mxu_probe.py``) had two parts.
    beside production K1 and equal to it bit for bit. ``oh_only`` (the
    one-hot build alone) is the gather only; ``dots_only`` (products on a
    one-hot nothing wrote) is the product only, on a zeroed tile. The mode
-   with neither (``only copy`` of P5) completes the split.
+   with neither (``only copy`` of P5) completes the split. One more row
+   per level runs the full conv on the instruction route production K1 did
+   not choose at that width.
 
     python -m focalformer3d_tpu_torch.tools.micro_mxu_probe
 """
@@ -26,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import micro_dot
 from ..ops import sparse_conv_cuda as k1
 from . import _common
 from .micro_dotshape import dot_case, operands
@@ -61,10 +64,12 @@ def run(device: torch.device, size: str = "full") -> list:
     a, b = operands(1, tiles, m, k, n)
     a = torch.from_numpy(a).to(device).to(torch.bfloat16)
     b = torch.from_numpy(b).to(device).to(torch.bfloat16)
-    rows.append(dot_case(device, "P1a", f"gk: grid({tiles}) x ({m}, {k}) @ "
-                         f"({k}, {n}), the last block stores", a, b, tiles,
-                         1, m, tiles - 1, library_batched=True,
-                         headline=True))
+    for route in micro_dot.ROUTE_NAMES:  # the headline is the wgmma route
+        rows.append(dot_case(
+            device, "P1a", f"gk: grid({tiles}) x ({m}, {k}) @ ({k}, {n}), "
+            "the last block stores", a, b, tiles, 1, m, tiles - 1,
+            library_batched=True, headline=route == micro_dot.ROUTE_WGMMA,
+            route=route))
     del a, b
 
     levels = _common.LEVELS if full else _common.SMALL_LEVELS
@@ -80,6 +85,11 @@ def run(device: torch.device, size: str = "full") -> list:
             for mode, phases in MODES]
         _common.phase_split(split)
         rows += split
+        # the full conv on the route production did not take at this width
+        other = 1 - k1.route_for(c, cout)
+        rows.append(_common.conv_case(
+            device, "P1b", f"L{lv} V={v} C={c}: full, other route", *args,
+            route=other))
     return rows
 
 

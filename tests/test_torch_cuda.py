@@ -19,7 +19,10 @@ on the CPU (1e-3). For the probes (``focalformer3d_tpu_torch/tools/``): kernel
 A and B's ``gather_taps`` against their plain versions (1e-3), B's
 ``gather_rows`` and C exactly, K1's phase probe in full mode against
 production K1 bit for bit and in its other modes exactly, and every probe
-module at its small size.
+module at its small size. The redesigned K1 (persistent blocks, hit masks,
+pipelined gather, wgmma and mma.sync routes) and kernel A (both routes) have
+their own grids of widths, tap counts, batch sizes and ragged sizes at the
+end of the file.
 """
 import dataclasses
 
@@ -538,3 +541,139 @@ def test_probe_timing_counts_graph_replays(dev):
                               reps=3)
     assert ms > 0 and micro_gather.launch_count("rows") == n0 + 1 + 2 * 3
     assert torch.equal(got, micro_gather.gather_rows_plain(x, idx))
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K1 and kernel A, on both instruction routes
+# ---------------------------------------------------------------------------
+
+def _random_conv(dev, seed, B, v_in, v_out, K, c, cout, miss=0.7):
+    """A random rulebook (a share ``miss`` of the rules miss) with bf16
+    features and weights, a bias and an out_valid mask."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rules = torch.randint(0, v_in, (B, K, v_out), device=dev, generator=g,
+                          dtype=torch.int32)
+    hole = torch.rand(B, K, v_out, device=dev, generator=g) < miss
+    rules = torch.where(hole, v_in, rules).to(torch.int32)
+    f = torch.randn(B, v_in, c, device=dev, generator=g).bfloat16()
+    w = (torch.randn(K, c, cout, device=dev, generator=g) * 0.2).bfloat16()
+    bias = torch.randn(cout, device=dev, generator=g)
+    ov = torch.rand(B, v_out, device=dev, generator=g) < 0.9
+    return f, rules, w, ov, bias
+
+
+def _plain(args):
+    f, rules, w, ov, bias = args
+    return k1.apply_conv_plain(f.float(), rules, w.float(), ov, bias)
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+@pytest.mark.parametrize("cout", [16, 32, 64, 128])
+def test_k1_widths_taps_and_batches(dev, route, c, cout):
+    """Every pair of widths (the dx widths 32 -> 16, 64 -> 32, 128 -> 64
+    among them) with K in {1, 27} and batch 1 and 2 on each route: within
+    1e-3 of the plain conv, two runs equal bit for bit, zeros at invalid
+    sites."""
+    for seed, (K, B, v_out) in enumerate([(27, 2, 5000), (1, 1, 5000),
+                                          (27, 1, 129), (1, 2, 127)]):
+        args = _random_conv(dev, seed, B, 3000, v_out, K, c, cout)
+        got = k1.sparse_conv_probe(*args, route=route)
+        again = k1.sparse_conv_probe(*args, route=route)
+        torch.cuda.synchronize()
+        assert got.shape == (B, v_out, cout)
+        assert _rel(got, _plain(args)) <= 1e-3
+        assert torch.equal(got, again)
+        assert torch.all(got[~args[3]] == 0)
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("v_out", [1, 127, 128, 129, 5000])
+def test_k1_ragged_site_counts(dev, route, v_out):
+    for c, cout in ((16, 16), (32, 64), (64, 64)):
+        args = _random_conv(dev, v_out, 2, 777, v_out, 27, c, cout)
+        got = k1.sparse_conv_probe(*args, route=route)
+        assert _rel(got, _plain(args)) <= 1e-3
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("c,cout", [(16, 16), (32, 32), (64, 64), (128, 128)])
+def test_k1_all_miss_and_single_hit(dev, route, c, cout):
+    """A rulebook on which every rule misses gives the bias at the valid
+    sites exactly; one with a single hit in one tile matches the plain
+    conv."""
+    f, rules, w, ov, bias = _random_conv(dev, 3, 1, 3000, 1000, 27, c, cout)
+    rules = torch.full_like(rules, 3000)
+    got = k1.sparse_conv_probe(f, rules, w, ov, bias, route=route)
+    assert torch.equal(got, torch.where(ov[..., None], bias, 0.0))
+    rules[0, 13, 700] = 5
+    args = (f, rules, w, ov, bias)
+    got = k1.sparse_conv_probe(*args, route=route)
+    ref = _plain(args)
+    assert _rel(got, ref) <= 1e-3
+    touched = torch.zeros(1000, dtype=torch.bool, device=dev)
+    touched[700] = True
+    assert torch.equal(got[0][~touched], ref[0][~touched])
+
+
+def test_k1_production_route_and_wide_input(dev):
+    """``sparse_conv`` runs ``route_for``'s route (its bits equal the probe's
+    on that route); an input of 256 channels runs as two launches."""
+    for c, cout in ((16, 16), (32, 32), (64, 64), (64, 128), (128, 64)):
+        args = _random_conv(dev, 4, 2, 3000, 2000, 27, c, cout)
+        got = k1.sparse_conv(*args)
+        route = k1.route_for(*k1.kernel_widths(c, cout))
+        assert torch.equal(got, k1.sparse_conv_probe(*args, route=route))
+        plan = k1.launch_plan(2, 2000, 27, c, cout)
+        assert plan["route"] == k1.ROUTE_NAMES[route] and plan["grid"] >= 1
+    args = _random_conv(dev, 5, 1, 3000, 1000, 27, 256, 64)
+    n0 = k1.launch_count()
+    got = k1.sparse_conv(*args)
+    assert k1.launch_count() == n0 + 2
+    assert _rel(got, _plain(args)) <= 1e-3
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("c,cout", [(16, 16), (32, 64), (64, 64), (128, 32)])
+def test_k1_phase_modes_on_each_route(dev, route, c, cout):
+    """The four ``PHASES`` modes on each route, W resident (16x16, 32x64)
+    and streamed (64x64, 128x32): full within 1e-3 of the plain conv, the
+    others the bias at valid sites, exactly."""
+    args = _random_conv(dev, 6, 2, 3000, 1500, 27, c, cout)
+    assert _rel(k1.sparse_conv_probe(*args, route=route),
+                _plain(args)) <= 1e-3
+    for phases in (0, k1.PHASE_GATHER, k1.PHASE_MMA):
+        got = k1.sparse_conv_probe(*args, phases=phases, route=route)
+        assert torch.equal(got, k1.sparse_conv_probe_plain(
+            args[0].float(), args[1], args[2].float(), args[3], args[4],
+            phases))
+
+
+def test_pack_weights_on_card_matches_cpu(dev):
+    w = torch.randn(27, 64, 32).bfloat16()
+    assert torch.equal(k1.pack_weights(w.to(dev)).cpu(), k1.pack_weights(w))
+
+
+@pytest.mark.parametrize("route", [0, 1])
+@pytest.mark.parametrize("k", [16, 32, 64, 80])
+@pytest.mark.parametrize("n", [16, 64, 256])
+def test_micro_dot_depths_and_widths(dev, route, k, n):
+    """Kernel A at depths short of, equal to and past one 64-deep slice and
+    at column tiles of 16, 64 and 128, with M short of a tile (100), equal
+    to one (128) and past one (300), on each route."""
+    from focalformer3d_tpu_torch.ops import micro_dot
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n)
+    for m in (100, 128, 300):
+        a = torch.randn(2, m, k, device=dev, generator=g).bfloat16()
+        b = torch.randn(k, n, device=dev, generator=g).bfloat16()
+        got = micro_dot.dot_probe(a, b, 3, 2, m, 1, route=route)
+        ref = micro_dot.dot_probe_plain(a, b, 2, m, 1)
+        assert got.shape == (m, n)
+        assert _rel(got, ref) <= 1e-3
