@@ -30,11 +30,16 @@ Phases (any failure raises and exits non-zero):
      streamed), and its time on the route production takes and on the
      other one;
    - K3: the 5 conv geometries of ``cuda_zrun`` against its plain version,
-     <= 1e-3.
-   K1's times (here and in phase 6) are per call from calls replayed in a
-   CUDA graph (``tools/_common.time_ms``: the device's time, since a short
-   launch runs at the host's pace under CUDA events); K2's and K3's are
-   medians by CUDA events.
+     <= 1e-3, and two runs equal bit for bit. Per geometry one line with
+     the hit shares of its codes ((tile, BEV tap), (64-row group, BEV tap),
+     (16-row strip, BEV tap), (site, BEV tap) pairs with a z tap), the
+     launch's plan (route, grid, stages, W resident or streamed, z taps per
+     stage) and its time on the route production takes and on the other
+     one (also held to 1e-3).
+   Every kernel time (here and in phase 6) is per call from calls replayed
+   in a CUDA graph (``tools/_common.time_ms``: the device's time, since a
+   short launch runs at the host's pace under CUDA events), and so are the
+   plain versions' and K2's torch-op comparators'.
 4. slices: FocalFormer3D_L (full width, random weights from a seed, bf16
    compute) answers three radial scans (seeds 0-2) through
    ``preprocess_points`` -> model -> ``get_bboxes`` on each engine: finite
@@ -51,10 +56,12 @@ Phases (any failure raises and exits non-zero):
    rulebook; dW by the dW kernel) on random bf16-valued features and
    weights and a random f32 cotangent, against autograd through its plain
    version with the same rounding (``apply_conv_bf16_plain``): forward, dx
-   and dW each within 1e-3 of the plain result's scale (the two differ only
-   in the order of f32 sums). Then each kernel alone, timed against its
-   plain version (K1 forward and dx by CUDA-graph replay, with the hit
-   shares of their rulebooks; dW by CUDA events, median of 20).
+   and dW each within 1e-3 of the plain result's scale (the two differ in
+   the order of f32 sums and, for dW, by the kernel's split of the
+   cotangent into two bf16 parts, 2^-16 of it). Then each kernel alone,
+   timed against its plain version by CUDA-graph replay (K1 forward and dx
+   with the hit shares of their rulebooks and both routes; dW with its
+   route, chunk and slices, and two runs equal bit for bit).
 7. training: FocalFormer3D_L at full width and depth in float32, batch 2,
    engine ``cuda``, ``TRAIN_STEPS`` steps of ``training.train_step`` on the
    same two scans with their GT boxes: every loss term and ``grad_norm``
@@ -82,9 +89,10 @@ its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
 output written once) over 3.35 TB/s and its multiply-adds over the peak of
-their type (989 TFLOP/s bf16 for K1 and K3, whose operands are bf16; 67
-TFLOP/s float32 for dW, whose cotangent stays float32), counted from this
-run's rulebooks (rules that hit, at valid output sites). No single PyTorch
+their type (989 TFLOP/s bf16 for K1 and K3, whose operands are bf16; for
+dW, whose f32 cotangent is split into two bf16 parts, two bf16 products
+per multiply-add, i.e. half that peak), counted from this run's rulebooks
+(rules that hit, at valid output sites). No single PyTorch
 call computes a sparse conv or a rulebook, so ``library_ms`` is null. The
 five probe kernels carry their headline case (``case``): ``micro_dot`` P1a's
 ``gk`` beside one ``torch.matmul`` over the same operand;
@@ -122,7 +130,7 @@ TRAIN_BATCH = 2
 TRAIN_STEPS = 4
 KERNEL_TOL = 1e-3
 ENGINE_TOL = 1e-2
-REPS = 20
+REPS = 10  # CUDA-event repetitions of a host-issued index build
 ENGINES = ("cuda", "cuda_mxu", "cuda_zrun")
 # (K1, K2, K3) launches per scan on each engine
 LAUNCHES_PER_SCAN = {"cuda": (11, 0, 0), "cuda_mxu": (21, 8, 0),
@@ -132,7 +140,9 @@ LAUNCHES_PER_SCAN = {"cuda": (11, 0, 0), "cuda_mxu": (21, 8, 0),
 # strided one); conv_input's voxel features need no dx
 TRAIN_LAUNCHES_PER_STEP = {"forward": 16, "dx": 15, "wgrad": 16}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense, published
+# dense, published; "bf16 split": an f32 operand split into two bf16
+# parts, two bf16 products per multiply-add (the dW kernel)
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "bf16 split": 989e12 / 2}
 CSRC = "focalformer3d_tpu_torch/csrc/"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "sparse_conv": (CSRC + "sparse_conv.cu",
@@ -264,6 +274,7 @@ def phase_build():
                             widen.SOURCE)
     for k in (k1, k2, k3, dot, widen):
         k._load()
+    k3._load_grid()
     k1._load_wgrad()
     k1._load_probe()
     k1._load_grid()
@@ -338,7 +349,7 @@ def phase_index_builds(cfg, vox):
             ("cuda_zrun (torch ops + z-run plans), L0-L1: 4 plans",
              "cuda_zrun", 2)]
     for label, engine, n in rows:
-        ms = _median_ms(lambda: _index_build(cfg, vox, engine, n), reps=10)
+        ms = _median_ms(lambda: _index_build(cfg, vox, engine, n))
         print(f"index build {label}: {ms:.3f} ms", flush=True)
 
 
@@ -350,9 +361,10 @@ def _rand_conv(gen, device, v_in, c, k, cout):
     return feats.to(torch.bfloat16), w.to(torch.bfloat16), bias
 
 
-def phase_k2(cfg, vox, mxu_geoms):
+def phase_k2(cfg, vox, mxu_geoms, device):
     from focalformer3d_tpu_torch.ops import plan_builder as tpb
     from focalformer3d_tpu_torch.ops import sparse_conv as sc
+    from focalformer3d_tpu_torch.tools import _common
 
     _, k2, _ = _wrappers()
     k2_ms = plain_ms = torch_ms = 0.0
@@ -378,8 +390,9 @@ def phase_k2(cfg, vox, mxu_geoms):
                                                              torch_op())):
             raise RuntimeError(f"K2 {name}: rulebook differs from "
                                "decode_rules / build_conv_rules")
-        ms = _median_ms(lambda: k2.plan_rules(*args))
-        p_ms, t_ms = _median_ms(plain), _median_ms(torch_op)
+        ms = _common.time_ms(device, lambda: k2.plan_rules(*args))[0]
+        p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
+        t_ms = _common.time_ms(device, torch_op, _common.PLAIN_REPS)[0]
         print(f"K2 {name}: K {got.shape[1]}, V_in {src.capacity}, V_out "
               f"{dst.capacity} ({int(dst.valid.sum())} active), equal to "
               f"decode_rules and build_conv_rules; kernel {ms:.4f} ms, "
@@ -397,17 +410,6 @@ def phase_k2(cfg, vox, mxu_geoms):
     return rules_by_geom, {"max_abs_err": 0, "ms": k2_ms,
                            "plain_ms": plain_ms, "torch_op_ms": torch_ms,
                            **bound.keys()}
-
-
-def _conv_vs_plain(tag, name, run, plain):
-    got = run()
-    ref = plain()
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    rel = err / float(ref.abs().max())
-    if not rel <= KERNEL_TOL:
-        raise RuntimeError(f"{tag} {name}: rel err {rel:.3g} > {KERNEL_TOL}")
-    return err, rel, _median_ms(run), _median_ms(plain)
 
 
 def _k1_geometry(tag, name, k1, args, plain, device):
@@ -512,11 +514,16 @@ def _conv_bound(bound, rules, v_in, out_valid, c, cout, index_numel=None,
 
 
 def phase_k3(cfg, vox, device):
+    """K3 at the 5 conv geometries of ``cuda_zrun``: against its plain
+    version within ``KERNEL_TOL`` of its scale on both routes, two runs
+    equal bit for bit, the hit shares of its codes, the launch's plan, and
+    per-call times from CUDA-graph replay."""
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
     from focalformer3d_tpu_torch.ops.sparse_conv_zrun import (
         apply_conv_zrun_plain, zrun_rules)
+    from focalformer3d_tpu_torch.tools import _common
 
-    _, _, k3 = _wrappers()
+    k1, _, k3 = _wrappers()
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     geoms = _walk(cfg, vox, False, 2)
@@ -526,22 +533,50 @@ def phase_k3(cfg, vox, device):
     bound = Bound()  # hits counted on the rulebook the codes encode
     for name, g, c, cout, n in _convs(cfg, geoms):
         _, src, dst, *_rest = geoms[g]
+        cd = codes[g]
         feats, w, bias = _rand_conv(gen, device, src.capacity, c,
-                                    3 * codes[g].shape[1], cout)
-        args = (feats, codes[g], w, dst.valid, bias)
-        err, rel, ms, p_ms = _conv_vs_plain(
-            "K3", name, lambda: k3.zrun_conv(*args),
-            lambda: apply_conv_zrun_plain(feats.float(), codes[g], w.float(),
-                                          dst.valid, bias, torch.float32))
-        print(f"K3 {name}: C {c} -> {cout}, {codes[g].shape[1]} BEV taps, "
-              f"V_in {src.capacity} -> V_out {dst.capacity}, max|diff| "
-              f"{err:.3g}, rel {rel:.3g}, kernel {ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms", flush=True)
+                                    3 * cd.shape[1], cout)
+        args = (feats, cd, w, dst.valid, bias)
+
+        def plain():
+            return apply_conv_zrun_plain(feats.float(), cd, w.float(),
+                                         dst.valid, bias, torch.float32)
+
+        got, ref = k3.zrun_conv(*args), plain()
+        again = k3.zrun_conv(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not err <= KERNEL_TOL * scale:
+            raise RuntimeError(f"K3 {name}: rel err {err / scale:.3g} > "
+                               f"{KERNEL_TOL}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"K3 {name}: two runs differ")
+        kc, kcout = k1.kernel_widths(c, cout)
+        other = 1 - k3.route_for(kc, kcout)
+        plan = k3.launch_plan(1, cd.shape[2], cd.shape[1], kc, kcout)
+        ms = _common.time_ms(device, lambda: k3.zrun_conv(*args))[0]
+        other_ms, alt = _common.time_ms(
+            device, lambda: k3.zrun_conv(*args, route=other))
+        if not float((alt - ref).abs().max()) <= KERNEL_TOL * scale:
+            raise RuntimeError(f"K3 {name}: route {k1.ROUTE_NAMES[other]} "
+                               "differs from plain")
+        p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
+        sh = k3.zrun_hit_shares(cd)
+        print(f"K3 {name}: C {c} -> {cout}, {cd.shape[1]} BEV taps, V_in "
+              f"{src.capacity} -> V_out {dst.capacity}; hit share "
+              f"tile128/group64/strip16/site {sh['tile']:.4f}/"
+              f"{sh['group64']:.4f}/{sh['strip16']:.4f}/{sh['site']:.4f}; "
+              f"{plan['route']}, grid {plan['grid']}, {plan['stages']} "
+              f"stages of {plan['z_per_stage']} z taps, W "
+              f"{'resident' if plan['w_resident'] else 'streamed'}, "
+              f"{plan['smem_bytes']} B shared; rel {err / scale:.3g}, two "
+              f"runs equal; kernel {ms:.4f} ms ({k1.ROUTE_NAMES[other]} "
+              f"{other_ms:.4f}), plain {p_ms:.4f} ms", flush=True)
         max_err = max(max_err, err)
         k3_ms, plain_ms = k3_ms + n * ms, plain_ms + n * p_ms
-        _conv_bound(bound, zrun_rules(codes[g], src.capacity), src.capacity,
-                    dst.valid, c, cout, index_numel=codes[g].numel(),
-                    times=n)
+        _conv_bound(bound, zrun_rules(cd, src.capacity), src.capacity,
+                    dst.valid, c, cout, index_numel=cd.numel(), times=n)
     print(f"K3 per scan (11 convs): kernel {k3_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound.ms:.4f} ms", flush=True)
     return {"max_abs_err": max_err, "ms": k3_ms, "plain_ms": plain_ms,
@@ -751,12 +786,18 @@ def phase_k1_grad(cfg, batch, device):
             if not rel <= KERNEL_TOL:
                 raise RuntimeError(f"K1 {kind} {name}: rel err {rel:.3g} > "
                                    f"{KERNEL_TOL}")
+            ms = _common.time_ms(device, run)[0]  # the device's time
+            p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
             if kind == "wgrad":
-                ms, p_ms = _median_ms(run), _median_ms(plain)
-                note = ""
-            else:  # K1: the device's time, from CUDA-graph replay
-                ms = _common.time_ms(device, run)[0]
-                p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
+                if not torch.equal(run(), run()):
+                    raise RuntimeError(f"K1 wgrad {name}: two runs differ")
+                chunk = k1.wgrad_chunk(*(next(n for n in k1.COUTS if n >= w)
+                                         for w in (c, cout)))
+                slices, per = k1.wgrad_slices(B * dst.capacity, K)
+                note = (f" [{k1.ROUTE_NAMES[k1.WGRAD_ROUTE]}, chunk {chunk} "
+                        f"hits, {slices} slices of {per} sites, two runs "
+                        "equal]")
+            else:
                 a = k1_args[kind]
                 kc, kcout = k1.kernel_widths(a[0].shape[2], a[2].shape[2])
                 plan = k1.launch_plan(B, a[1].shape[2], K, kc, kcout)
@@ -783,7 +824,8 @@ def phase_k1_grad(cfg, batch, device):
                             cout, times=n)
             else:
                 s["bound"].add(nbytes[kind], flops,
-                               "f32" if kind == "wgrad" else "bf16", times=n)
+                               "bf16 split" if kind == "wgrad" else "bf16",
+                               times=n)
             line.append(f"{kind} rel {rel:.3g}, {ms:.4f} / {p_ms:.4f} ms"
                         + note)
         print(f"K1 train {name} x{n}: C {c} -> {cout}, K {K}, V_in "
@@ -1028,7 +1070,7 @@ def main():
     mxu_geoms = _walk(cfg, vox, True, len(cfg.encoder_channels))
     coord_rules = [conv_index(src, dst, ks, st, pad, "cuda")
                    for _, src, dst, ks, st, pad in coord_geoms]
-    mxu_rules, k2 = phase_k2(cfg, vox, mxu_geoms)
+    mxu_rules, k2 = phase_k2(cfg, vox, mxu_geoms, device)
     k1 = phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules,
                   device)
     k3 = phase_k3(cfg, vox, device)

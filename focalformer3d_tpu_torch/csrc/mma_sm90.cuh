@@ -1,5 +1,6 @@
-// Building blocks shared by the port's tensor-core kernels (K1 in
-// sparse_conv.cu, kernel A in micro_dot.cu) on Hopper (sm_90a): 16-byte
+// Building blocks shared by the port's tensor-core kernels (K1 and K3 in
+// sparse_conv_tile.cuh, dW in sparse_conv_wgrad.cu, kernel A in
+// micro_dot.cu) on Hopper (sm_90a): 16-byte
 // asynchronous copies with zero fill, the shared-memory tile layout both
 // instruction routes read, ldmatrix + mma.sync m16n8k16, and the wgmma
 // descriptor and m64nNk16 instructions, all bf16 operands with f32 sums.
@@ -82,6 +83,16 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // Four 8x8 bf16 tiles; lane l gives the address of row (l % 8) of tile l / 8.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+// The same four tiles transposed: thread t receives elements (2 (t % 4) + i,
+// t / 4), i = 0, 1, of each tile as stored, so a tile stored (k rows, m or n
+// columns) arrives as mma.sync's (m, k) or (k, n) fragment.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr) : "memory");
 }

@@ -18,9 +18,10 @@ CPU it runs ``apply_conv_plain`` with the kernel's rounding. Both compute
 - dx: the same kernel on the transposed rulebook with ``W[K-1-k]^T`` and
   the cotangent cast to bf16 (``conv_dx``, counted apart from the forward);
 - dW: the kernel of ``csrc/sparse_conv_wgrad.cu`` (``conv_wgrad``;
-  ``dW[k] = sum_j bf16(x[rules[k, j]])^T g[j]``, g in f32, f32 sums),
-  which replaces the TPU kernel's gather mode, the dot after it and the
-  spill correction (``sparse_conv_pallas.py:726-767``);
+  ``dW[k] = sum_j bf16(x[rules[k, j]])^T g[j]``, g in f32 split into two
+  bf16 parts by ``split_bf16``, both products on tensor cores into f32
+  sums), which replaces the TPU kernel's gather mode, the dot after it and
+  the spill correction (``sparse_conv_pallas.py:726-767``);
 - db: the sum of the masked cotangent.
 
 ``sparse_conv_probe`` is the same forward kernel with its phases switched
@@ -63,7 +64,8 @@ ROUTE_WGMMA = 0  # wgmma.mma_async m64nNk16 on 64-row groups
 ROUTE_MMA_SYNC = 1  # mma.sync m16n8k16 on 16-row strips
 ROUTE_NAMES = {ROUTE_WGMMA: "wgmma", ROUTE_MMA_SYNC: "mma.sync"}
 WGRAD_BLOCKS = 2048  # target blocks per dW launch (taps x site slices)
-WGRAD_CHUNK = 64  # sites per staged chunk (kChunk of the dW kernel)
+WGRAD_SLICE_UNIT = 256  # a slice's sites: 32 for each of the block's warps
+WGRAD_ROUTE = ROUTE_MMA_SYNC  # the dW kernel's product: mma.sync m16n8k16
 
 PHASE_GATHER = 1
 PHASE_MMA = 2
@@ -73,6 +75,7 @@ _fn = None
 _probe_fn = None
 _grid_fn = None
 _wgrad_fn = None
+_wgrad_chunk_fn = None
 _launches = cuda_build.Launches("forward", "dx", "wgrad", "probe")
 
 
@@ -119,8 +122,33 @@ def _load_wgrad():
     if _wgrad_fn is None:
         _wgrad_fn = cuda_build.load(
             WGRAD_SOURCE, "sparse_conv_wgrad",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     return _wgrad_fn
+
+
+@functools.lru_cache(maxsize=16)
+def wgrad_chunk(c: int, c_out: int) -> int:
+    """Hits per chunk of the dW kernel at kernel widths (C, Cout): 128
+    where its stage of 128 rows stays small, else 64."""
+    global _wgrad_chunk_fn
+    if _wgrad_chunk_fn is None:
+        _wgrad_chunk_fn = cuda_build.load(
+            WGRAD_SOURCE, "sparse_conv_wgrad_chunk", [ctypes.c_int] * 2)
+    chunk = _wgrad_chunk_fn(c, c_out)
+    if chunk <= 0:
+        raise ValueError(f"dW kernel has no widths C={c}, Cout={c_out}")
+    return chunk
+
+
+def wgrad_slices(n_sites: int, n_taps: int):
+    """(slices, sites per slice) of one dW launch over ``n_sites`` sites
+    (B x V_out): about ``WGRAD_BLOCKS`` blocks of (tap, slice), each slice
+    a multiple of ``WGRAD_SLICE_UNIT`` sites, the last one ragged."""
+    unit = WGRAD_SLICE_UNIT
+    slices = max(1, min(-(-n_sites // unit), -(-WGRAD_BLOCKS // n_taps)))
+    per = -(-max(n_sites, 1) // slices)
+    per = -(-per // unit) * unit
+    return -(-max(n_sites, 1) // per), per
 
 
 def pad_channels(x: torch.Tensor, dim: int):
@@ -271,8 +299,12 @@ def hit_shares(rules: torch.Tensor, v_in: int) -> dict:
     (B, K, V_out) that hold at least one hit (a rule below ``v_in``), over
     the tiles the kernel launches (the last tile of a sample is padded with
     misses). Keys ``tile``, ``group64``, ``strip16``, ``site``."""
-    B, K, v_out = rules.shape
-    hit = (rules >= 0) & (rules < v_in)
+    return hit_shares_of((rules >= 0) & (rules < v_in))
+
+
+def hit_shares_of(hit: torch.Tensor) -> dict:
+    """``hit_shares`` of a boolean (B, K, V_out) hit tensor."""
+    B, K, v_out = hit.shape
     pad = -v_out % TILE
     if pad:
         hit = torch.nn.functional.pad(hit, (0, pad))
@@ -324,7 +356,7 @@ def route_for(c: int, c_out: int) -> int:
 def _grid(B: int, V_out: int, K: int, C: int, c_out: int, route: int):
     """(persistent blocks, stages, W resident, shared bytes) of one conv on
     the current card."""
-    info = (ctypes.c_int * 3)()
+    info = (ctypes.c_int * 4)()
     grid = _load_grid()(B, V_out, K, C, c_out, route, info)
     if grid <= 0:
         raise RuntimeError(f"sparse_conv_grid failed: cudaError {-grid} for "
@@ -475,33 +507,44 @@ def conv_dx(grad: torch.Tensor, rules_t: torch.Tensor,
     return _run_forward(g, rules_t, w_t, every, None, "dx")
 
 
+def split_bf16(t: torch.Tensor):
+    """The dW kernel's split of an f32 tensor: (hi, lo) as f32 tensors of
+    bf16 values, hi = bf16(t) and lo = bf16(t - hi), so that
+    |t - hi - lo| <= 2^-16 |t|."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
 def wgrad_plain(features: torch.Tensor, grad: torch.Tensor,
                 rules: torch.Tensor) -> torch.Tensor:
-    """Plain version of the dW kernel: per tap, the gathered rows (misses
-    as zero rows) in f32 against the f32 cotangent, summed over B and the
-    sites. features (B, V_in, C), grad f32 (B, V_out, Cout), rules
-    (B, K, V_out). Returns f32 (K, C, Cout)."""
+    """Plain version of the dW kernel, with its rounding: per tap, the
+    gathered rows (misses as zero rows) against the cotangent split into
+    two bf16 parts (``split_bf16``), both products summed in f32. features
+    (B, V_in, C), grad f32 (B, V_out, Cout), rules (B, K, V_out). Returns
+    f32 (K, C, Cout)."""
     B, V_in, C = features.shape
     fpad = torch.cat([features.float(), features.new_zeros((B, 1, C),
                                                           dtype=torch.float32)],
                      dim=1)
-    g2 = grad.float().reshape(-1, grad.shape[-1])
+    hi, lo = split_bf16(grad.float().reshape(-1, grad.shape[-1]))
     taps = []
     for k in range(rules.shape[1]):
         idx = rules[:, k].long()[..., None].expand(-1, -1, C)
-        taps.append(torch.gather(fpad, 1, idx).reshape(-1, C).T @ g2)
+        xt = torch.gather(fpad, 1, idx).reshape(-1, C).T
+        taps.append(xt @ hi + xt @ lo)
     return torch.stack(taps)
 
 
 def conv_wgrad(features: torch.Tensor, grad: torch.Tensor,
                rules: torch.Tensor) -> torch.Tensor:
-    """dW of the sparse conv with JAX's rounding.
+    """dW of the sparse conv: x bf16, the f32 cotangent split into two bf16
+    parts (``split_bf16``), f32 sums.
 
     features bf16 (B, V_in, C); grad f32 (B, V_out, Cout), masked to the
     valid outputs; rules int32 (B, K, V_out). Returns f32 (K, C, Cout). On
     a CUDA device this launches the kernel of ``csrc/sparse_conv_wgrad.cu``
-    (or raises); on the CPU it runs ``wgrad_plain``. C and Cout are
-    zero-padded to widths in ``COUTS`` for the kernel."""
+    (or raises); on the CPU it runs ``wgrad_plain`` with the same split.
+    C and Cout are zero-padded to widths in ``COUTS`` for the kernel."""
     if features.dtype != torch.bfloat16 or grad.dtype != torch.float32:
         raise TypeError("features must be bfloat16 and grad float32")
     if rules.dtype != torch.int32:
@@ -533,16 +576,18 @@ def conv_wgrad(features: torch.Tensor, grad: torch.Tensor,
     g = torch.nn.functional.pad(grad, (0, op - c_out)) if op != c_out \
         else grad
     cuda_build.check_aligned(x, g)
-    n_chunks = max(1, -(-(B * V_out) // WGRAD_CHUNK))
-    n_slices = min(n_chunks, -(-WGRAD_BLOCKS // K))
+    n_slices, per = wgrad_slices(B * V_out, K)
+    hits = torch.empty((n_slices, K, 2, per), dtype=torch.int32,
+                       device=x.device)
     partial = torch.empty((n_slices, K, cp, op), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((K, cp, op), dtype=torch.float32, device=x.device)
     fn = _load_wgrad()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cuda_build.check_launch(fn(
-        x.data_ptr(), g.data_ptr(), rules.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), B, V_in, V_out, K, cp, op, n_slices, stream,
+        x.data_ptr(), g.data_ptr(), rules.data_ptr(), hits.data_ptr(),
+        partial.data_ptr(), dw.data_ptr(), B, V_in, V_out, K, cp, op,
+        n_slices, per, stream,
     ), "sparse_conv_wgrad")
     _launches.add("wgrad")
     return dw[:, :C, :c_out].contiguous() if (cp, op) != (C, c_out) else dw

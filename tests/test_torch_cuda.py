@@ -677,3 +677,191 @@ def test_micro_dot_depths_and_widths(dev, route, k, n):
         ref = micro_dot.dot_probe_plain(a, b, 2, m, 1)
         assert got.shape == (m, n)
         assert _rel(got, ref) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K3 (K1's tile kernel on z-run codes) and dW (tensor cores,
+# split cotangent)
+# ---------------------------------------------------------------------------
+
+def _zrun_conv(dev, seed, B, v_in, v_out, R, c, cout, miss=0.5):
+    """Random z-run codes (a share ``miss`` without any z tap; anchors up
+    to v_in + 1, so some rows fall past V_in and miss) with bf16 features
+    and weights, a bias and an out_valid mask."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    anchor = torch.randint(0, v_in + 2, (B, R, v_out), device=dev,
+                           generator=g)
+    pattern = torch.randint(1, 8, (B, R, v_out), device=dev, generator=g)
+    hole = torch.rand(B, R, v_out, device=dev, generator=g) < miss
+    codes = torch.where(hole, 0, (anchor << 3) | pattern).to(torch.int32)
+    f = torch.randn(B, v_in, c, device=dev, generator=g).bfloat16()
+    w = (torch.randn(3 * R, c, cout, device=dev, generator=g)
+         * 0.2).bfloat16()
+    bias = torch.randn(cout, device=dev, generator=g)
+    ov = torch.rand(B, v_out, device=dev, generator=g) < 0.9
+    return f, codes, w, ov, bias
+
+
+def _zrun_plain(args):
+    f, codes, w, ov, bias = args
+    return tzr.apply_conv_zrun_plain(f.float(), codes, w.float(), ov, bias)
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+@pytest.mark.parametrize("cout", [16, 32, 64, 128])
+def test_k3_widths_on_each_route(dev, route, c, cout):
+    """Every pair of widths with R in {1, 9} and batch 1 and 2 on each
+    route (three z taps a stage where two such stages fit, one at C = 128):
+    within 1e-3 of the plain conv, two runs equal bit for bit, zeros at
+    invalid sites, one launch each."""
+    for seed, (R, B, v_out) in enumerate([(9, 2, 3000), (1, 1, 129),
+                                          (9, 1, 127)]):
+        args = _zrun_conv(dev, seed, B, 2000, v_out, R, c, cout)
+        n0 = k3.launch_count()
+        got = k3.zrun_conv(*args, route=route)
+        again = k3.zrun_conv(*args, route=route)
+        torch.cuda.synchronize()
+        assert k3.launch_count() == n0 + 2
+        assert got.shape == (B, v_out, cout)
+        assert _rel(got, _zrun_plain(args)) <= 1e-3
+        assert torch.equal(got, again)
+        assert torch.all(got[~args[3]] == 0)
+    plan = k3.launch_plan(2, 3000, 9, c, cout, route)
+    assert plan["z_per_stage"] == (1 if c == 128 and cout >= 32 else 3)
+    assert plan["route"] == k1.ROUTE_NAMES[route] and plan["grid"] >= 1
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("geom", list(GEOMS))
+@pytest.mark.parametrize("cin,cout", [(16, 16), (32, 64), (64, 128),
+                                      (128, 128), (128, 16)])
+def test_k3_geometries_on_each_route(dev, route, geom, cin, cout):
+    """K3 on the codes of a submanifold and three strided geometries of a
+    CSR voxel set, on each route: within 1e-3 of the plain conv and of K1
+    on the rulebook the codes encode."""
+    ks, stride, pad = GEOMS[geom] or (3, 1, 1)
+    coords, valid = _voxels(12)
+    coords, valid = coords.to(dev), valid.to(dev)
+    table = tsc.build_table_csr(coords, valid, SHAPE)
+    oc, ov, _ = _out_sites(coords, valid, geom)
+    codes = tzr.build_zplan(table, SHAPE, oc, ov, ks, stride, pad)[None]
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    f = torch.randn(1, coords.shape[0], cin, device=dev,
+                    generator=g).bfloat16()
+    w = (torch.randn(3 * codes.shape[1], cin, cout, device=dev, generator=g)
+         * 0.2).bfloat16()
+    b = torch.randn(cout, device=dev, generator=g)
+    args = (f, codes, w, ov[None], b)
+    got = k3.zrun_conv(*args, route=route)
+    assert _rel(got, _zrun_plain(args)) <= 1e-3
+    rules = tzr.zrun_rules(codes, coords.shape[0])
+    assert _rel(got, k1.sparse_conv(f, rules, w, ov[None], b)) <= 1e-3
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("v_out", [1, 127, 128, 129])
+def test_k3_ragged_site_counts(dev, route, v_out):
+    for c, cout in ((16, 16), (32, 64), (64, 64)):
+        args = _zrun_conv(dev, v_out, 2, 777, v_out, 9, c, cout)
+        assert _rel(k3.zrun_conv(*args, route=route),
+                    _zrun_plain(args)) <= 1e-3
+
+
+@pytest.mark.parametrize("route", list(k1.ROUTE_NAMES))
+@pytest.mark.parametrize("c,cout", [(16, 16), (32, 32), (64, 64), (128, 128)])
+def test_k3_all_miss_single_hit_and_gap(dev, route, c, cout):
+    """Codes without any z tap give the bias at the valid sites exactly;
+    a single hit, and a site whose pattern 0b101 reads z0 and z0 + 2 from
+    consecutive rows, match the plain conv and leave every other site at
+    the bias."""
+    f, codes, w, ov, bias = _zrun_conv(dev, 3, 1, 3000, 1000, 9, c, cout)
+    codes = torch.zeros_like(codes)
+    got = k3.zrun_conv(f, codes, w, ov, bias, route=route)
+    assert torch.equal(got, torch.where(ov[..., None], bias, 0.0))
+    codes[0, 4, 700] = (5 << 3) | 0b010
+    codes[0, 2, 300] = (10 << 3) | 0b101
+    args = (f, codes, w, ov, bias)
+    got = k3.zrun_conv(*args, route=route)
+    ref = _zrun_plain(args)
+    assert _rel(got, ref) <= 1e-3
+    touched = torch.zeros(1000, dtype=torch.bool, device=dev)
+    touched[[300, 700]] = True
+    assert torch.equal(got[0][~touched], ref[0][~touched])
+    gap = tzr.zrun_rules(codes, 3000)[0, :, 300]
+    assert gap[[2, 9 + 2, 18 + 2]].tolist() == [10, 3000, 11]
+
+
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+@pytest.mark.parametrize("cout", [16, 32, 64, 128])
+def test_wgrad_widths(dev, c, cout):
+    """dW at every pair of widths over a batch of two random rulebooks
+    (two fifths of the rules miss): within 1e-3 of its plain version (the
+    same split of the cotangent; f32 sums in another order), two runs equal
+    bit for bit, one launch each."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(c + cout)
+    B, v_in, v_out, K = 2, 3000, 2500, 27
+    rules = torch.randint(0, v_in, (B, K, v_out), device=dev, generator=g,
+                          dtype=torch.int32)
+    miss = torch.rand(B, K, v_out, device=dev, generator=g) < 0.4
+    rules = torch.where(miss, v_in, rules).to(torch.int32)
+    x = torch.randn(B, v_in, c, device=dev, generator=g).bfloat16()
+    cot = torch.randn(B, v_out, cout, device=dev, generator=g)
+    n0 = k1.launch_count("wgrad")
+    dw = k1.conv_wgrad(x, cot, rules)
+    again = k1.conv_wgrad(x, cot, rules)
+    torch.cuda.synchronize()
+    assert k1.launch_count("wgrad") == n0 + 2
+    assert dw.shape == (K, c, cout)
+    assert _rel(dw, k1.wgrad_plain(x, cot, rules)) <= 1e-3
+    assert torch.equal(dw, again)
+    assert k1.wgrad_chunk(c, cout) == (
+        128 if 128 * (2 * c + 4 * (cout + 4)) <= 32 * 1024 else 64)
+
+
+@pytest.mark.parametrize("miss", [0.0, 0.9])
+@pytest.mark.parametrize("c,cout", [(16, 32), (64, 128), (128, 128)])
+def test_wgrad_long_slices(dev, miss, c, cout):
+    """dW where each block's slice spans several rounds of rule loads and
+    crosses from one sample into the next (V_out not a multiple of 256),
+    on a dense and a sparse rulebook: within 1e-3 of its plain version, two
+    runs equal bit for bit."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    B, v_in, v_out, K = 2, 60000, 100003, 27
+    n_slices, per = k1.wgrad_slices(B * v_out, K)
+    assert per > 256 and (n_slices - 1) * per < B * v_out <= n_slices * per
+    rules = torch.randint(0, v_in, (B, K, v_out), device=dev, generator=g,
+                          dtype=torch.int32)
+    drop = torch.rand(B, K, v_out, device=dev, generator=g) < miss
+    rules = torch.where(drop, v_in, rules).to(torch.int32)
+    x = torch.randn(B, v_in, c, device=dev, generator=g).bfloat16()
+    cot = torch.randn(B, v_out, cout, device=dev, generator=g)
+    dw = k1.conv_wgrad(x, cot, rules)
+    assert _rel(dw, k1.wgrad_plain(x, cot, rules)) <= 1e-3
+    assert torch.equal(dw, k1.conv_wgrad(x, cot, rules))
+
+
+def test_k3_and_wgrad_reject_dtypes_and_devices(dev):
+    f, codes, w, ov, bias = _zrun_conv(dev, 1, 1, 500, 300, 9, 16, 16)
+    with pytest.raises(TypeError):
+        k3.zrun_conv(f.float(), codes, w, ov, bias)
+    with pytest.raises(TypeError):
+        k3.zrun_conv(f, codes.long(), w, ov, bias)
+    with pytest.raises(ValueError):
+        k3.zrun_conv(f, codes.cpu(), w, ov, bias)
+    with pytest.raises(ValueError):
+        k3.zrun_conv(f, codes, w, ov, bias, route=2)
+    rules = torch.full((1, 27, 300), 500, dtype=torch.int32, device=dev)
+    cot = torch.zeros(1, 300, 16, device=dev)
+    with pytest.raises(TypeError):
+        k1.conv_wgrad(f.float(), cot, rules)
+    with pytest.raises(TypeError):
+        k1.conv_wgrad(f, cot.bfloat16(), rules)
+    with pytest.raises(ValueError):
+        k1.conv_wgrad(f, cot, rules.cpu())
+    assert torch.equal(k1.conv_wgrad(f, cot, rules),
+                       torch.zeros(27, 16, 16, device=dev))
