@@ -82,7 +82,10 @@ Phases (any failure raises and exits non-zero):
    phase probe in full mode bit for bit against production K1 and within
    1e-3 of the plain conv (its other modes compute zeros, held exactly);
    launches of the five probe kernels are counted from zero just before
-   the phase and must all be non-zero.
+   the phase and must all be non-zero. Each kernel case beside a PyTorch
+   call prints the ratio of their times; P7's width sweep so shows, per
+   row width, ``gather_rows`` against ``x[idx]``, and each P6 and P7 case
+   names the route its kernel took.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths,
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
@@ -97,10 +100,12 @@ call computes a sparse conv or a rulebook, so ``library_ms`` is null. The
 five probe kernels carry their headline case (``case``): ``micro_dot`` P1a's
 ``gk`` beside one ``torch.matmul`` over the same operand;
 ``micro_gather_taps`` P6 at pack 1 (where the three TPU kernels are one
-function) beside ``embedding_bag(mode="sum")``; ``micro_gather_rows`` P7's
-4 MiB table beside ``torch.index_select``; ``micro_widen`` P9 at L0 beside
-``torch.cat`` of the nine slices; ``sparse_conv_probe`` P1b's L0 in full
-mode (no library call). Their times are per call, from calls replayed in
+function) beside ``embedding_bag(mode="sum")``, and its W 512 cases with
+their times and routes (``w512``); ``micro_gather_rows`` P7's 4 MiB table
+beside ``torch.index_select``, and the row width of the sweep where it
+does worst against ``x[idx]`` with that ratio (``worst_vs_x_idx``);
+``micro_widen`` P9 at L0 beside one copy of a strided view of the padded
+meta; ``sparse_conv_probe`` P1b's L0 in full mode (no library call). Their times are per call, from calls replayed in
 a CUDA graph (``tools/_common.time_ms``: the device's time, without the
 host's); their launches count each replay's launches; ``max_abs_err`` is
 the largest over all their cases.
@@ -993,9 +998,13 @@ def _probe_line(name, rows, secs, launches):
     def case(r):
         if r["kernel"] is None:
             return f"{r['case']}: {r['op']} {r['library_ms']:.4f}"
-        text = f"{r['case']}: {r['ms']:.4f} (plain {r['plain_ms']:.3f}"
+        tag = f"[{r['route']}]" if r.get("route") else ""
+        route = f" {tag}" if tag and tag not in r["case"] else ""
+        text = (f"{r['case']}{route}: {r['ms']:.4f} (plain "
+                f"{r['plain_ms']:.3f}")
         if r["library_ms"] is not None:
-            text += f", {r['op']} {r['library_ms']:.4f}"
+            text += (f", {r['op']} {r['library_ms']:.4f}, ratio "
+                     f"{r['ms'] / r['library_ms']:.3f}")
         return text + ")"
 
     probes = ", ".join(sorted({r["probe"] for r in rows}))
@@ -1049,6 +1058,17 @@ def phase_probes(device):
             "ms": h["ms"], "plain_ms": h["plain_ms"], "library_ms": h["library_ms"],
             "library": h["op"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"]}
+    out["micro_gather_taps"]["w512"] = [
+        {"case": r["case"], "ms": r["ms"], "route": r["route"]}
+        for r in rows if r["kernel"] == "micro_gather_taps"
+        and r["case"].startswith("W=512")]
+    sweep = [r for r in rows
+             if r["kernel"] == "micro_gather_rows" and r["op"] == "x[idx]"]
+    worst = max(sweep, key=lambda r: r["ms"] / r["library_ms"])
+    out["micro_gather_rows"]["worst_vs_x_idx"] = {
+        "case": worst["case"], "ms": worst["ms"],
+        "x_idx_ms": worst["library_ms"],
+        "ratio": worst["ms"] / worst["library_ms"]}
     return out, launches
 
 

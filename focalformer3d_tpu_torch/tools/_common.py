@@ -31,6 +31,7 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense, published
 TOL = 1e-3  # of the output's scale, for sums taken in another order
 REPS = 10  # timed calls per case
 PLAIN_REPS = 2
+COMPARE_CHUNK = 1 << 24  # values a comparison holds in float64 at a time
 
 # tools/micro_mxu_probe.py:probe_kernel: level -> (V, C, Cout, grid)
 LEVELS = {0: (153600, 16, 16, (41, 1440, 1440)),
@@ -88,14 +89,22 @@ def bound(nbytes: float, flops: float = 0.0, peak: str = "bf16") -> dict:
 
 def compare(got: torch.Tensor, ref: torch.Tensor, check: str) -> dict:
     """``exact``: equal bit for bit (as values); ``scale``: max |diff| <=
-    ``TOL`` * max |ref|. Both also need the shape and finite values."""
+    ``TOL`` * max |ref|. Both also need the shape and finite values. The
+    float64 differences are taken ``COMPARE_CHUNK`` values at a time: whole
+    copies of P7's 4.4 GB outputs took tens of GB, and the allocator state
+    they left slowed the next case's first timed kernel by up to 15%."""
     if got.shape != ref.shape:
         return {"max_abs_err": None, "rel_err": None, "ok": False}
-    g, r = got.double(), ref.double()
-    err = float((g - r).abs().max()) if g.numel() else 0.0
-    scale = float(r.abs().max()) if r.numel() else 0.0
+    g, r = got.reshape(-1), ref.reshape(-1)
+    err = scale = 0.0
+    ok = True
+    for i in range(0, g.numel(), COMPARE_CHUNK):
+        gc = g[i:i + COMPARE_CHUNK].double()
+        rc = r[i:i + COMPARE_CHUNK].double()
+        err = max(err, float((gc - rc).abs().max()))
+        scale = max(scale, float(rc.abs().max()))
+        ok &= bool(torch.isfinite(gc).all())
     rel = err / scale if scale else err
-    ok = bool(torch.isfinite(g).all())
     ok &= torch.equal(got, ref) if check == "exact" else rel <= TOL
     return {"max_abs_err": err, "rel_err": rel, "ok": ok}
 
@@ -229,8 +238,8 @@ def fmt(row: dict) -> str:
 
     parts = [f"{row['probe']} {row['case']}:"]
     if row["kernel"] is not None:
-        route = f" [{row['route']}]" if (
-            row["kernel"] == "sparse_conv_probe" and row.get("route")) else ""
+        tag = f"[{row['route']}]" if row.get("route") else ""
+        route = f" {tag}" if tag and tag not in row["case"] else ""
         parts.append(f"{row['kernel']}{route} {t(row['ms'])} ms, plain "
                      f"{t(row['plain_ms'])} ms")
     if row.get("op"):

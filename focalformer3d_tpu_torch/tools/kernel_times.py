@@ -1,6 +1,8 @@
-"""K3's and dW's times on one card, for one checkout of the repo.
+"""K3's and dW's times, or kernel B's, on one card, for one checkout of
+the repo.
 
     python -m focalformer3d_tpu_torch.tools.kernel_times --root DIR [--tag T]
+        [--kernels k3_dw|gather]
 
 Imports ``chip_smoke`` and ``focalformer3d_tpu_torch`` from the checkout at
 ``DIR`` (the repo itself, or an older commit unpacked beside it), so two
@@ -12,12 +14,28 @@ through ``zrun_conv`` with bias; dW at every conv of the training batch
 time is ``tools/_common.time_ms`` of this checkout (10 calls replayed from a
 CUDA graph: the device's time per call). Prints one line per geometry and
 one JSON object with the per-scan and per-step sums.
+
+``--kernels gather`` times kernel B instead (``ops/micro_gather.py`` of the
+checkout) at every case of the probes P6 and P7, on the inputs their
+``run`` builds (the checkout's ``micro_gather_kernel.operands`` and
+``micro_gather2`` tables, made in the same order from the same seeds):
+``gather_taps`` at each (W, cl, pack) and div beside
+``embedding_bag(mode="sum")`` where div is 1 (and, for a cost model, at W
+256 with 1, 9 and 27 taps over 512-2048 tiles), ``gather_rows`` at each row
+width of the sweep beside ``x[idx]`` and ``torch.index_select``, and on the
+4 MiB table; beside each width, ``zero_`` and a contiguous ``copy_`` of a
+tensor of the output's size, the card's streaming rates for those bytes.
+Each kernel on every route the checkout's wrapper offers
+(``route=``), each result held against the default route's (equal bit for
+bit), and each also timed eagerly (CUDA events around 10 calls issued from
+the host, after one warm-up call), beside the graph replay.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import importlib
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -97,15 +115,176 @@ def wgrad_times(smoke, device):
     return rows, total
 
 
+def eager_ms(fn, reps: int = 10) -> float:
+    """ms per call of ``reps`` calls issued from the host one after
+    another, by CUDA events, after one warm-up call: the host's pace where
+    it is slower than the device."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _routes(fn, names_attr: str, mg) -> list:
+    """[None] and, where the checkout's wrapper takes ``route=``, each
+    route it names."""
+    if "route" not in inspect.signature(fn).parameters:
+        return [None]
+    return [None, *getattr(mg, names_attr)]
+
+
+def _timed(device, _common, name, fn, ref=None, library=None) -> dict:
+    """Graph-replay and eager ms of ``fn`` (and of ``library``), its result
+    held bit for bit against ``ref`` where one is given."""
+    ms, got = _common.time_ms(device, fn)
+    row = {"case": name, "ms": ms, "eager_ms": eager_ms(fn)}
+    if ref is not None:
+        row["equal"] = bool(torch.equal(got, ref))
+    if library is not None:
+        row["library_ms"] = _common.time_ms(device, library)[0]
+        row["library_eager_ms"] = eager_ms(library)
+    return row
+
+
+def _line(row: dict) -> str:
+    text = f"{row['case']}: {row['ms']:.4f} ms (eager {row['eager_ms']:.4f})"
+    if "library_ms" in row:
+        text += (f"; {row['op']} {row['library_ms']:.4f} (eager "
+                 f"{row['library_eager_ms']:.4f}), ratio "
+                 f"{row['ms'] / row['library_ms']:.3f}")
+    if "equal" in row:
+        text += f"; equal to the default route: {row['equal']}"
+    return text
+
+
+def gather_times(device) -> dict:
+    from focalformer3d_tpu_torch.ops import micro_gather as mg
+    from focalformer3d_tpu_torch.tools import _common
+    from focalformer3d_tpu_torch.tools import micro_gather2 as p7
+    from focalformer3d_tpu_torch.tools import micro_gather_kernel as p6
+
+    out = {"taps": [], "rows": []}
+    taps_routes = _routes(mg.gather_taps, "TAPS_ROUTE_NAMES", mg)
+    for seed, (W, cl, pack) in enumerate(p6.CONFIGS):
+        rel, xw = p6.operands(seed, p6.N_TILES, p6.T, p6.K, W, cl, pack)
+        rel = torch.from_numpy(rel).to(device)
+        xw = torch.from_numpy(xw).to(device).to(torch.bfloat16)
+        flat = rel.view(-1, p6.K)
+        for div in ((pack, 1) if pack > 1 else (1,)):
+            default = mg.gather_taps(rel, xw, div)
+            for route in taps_routes:
+                kw = {} if route is None else {"route": route}
+                try:
+                    plan = (mg.taps_plan(xw.shape[0], cl, p6.K, route)["name"]
+                            if hasattr(mg, "taps_plan") else "one")
+                except ValueError:  # the window does not fit that route
+                    continue
+                row = _timed(
+                    device, _common,
+                    f"P6 W={W} pack={pack} div={div} route={plan}"
+                    + (" (default)" if route is None else ""),
+                    lambda kw=kw, div=div: mg.gather_taps(rel, xw, div, **kw),
+                    ref=None if route is None else default,
+                    library=(lambda: torch.nn.functional.embedding_bag(
+                        flat, xw, mode="sum")) if div == 1 else None)
+                row["op"] = "embedding_bag"
+                out["taps"].append(row)
+                print(_line(row), flush=True)
+        del rel, xw, flat
+    # what a launch costs apart from its taps: W 256, pack 1, at 1, 9 and
+    # 27 taps and 512-2048 tiles, on the same draws cut or repeated
+    rel, xw = p6.operands(0, 2048, p6.T, p6.K, 256, 128, 1)
+    rel = torch.from_numpy(rel).to(device)
+    xw = torch.from_numpy(xw).to(device).to(torch.bfloat16)
+    for k in (1, 9, 27):
+        for n_tiles in (512, 1024, 2048):
+            part = rel[:n_tiles, :, :k].contiguous()
+            row = _timed(device, _common,
+                         f"P6 scaling W=256 div=1 K={k} tiles={n_tiles}",
+                         lambda part=part: mg.gather_taps(part, xw, 1))
+            out["taps"].append(row)
+            print(_line(row), flush=True)
+    del rel, xw
+
+    rows_routes = _routes(mg.gather_rows, "ROWS_ROUTE_NAMES", mg)
+
+    def rows_cases(name, x, idx, library, op):
+        ref = x[idx]
+        for route in rows_routes:
+            kw = {} if route is None else {"route": route}
+            plan = (mg.rows_plan(x.shape[1], route)["name"]
+                    if hasattr(mg, "rows_plan") else "one")
+            row = _timed(device, _common,
+                         f"{name} route={plan}"
+                         + (" (default)" if route is None else ""),
+                         lambda kw=kw: mg.gather_rows(x, idx, **kw), ref=ref,
+                         library=library)
+            row["op"] = op
+            out["rows"].append(row)
+            print(_line(row), flush=True)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    n = p7.SWEEP["rows"]
+    for width in p7.WIDTHS:
+        v = max(1, p7.SWEEP["table_elems"] // width)
+        x = torch.randn(v, width, generator=gen, device=device).to(
+            torch.bfloat16)
+        idx = torch.randint(0, v, (n,), generator=gen, device=device,
+                            dtype=torch.int32)
+        rows_cases(f"P7 {width * 2} B rows, table {v} x {width}", x, idx,
+                   lambda x=x, idx=idx: x[idx], "x[idx]")
+        row = _timed(device, _common, f"P7 {width * 2} B rows index_select",
+                     lambda x=x, idx=idx: torch.index_select(x, 0, idx))
+        out["rows"].append(row)
+        print(_line(row), flush=True)
+        del x, idx
+        # the card's streaming rates for the output's bytes: writes alone,
+        # and a contiguous copy (as many bytes read as written)
+        dst = torch.empty(n, width, dtype=torch.bfloat16, device=device)
+        src = torch.empty_like(dst).zero_()
+        for name, fn in (("zero_ (writes alone)", dst.zero_),
+                         ("copy_ (contiguous)", lambda: dst.copy_(src))):
+            row = _timed(device, _common, f"P7 {width * 2} B rows, output "
+                         f"{name}", fn)
+            row["GB_per_s"] = n * width * 2 / (row["ms"] * 1e-3) / 1e9
+            out["rows"].append(row)
+            print(_line(row) + f", {row['GB_per_s']:.0f} GB/s of output",
+                  flush=True)
+        del dst, src
+        torch.cuda.empty_cache()
+    vm = p7.VMEM
+    x, idx = p7.table_rows(3, vm["V"], vm["C"], vm["N"])
+    x = torch.from_numpy(x).to(device).to(torch.bfloat16)
+    idx = torch.from_numpy(idx).to(device)
+    rows_cases(f"P7 table {vm['V']} x {vm['C']}, {vm['N']} rows", x, idx,
+               lambda: torch.index_select(x, 0, idx), "index_select")
+    row = _timed(device, _common, "P7 4 MiB table x[idx]", lambda: x[idx])
+    out["rows"].append(row)
+    print(_line(row), flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--kernels", choices=("k3_dw", "gather"), default="k3_dw")
     args = ap.parse_args()
     root = args.root.resolve()
     smoke = _import(root)
     device = smoke.phase_device()
     torch.set_grad_enabled(False)
+    if args.kernels == "gather":
+        print(json.dumps({"tag": args.tag, "root": str(root),
+                          **gather_times(device)}), flush=True)
+        return
     k3_rows, k3_total = k3_times(smoke, device)
     dw_rows, dw_total = wgrad_times(smoke, device)
     print(json.dumps({"tag": args.tag, "root": str(root),

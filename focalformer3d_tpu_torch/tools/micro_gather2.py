@@ -61,7 +61,8 @@ def _rows_case(device, name, x, idx, headline=False, library=None,
         run=lambda: micro_gather.gather_rows(x, idx),
         plain=lambda: micro_gather.gather_rows_plain(x, idx),
         check="exact", nbytes=nbytes, library=library, op=op,
-        rate=(n, 1e6, "Mrows/s"), headline=headline)
+        rate=(n, 1e6, "Mrows/s"), headline=headline,
+        route=micro_gather.rows_plan(c)["name"])
 
 
 def run(device: torch.device, size: str = "full") -> list:

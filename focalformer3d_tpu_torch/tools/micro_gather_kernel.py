@@ -7,7 +7,9 @@ ways: a one-hot product (``_ohdot_kernel``), ``take_along_axis`` per tap
 kernel indexes ``rel // pack``, the two takes ``rel``: for pack > 1 they are
 two functions. Here kernel B's ``gather_taps`` (``ops/micro_gather.py``)
 computes each function once, with ``div`` explicit, the window staged in
-shared memory; for pack 1 all three are one function. Where ``div`` is 1,
+shared memory of each persistent block where it fits beside the indices
+(``taps_plan``; each case names its route); for pack 1 all three are one
+function. Where ``div`` is 1,
 ``torch.nn.functional.embedding_bag(mode="sum")`` computes the same
 function and is timed beside it.
 
@@ -63,7 +65,9 @@ def run(device: torch.device, size: str = "full") -> list:
                 library=(lambda flat=flat: torch.nn.functional.embedding_bag(
                     flat, xw, mode="sum")) if div == 1 else None,
                 op="embedding_bag(mode='sum')" if div == 1 else None,
-                headline=pack == 1, **work))
+                headline=pack == 1,
+                route=micro_gather.taps_plan(xw.shape[0], cl, k)["name"],
+                **work))
     return rows
 
 

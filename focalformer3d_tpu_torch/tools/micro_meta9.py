@@ -5,10 +5,13 @@ The TPU probe (``tools/micro_meta9.py``) timed four formulations of
 slices of the padded meta concatenated on axis 1, the production form),
 ``stack``, a row ``gather``, and a Pallas stencil kernel
 (``_widen_kernel``), each checked against ``concat``. Here kernel C
-(``ops/micro_widen.py``) takes the Pallas kernel's place, ``torch.cat`` of
-the nine slices (the padded meta built before the timing) is its library
-yardstick, and ``stack`` and ``gather`` are PyTorch ops; all are held
-equal to ``concat`` bit for bit.
+(``ops/micro_widen.py``) takes the Pallas kernel's place. Its library
+yardstick is one copy of a strided view of the padded meta (built before
+the timing), ``strided_widen``: row r's nine neighbours lie at rows r +
+dy * W + dx, so a (n_rows, 3, 3, 4) view with strides (4, 4W, 4, 1) is
+the widened meta, and ``reshape`` copies it once. ``torch.cat`` of the
+nine slices (the production form), ``stack`` and ``gather`` are PyTorch
+ops timed beside it; all are held equal to ``concat`` bit for bit.
 
     python -m focalformer3d_tpu_torch.tools.micro_meta9
 """
@@ -31,6 +34,13 @@ def meta_for(seed: int, W: int) -> np.ndarray:
     return rng.randint(0, 2**30, size=(W * W + 1, 4)).astype(np.int32)
 
 
+def strided_widen(mp: torch.Tensor, W: int, n_rows: int) -> torch.Tensor:
+    """The widened meta as one copy of a strided view of the padded meta
+    ``mp`` (contiguous (rows, 4) int32)."""
+    return torch.as_strided(mp, (n_rows, 3, 3, 4),
+                            (4, 4 * W, 4, 1)).reshape(n_rows, 36)
+
+
 def run(device: torch.device, size: str = "full") -> list:
     rows = []
     for seed, (W, level) in enumerate(GRIDS if size == "full"
@@ -49,9 +59,19 @@ def run(device: torch.device, size: str = "full") -> list:
             device, "P9", f"{level} W={W}", kernel="micro_widen",
             run=lambda: micro_widen.widen_meta9(meta, W), plain=concat,
             check="exact", nbytes=nbytes,
-            library=lambda parts=parts: torch.cat(parts, dim=1),
-            op="torch.cat of the nine slices", rate=rate,
+            library=lambda mp=mp, W=W: strided_widen(mp, W, n_rows),
+            op="as_strided(mp).reshape (one copy)", rate=rate,
             headline=level == "L0"))
+        rows.append(_common.op_case(
+            device, "P9", f"{level} W={W} strided view",
+            op="as_strided(mp).reshape (one copy)",
+            fn=lambda mp=mp, W=W: strided_widen(mp, W, n_rows),
+            ref=concat, nbytes=nbytes, rate=rate))
+        rows.append(_common.op_case(
+            device, "P9", f"{level} W={W} cat",
+            op="torch.cat of the nine slices",
+            fn=lambda parts=parts: torch.cat(parts, dim=1),
+            ref=concat, nbytes=nbytes, rate=rate))
         rows.append(_common.op_case(
             device, "P9", f"{level} W={W} stack",
             op="torch.stack(slices, 1).reshape",

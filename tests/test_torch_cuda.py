@@ -465,6 +465,118 @@ def test_gather_rows_exact(dev):
     assert torch.equal(got, micro_gather.gather_rows_plain(x, idx))
 
 
+def _rows_routes():
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    return list(micro_gather.ROWS_ROUTE_NAMES)
+
+
+@pytest.mark.parametrize("route", _rows_routes())
+@pytest.mark.parametrize("C", [8, 24, 32, 64, 512, 1000, 2048, 4096])
+def test_gather_rows_widths_exact(dev, C, route):
+    """Every lane-group size (C / 8 chunks of 1-512) and route, bit for bit,
+    with N not a multiple of any warp's rows and misses on both sides."""
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(C)
+    V, N = 777, 3001
+    x = torch.randn(V, C, device=dev, generator=g).bfloat16()
+    idx = torch.randint(-4, V + 5, (N,), device=dev, generator=g,
+                        dtype=torch.int32)
+    idx[:2] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
+    n0 = micro_gather.launch_count("rows")
+    got = micro_gather.gather_rows(x, idx, route=route)
+    torch.cuda.synchronize()
+    assert micro_gather.launch_count("rows") == n0 + 1
+    assert torch.equal(got, micro_gather.gather_rows_plain(x, idx))
+    assert torch.equal(micro_gather.gather_rows(x, idx, route=route), got)
+
+
+@pytest.mark.parametrize("route", _rows_routes())
+@pytest.mark.parametrize("N", [0, 1, 7, 33, 129])
+def test_gather_rows_few_rows(dev, N, route):
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    x = torch.randn(50, 64, device=dev).bfloat16()
+    idx = (torch.arange(N, device=dev, dtype=torch.int32) * 7) % 53 - 1
+    got = micro_gather.gather_rows(x, idx, route=route)
+    torch.cuda.synchronize()
+    assert got.shape == (N, 64)
+    assert torch.equal(got, micro_gather.gather_rows_plain(x, idx))
+
+
+def _taps_routes():
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    return list(micro_gather.TAPS_ROUTE_NAMES)
+
+
+@pytest.mark.parametrize("route", _taps_routes())
+@pytest.mark.parametrize("n_tiles,T,K,r_rows,l,div", [
+    (1024, 128, 27, 256, 128, 4),  # P6's shapes
+    (1024, 128, 27, 512, 128, 1),  # W 512: one block per SM on smem
+    (37, 128, 27, 100, 24, 3),     # 37 tiles: not a multiple of the grid
+    (5, 16, 9, 64, 64, 5),         # stages of 64 rows over 80
+    (3, 7, 27, 32, 8, 1),          # 21 rows, one 16-byte chunk per row
+    (3, 10, 4096, 8, 16, 1),       # MAX_TAPS: stages of four rows
+])
+def test_gather_taps_routes(dev, n_tiles, T, K, r_rows, l, div, route):
+    """Both routes within 1e-3 of the plain sums (summed in the same order,
+    so also equal), equal across two runs, with misses on both sides and
+    rel up to the window's end: the last row is rel R * div - 1."""
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n_tiles + K)
+    rel = torch.randint(-3, r_rows * div + 3 * div, (n_tiles, T, K),
+                        device=dev, generator=g, dtype=torch.int32)
+    rel.view(-1)[:3] = torch.tensor([r_rows * div - 1, r_rows * div,
+                                     r_rows * div - div], dtype=torch.int32)
+    window = torch.randn(r_rows, l, device=dev, generator=g).bfloat16()
+    if micro_gather.taps_smem_bytes(micro_gather.TAPS_SMEM, r_rows, l, K,
+                                    micro_gather.TAPS_STAGE_ROWS) > \
+            micro_gather.SMEM_BYTES and route == micro_gather.TAPS_SMEM:
+        with pytest.raises(ValueError):  # no room for the window's route
+            micro_gather.gather_taps(rel, window, div, route=route)
+        return
+    n0 = micro_gather.launch_count("taps")
+    got = micro_gather.gather_taps(rel, window, div, route=route)
+    torch.cuda.synchronize()
+    assert micro_gather.launch_count("taps") == n0 + 1
+    ref = micro_gather.gather_taps_plain(rel, window, div)
+    err = (got.float() - ref.float()).abs().max()
+    assert float(err / ref.float().abs().max()) <= 1e-3
+    assert torch.equal(got, ref)
+    assert torch.equal(micro_gather.gather_taps(rel, window, div,
+                                                route=route), got)
+
+
+def test_gather_taps_largest_window_takes_the_global_route(dev):
+    """A 227 KB window (908 rows of 128 bf16) leaves no room for the
+    stages, so the plan takes the global route; its last row is read."""
+    from focalformer3d_tpu_torch.ops import micro_gather
+
+    R, L = 908, 128
+    assert micro_gather.taps_plan(R, L, 27)["name"] == "global"
+    with pytest.raises(ValueError):
+        micro_gather.gather_taps(
+            torch.zeros(1, 1, 27, dtype=torch.int32, device=dev),
+            torch.zeros(R, L, dtype=torch.bfloat16, device=dev), 2,
+            route=micro_gather.TAPS_SMEM)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    rel = torch.randint(-1, 2 * R + 2, (40, 128, 27), device=dev,
+                        generator=g, dtype=torch.int32)
+    rel[0, 0, :] = 2 * R - 1
+    window = torch.randn(R, L, device=dev, generator=g).bfloat16()
+    got = micro_gather.gather_taps(rel, window, 2)
+    torch.cuda.synchronize()
+    ref = micro_gather.gather_taps_plain(rel, window, 2)
+    assert torch.equal(got, ref)
+    assert torch.equal(got[0, 0], (27 * window[-1].float()).bfloat16())
+
+
 @pytest.mark.parametrize("W", [1, 37, 360])
 def test_widen_meta9_exact(dev, W):
     from focalformer3d_tpu_torch.ops import micro_widen

@@ -109,3 +109,118 @@ def test_wrapper_checks():
         micro_gather.gather_rows(xw.float(), rel[0, 0])
     with pytest.raises(ValueError):
         micro_gather.gather_rows(xw, rel[0])
+
+
+# ---------------------------------------------------------------------------
+# the host-side choices of the redesigned kernels (the kernels run only on
+# the card; tests/test_torch_cuda.py holds them)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 7, 8, 16, 27, 100, 127, 128,
+                               1000, 2**16 + 1, 2**30 + 3, 2**31 - 1])
+def test_fast_div_magic_divides_every_int32(d):
+    m, l = micro_gather.fast_div_magic(d)
+    assert 0 < m < 2**32 and 0 <= l <= 31
+    rng = np.random.RandomState(d % 1000)
+    ns = np.concatenate([np.arange(min(3 * d + 3, 5000)),
+                         [2**31 - 1, 2**31 - 2], d * np.arange(1, 50),
+                         d * np.arange(1, 50) - 1,
+                         rng.randint(0, 2**31 - 1, 2000)])
+    ns = ns[(ns >= 0) & (ns < 2**31)].astype(np.uint64)
+    got = (((ns * np.uint64(m)) >> np.uint64(32)) + ns) >> np.uint64(l)
+    np.testing.assert_array_equal(got, ns // np.uint64(d))
+
+
+def test_rows_lanes_cover_every_width():
+    """Every width C % 8 == 0 up to 4096 maps to a lane group that divides
+    32 and covers the row's 16-byte chunks with the fewest lanes, or to a
+    whole warp from 32 chunks (512 B) on."""
+    for C in range(8, 4097, 8):
+        lanes, chunks = micro_gather.rows_lanes(C), C // 8
+        assert lanes in (1, 2, 4, 8, 16, 32), C
+        if chunks >= 32:
+            assert lanes == 32, C
+        else:
+            assert lanes >= chunks and (lanes == 1 or lanes // 2 < chunks), C
+
+
+def test_rows_plan_routes():
+    for C in (8, 32, 512, 1000, 2048, 4096, 2**15):
+        plan = micro_gather.rows_plan(C)
+        assert plan["name"] == micro_gather.ROWS_ROUTE_NAMES[plan["route"]]
+        bulk = micro_gather.rows_plan(C, micro_gather.ROWS_BULK)
+        assert bulk["name"] == "bulk" and 1 <= bulk["bulk_rows"] <= 32
+        # a block's row buffers and 32 mbarriers fit its shared memory
+        assert 256 + bulk["bulk_rows"] * C * 2 <= micro_gather.SMEM_BYTES
+    with pytest.raises(ValueError):
+        micro_gather.rows_plan(64, route=2)
+
+
+def test_taps_plan_every_window_fits():
+    """Every window the wrapper accepts (L % 8 == 0, R * L * 2 <= 227 KB)
+    gets a route, at P6's K and at the most taps the wrapper takes, whose
+    shared memory fits 232 448 bytes, with stages of at least one row; the
+    shared-memory route wherever the window, its zero row and two full
+    stages fit."""
+    S = micro_gather.SMEM_BYTES
+    for L in range(8, micro_gather.MAX_WINDOW_BYTES // 2 + 1, 8):
+        r_max = micro_gather.MAX_WINDOW_BYTES // (2 * L)
+        for R in {1, max(1, r_max // 2), r_max}:
+            for K in (1, 27, 28, micro_gather.MAX_TAPS):
+                plan = micro_gather.taps_plan(R, L, K)
+                assert plan["smem_bytes"] <= S, (R, L, K)
+                assert plan["stage_rows"] >= 1
+                assert plan["smem_bytes"] == micro_gather.taps_smem_bytes(
+                    plan["route"], R, L, K, plan["stage_rows"])
+                full = micro_gather.taps_smem_bytes(
+                    micro_gather.TAPS_SMEM, R, L, K,
+                    micro_gather.TAPS_STAGE_ROWS)
+                assert (plan["name"] == "smem") == (full <= S), (R, L, K)
+
+
+def test_taps_plan_at_p6_shapes():
+    T, K = micro_gather_kernel.T, micro_gather_kernel.K
+    for W, cl, _pack in micro_gather_kernel.CONFIGS:
+        plan = micro_gather.taps_plan(W, cl, K)
+        assert plan["name"] == "smem"
+        assert plan["stage_rows"] == micro_gather.TAPS_STAGE_ROWS
+        assert plan["smem_bytes"] == (W + 1) * cl * 2 + 2 * 64 * K * 4
+        forced = micro_gather.taps_plan(W, cl, K, micro_gather.TAPS_GLOBAL)
+        assert forced["name"] == "global"
+        assert forced["smem_bytes"] == 2 * 64 * K * 4
+    # 64-row stages start on 16-byte boundaries at any K: 64 * K * 4 bytes
+    assert micro_gather.TAPS_STAGE_ROWS % 4 == 0
+    assert T % micro_gather.TAPS_STAGE_ROWS == 0
+    # a 227 KB window leaves no room: the global route, or a refusal
+    assert micro_gather.taps_plan(908, 128, K)["name"] == "global"
+    with pytest.raises(ValueError):
+        micro_gather.taps_plan(908, 128, K, micro_gather.TAPS_SMEM)
+    with pytest.raises(ValueError):
+        micro_gather.taps_plan(8, 8, K, route=2)
+    # stages shrink on the global route until two fit
+    assert micro_gather.taps_plan(8, 16, micro_gather.MAX_TAPS)[
+        "stage_rows"] == 4
+
+
+def test_route_arguments_on_cpu():
+    """On CPU tensors a forced route runs the plain version all the same;
+    a route that is not one, or K past ``MAX_TAPS``, raises on any
+    device."""
+    rel, xw = micro_gather_kernel.operands(3, 2, 16, 27, 64, 32, 4)
+    rel, xw = torch.from_numpy(rel), torch.from_numpy(xw).bfloat16()
+    ref = micro_gather.gather_taps_plain(rel, xw, 4)
+    for route in micro_gather.TAPS_ROUTE_NAMES:
+        assert torch.equal(micro_gather.gather_taps(rel, xw, 4, route), ref)
+    with pytest.raises(ValueError):
+        micro_gather.gather_taps(rel, xw, 4, route=5)
+    with pytest.raises(ValueError):
+        micro_gather.gather_taps(
+            torch.zeros(1, 1, micro_gather.MAX_TAPS + 1, dtype=torch.int32),
+            xw, 1)
+    x, idx = micro_gather2.table_rows(4, 100, 24, 300)
+    x, idx = torch.from_numpy(x).bfloat16(), torch.from_numpy(idx)
+    for route in micro_gather.ROWS_ROUTE_NAMES:
+        assert torch.equal(micro_gather.gather_rows(x, idx, route),
+                           micro_gather.gather_rows_plain(x, idx))
+    with pytest.raises(ValueError):
+        micro_gather.gather_rows(x, idx, route=-1)

@@ -38,9 +38,24 @@ def test_widen_rows_are_the_nine_neighbours():
             assert torch.equal(got[r, 4 * t:4 * t + 4], want.int())
 
 
+@pytest.mark.parametrize("W", [W for W, _ in micro_meta9.SMALL_GRIDS])
+def test_strided_view_equals_concat(W):
+    """C's yardstick, one copy of a strided view of the padded meta, is
+    ``widen_meta9_plain`` and the JAX ``widen_concat`` bit for bit."""
+    meta = micro_meta9.meta_for(2, W)
+    mp = micro_widen.padded_meta(torch.from_numpy(meta), W)
+    n_rows = meta.shape[0] + W
+    got = micro_meta9.strided_widen(mp, W, n_rows)
+    assert got.shape == (n_rows, 36) and got.is_contiguous()
+    assert torch.equal(got, micro_widen.widen_meta9_plain(
+        torch.from_numpy(meta), W))
+    ref = np.asarray(jax_probe.widen_concat(jnp.asarray(meta), W))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_run_small_on_cpu():
     rows = micro_meta9.run(CPU, "small")
-    assert len(rows) == 6 and all(r["ok"] for r in rows)
+    assert len(rows) == 10 and all(r["ok"] for r in rows)
     assert all(r["library_ms"] is None for r in rows)
 
 
