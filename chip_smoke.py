@@ -85,7 +85,9 @@ Phases (any failure raises and exits non-zero):
    the phase and must all be non-zero. Each kernel case beside a PyTorch
    call prints the ratio of their times; P7's width sweep so shows, per
    row width, ``gather_rows`` against ``x[idx]``, and each P6 and P7 case
-   names the route its kernel took.
+   names the route its kernel took. One line per P9 level gives C's time,
+   the strided view copy's, their ratio, C's route and tile, and C's share
+   of its byte bound.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths,
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
@@ -1045,6 +1047,14 @@ def phase_probes(device):
         raise RuntimeError(f"probes: a kernel was not launched: {launches}")
     print(f"probes: {len(rows)} cases in {time.perf_counter() - t_all:.1f} "
           f"s; launches {launches}", flush=True)
+    for r in rows:
+        if r["kernel"] == "micro_widen":
+            print(f"P9 {r['case']}: micro_widen {r['ms']:.4f} ms [route "
+                  f"{r['route']}, tile {r['tile_rows']} rows], strided view "
+                  f"copy {r['library_ms']:.4f} ms, ratio "
+                  f"{r['ms'] / r['library_ms']:.3f}, "
+                  f"{r['bound_ms'] / r['ms']:.3f} of its byte bound "
+                  f"({r['bound_ms']:.4f} ms)", flush=True)
     out = {}
     for name in launches:
         mine = [r for r in rows if r["kernel"] == name]

@@ -1,8 +1,8 @@
-"""K3's and dW's times, or kernel B's, on one card, for one checkout of
-the repo.
+"""K3's and dW's times, or kernel B's or C's, on one card, for one
+checkout of the repo.
 
     python -m focalformer3d_tpu_torch.tools.kernel_times --root DIR [--tag T]
-        [--kernels k3_dw|gather]
+        [--kernels k3_dw|gather|widen]
 
 Imports ``chip_smoke`` and ``focalformer3d_tpu_torch`` from the checkout at
 ``DIR`` (the repo itself, or an older commit unpacked beside it), so two
@@ -159,7 +159,7 @@ def _line(row: dict) -> str:
                  f"{row['library_eager_ms']:.4f}), ratio "
                  f"{row['ms'] / row['library_ms']:.3f}")
     if "equal" in row:
-        text += f"; equal to the default route: {row['equal']}"
+        text += f"; equal bit for bit: {row['equal']}"
     return text
 
 
@@ -271,11 +271,70 @@ def gather_times(device) -> dict:
     return out
 
 
+def widen_times(device) -> list:
+    from focalformer3d_tpu_torch.ops import micro_widen as mw
+    from focalformer3d_tpu_torch.tools import _common
+    from focalformer3d_tpu_torch.tools import micro_meta9 as p9
+
+    out = []
+
+    def add(row, nbytes, level, bound_ms=None):
+        row["level"] = level
+        row["GB_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+        text = _line(row) + f", {row['GB_per_s']:.0f} GB/s"
+        if bound_ms is not None:
+            row["share_of_bound"] = bound_ms / row["ms"]
+            text += f", {row['share_of_bound']:.3f} of the byte bound"
+        out.append(row)
+        print(text, flush=True)
+
+    for seed, (W, level) in enumerate(p9.GRIDS):
+        meta = torch.from_numpy(p9.meta_for(seed, W)).to(device)
+        n_rows = meta.shape[0] + W
+        nbytes = meta.numel() * 4 + n_rows * 36 * 4
+        bound_ms = _common.bound(nbytes)["bound_ms"]
+        ref = mw.widen_meta9_plain(meta, W)
+        for route in _routes(mw.widen_meta9, "ROUTE_NAMES", mw):
+            kw = {} if route is None else {"route": route}
+            plan = (mw.widen_plan(meta.shape[0], W, route)
+                    if hasattr(mw, "widen_plan") else None)
+            name = ("one" if plan is None else
+                    f"{plan['name']} tile {plan['tile_rows']}")
+            row = _timed(device, _common,
+                         f"P9 {level} W={W} route={name}"
+                         + (" (default)" if route is None else ""),
+                         lambda kw=kw: mw.widen_meta9(meta, W, **kw), ref=ref)
+            add(row, nbytes, level, bound_ms)
+        mp = mw.padded_meta(meta, W)
+        parts = mw.nine_slices(mp, W, n_rows)
+        for name, fn in (
+                ("strided view copy",
+                 lambda: p9.strided_widen(mp, W, n_rows)),
+                ("torch.cat of the nine slices",
+                 lambda: torch.cat(parts, dim=1))):
+            add(_timed(device, _common, f"P9 {level} W={W} {name}", fn,
+                       ref=ref), nbytes, level, bound_ms)
+        del mp, parts
+        dst = torch.empty_like(ref)
+        src = torch.zeros_like(ref)
+        for name, fn in (("zero_ (writes alone)", dst.zero_),
+                         ("copy_ (contiguous)", lambda: dst.copy_(src))):
+            add(_timed(device, _common, f"P9 {level} output {name}", fn),
+                ref.numel() * 4, level)
+        del dst, src, ref, meta
+        torch.cuda.empty_cache()
+    bad = [r["case"] for r in out if r.get("equal") is False]
+    if bad:
+        raise SystemExit(f"not equal to widen_meta9_plain: {bad}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--kernels", choices=("k3_dw", "gather"), default="k3_dw")
+    ap.add_argument("--kernels", choices=("k3_dw", "gather", "widen"),
+                    default="k3_dw")
     args = ap.parse_args()
     root = args.root.resolve()
     smoke = _import(root)
@@ -284,6 +343,10 @@ def main():
     if args.kernels == "gather":
         print(json.dumps({"tag": args.tag, "root": str(root),
                           **gather_times(device)}), flush=True)
+        return
+    if args.kernels == "widen":
+        print(json.dumps({"tag": args.tag, "root": str(root),
+                          "widen": widen_times(device)}), flush=True)
         return
     k3_rows, k3_total = k3_times(smoke, device)
     dw_rows, dw_total = wgrad_times(smoke, device)

@@ -55,13 +55,15 @@ def run(device: torch.device, size: str = "full") -> list:
             return micro_widen.widen_meta9_plain(meta, W)
 
         rate = (nbytes, 1e9, "GB/s")
+        plan = micro_widen.widen_plan(meta.shape[0], W)
         rows.append(_common.case(
             device, "P9", f"{level} W={W}", kernel="micro_widen",
             run=lambda: micro_widen.widen_meta9(meta, W), plain=concat,
             check="exact", nbytes=nbytes,
             library=lambda mp=mp, W=W: strided_widen(mp, W, n_rows),
             op="as_strided(mp).reshape (one copy)", rate=rate,
-            headline=level == "L0"))
+            headline=level == "L0", route=plan["name"],
+            tile_rows=plan["tile_rows"]))
         rows.append(_common.op_case(
             device, "P9", f"{level} W={W} strided view",
             op="as_strided(mp).reshape (one copy)",

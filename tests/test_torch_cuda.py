@@ -577,19 +577,69 @@ def test_gather_taps_largest_window_takes_the_global_route(dev):
     assert torch.equal(got[0, 0], (27 * window[-1].float()).bfloat16())
 
 
-@pytest.mark.parametrize("W", [1, 37, 360])
-def test_widen_meta9_exact(dev, W):
+def _widen_routes_exact(meta, W):
+    """C on its default route and each route forced: bit for bit equal to
+    ``widen_meta9_plain``, one launch per call."""
     from focalformer3d_tpu_torch.ops import micro_widen
 
+    ref = micro_widen.widen_meta9_plain(meta, W)
+    for route in [None, *micro_widen.ROUTE_NAMES]:
+        n0 = micro_widen.launch_count()
+        got = micro_widen.widen_meta9(meta, W, route=route)
+        torch.cuda.synchronize()
+        assert micro_widen.launch_count() == n0 + 1
+        assert got.shape == ref.shape
+        assert torch.equal(got, ref), (W, meta.shape[0], route)
+
+
+@pytest.mark.parametrize("W", [1, 2, 37, 360, 1440])
+def test_widen_meta9_exact(dev, W):
     g = torch.Generator(device=dev)
     g.manual_seed(8)
     meta = torch.randint(0, 2**30, (W * W + 1, 4), device=dev, generator=g,
                          dtype=torch.int32)
-    n0 = micro_widen.launch_count()
-    got = micro_widen.widen_meta9(meta, W)
-    torch.cuda.synchronize()
-    assert micro_widen.launch_count() == n0 + 1
-    assert torch.equal(got, micro_widen.widen_meta9_plain(meta, W))
+    _widen_routes_exact(meta, W)
+
+
+@pytest.mark.parametrize("W", [1, 2, 37, 360])
+def test_widen_meta9_ragged_tiles(dev, W):
+    """Row counts that are not a multiple of the tile: n_meta and n_meta +
+    W one off a tile (and off two tiles), and metas shorter than W + 1
+    rows, where every row's taps read padding in part."""
+    from focalformer3d_tpu_torch.ops import micro_widen
+
+    tile = micro_widen.TILE_ROWS
+    sizes = {tile - 1, tile + 1, 2 * tile - 1, 2 * tile + 1,
+             tile - W - 1, tile - W + 1, 1, 2, W // 2 + 1, W}
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    for n_meta in sorted(n for n in sizes if n >= 1):
+        meta = torch.randint(0, 2**30, (n_meta, 4), device=dev, generator=g,
+                             dtype=torch.int32)
+        _widen_routes_exact(meta, W)
+
+
+def test_widen_meta9_all_ones_edges(dev):
+    """A meta of ones at W 1440 (L0): the first and last W + 2 rows hold
+    ones exactly at the taps that land inside the meta, on every route."""
+    from focalformer3d_tpu_torch.ops import micro_widen
+
+    W = 1440
+    n_meta = W * W + 1
+    meta = torch.ones(n_meta, 4, dtype=torch.int32, device=dev)
+    r = torch.arange(n_meta + W, device=dev)[:, None]
+    off = torch.tensor([(t // 3 - 1) * W + t % 3 - 1 for t in range(9)],
+                       device=dev)
+    inside = ((r + off >= 0) & (r + off < n_meta)).int()
+    want = inside.repeat_interleave(4, dim=1)
+    edges = torch.cat([torch.arange(W + 2), torch.arange(n_meta - 2,
+                                                         n_meta + W)])
+    for route in [None, *micro_widen.ROUTE_NAMES]:
+        got = micro_widen.widen_meta9(meta, W, route=route)
+        torch.cuda.synchronize()
+        assert torch.equal(got[edges.to(dev)], want[edges.to(dev)])
+        assert torch.equal(got, want)
+    _widen_routes_exact(meta, W)
 
 
 @pytest.mark.parametrize("geom", list(GEOMS))
