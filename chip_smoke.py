@@ -73,7 +73,23 @@ Phases (any failure raises and exits non-zero):
 8. one more training step under ``torch.profiler``: kernels launched,
    device busy share, the largest kernels with their launches, and the
    aten ops that launched the top three.
-9. probes: the nine TPU probes P1-P9 of ``tools/micro_*.py`` as their
+9. entry points: the port's train CLI (``tools.train.main``, in-process)
+   on FocalFormer3D_L, ``--synthetic``, 2 epochs of 2 steps at batch 2,
+   ``--keep-last 1``, in a temporary work dir: finite losses in its JSON
+   log, ``epoch_2`` saved and ``epoch_1`` pruned; a second call
+   auto-resumes at epoch 2 with the saved step and the parameters, buffers
+   and moments bit for bit. Then 2 steps with ``freeze_pts`` (the masked
+   optimizer): every point-branch parameter and batch-norm statistic and
+   ``imgpts_neck.shared_conv_pts`` bit-identical, the head moved, per step
+   0 dx and 0 dW launches and as many K1 forward launches as an eval scan
+   on ``cuda`` (the eval dense boundary). Then the benchmark CLI
+   (``tools.benchmark.main``): inference on the three engines (3 scans
+   each, batch 4 beside batch 1, the stage split and occupancy) and
+   ``--train`` (2 steps at batch 2, SECOND's first conv2d in its six
+   variants); each prints one JSON line, which must parse. K1 (forward,
+   dx, dW), K2 and K3 launches are counted from zero before the phase and
+   must all be non-zero after it. Prints its seconds.
+10. probes: the nine TPU probes P1-P9 of ``tools/micro_*.py`` as their
    ports in ``focalformer3d_tpu_torch/tools/`` (``run(device, "full")``,
    the originals' shapes, each once), one line per probe. Every kernel
    case is held against its plain version: kernel A (``micro_dot``) and
@@ -89,7 +105,8 @@ Phases (any failure raises and exits non-zero):
    the strided view copy's, their ratio, C's route and tile, and C's share
    of its byte bound.
 
-The ``kernels`` line carries, per kernel, its launches on the main paths,
+The ``kernels`` line carries, per kernel, its launches on the main paths
+(``launches_by_path``; ``entry_points`` is phase 9's),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -854,9 +871,9 @@ def phase_train(cfg, batch, device):
     """``TRAIN_STEPS`` training steps of FocalFormer3D_L on engine ``cuda``;
     returns the K1 forward / dx / dW launches, counted from zero just
     before the first step and read just after the last."""
+    from focalformer3d_tpu_torch.configs import get_config
     from focalformer3d_tpu_torch.models.detector import FocalFormer3D
     from focalformer3d_tpu_torch.training import optim, train_step
-    from focalformer3d_tpu_torch.training.losses import LossConfig
     from focalformer3d_tpu_torch.training.train_step import PHASES
     from focalformer3d_tpu_torch.utils.ref_keys import make_fake_state_dict
 
@@ -866,8 +883,8 @@ def phase_train(cfg, batch, device):
     model = model.to(device)
     tx = optim.make_optimizer(total_steps=100)
     opt_state = tx.init(list(model.parameters()))
-    # FocalFormer3D_L's loss config is LossConfig's defaults
-    step = train_step.make_train_step(cfg, LossConfig(), tx)
+    step = train_step.make_train_step(
+        cfg, get_config("FocalFormer3D_L")["loss"], tx)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -984,6 +1001,162 @@ def _profile_step(run):
         ops = sorted(owners.get(name, {}).items(), key=lambda kv: -kv[1])
         print(f"train profile: {name[:60]} launched by: "
               + "; ".join(lab for lab, _ in ops[:3]), flush=True)
+
+
+def _run_cli(main, argv):
+    """``main(argv)`` with its standard output captured, then echoed;
+    returns (its result, its one JSON line parsed, if it prints one)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = main(argv)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    text = buf.getvalue()
+    found = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    if len(found) > 1:
+        raise RuntimeError(f"{argv[:2]}: {len(found)} JSON lines")
+    return result, (found[0] if found else None)
+
+
+def _model_path_launches():
+    k1, k2, k3 = _wrappers()
+    return {"sparse_conv": k1.launch_count("forward"),
+            "sparse_conv_dx": k1.launch_count("dx"),
+            "sparse_conv_wgrad": k1.launch_count("wgrad"),
+            "plan_rules": k2.launch_count(),
+            "sparse_conv_zrun": k3.launch_count()}
+
+
+def _phase_train_cli(work):
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    argv = ["FocalFormer3D_L", "--synthetic", "--epochs", "2",
+            "--iters-per-epoch", "2", "--keep-last", "1", "--log-interval",
+            "1", "--batch-size", str(TRAIN_BATCH), "--work-dir", work,
+            "--no-tensorboard"]
+    # as a process of its own starts (cuDNN may round float32 to TF32):
+    # the CLI must set its own precision
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    for f in flags:
+        f.allow_tf32 = True
+    run, _ = _run_cli(train_cli.main, argv)
+    if any(f.allow_tf32 for f in flags):
+        raise RuntimeError("train CLI: TF32 left allowed")
+    with open(f"{work}/train_log.jsonl") as fh:
+        recs = [json.loads(x) for x in fh]
+    losses = [r["loss"] for r in recs if r["mode"] == "train"]
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"train CLI: losses {losses}")
+    if ckpt.list_epochs(work) != [2] or run.opt_state.count != 4:
+        raise RuntimeError(f"train CLI: epochs {ckpt.list_epochs(work)} "
+                           f"saved, step {run.opt_state.count}")
+    again, _ = _run_cli(train_cli.main, argv)
+    if again.start_epoch != 2 or again.opt_state.count != 4:
+        raise RuntimeError(f"train CLI: resumed at epoch "
+                           f"{again.start_epoch}, step "
+                           f"{again.opt_state.count}")
+    ref, got = run.model.state_dict(), again.model.state_dict()
+    diff = [k for k in ref if not torch.equal(ref[k], got[k])]
+    diff += [n for n, a, b in zip(run.opt_state.names,
+                                  run.opt_state.mu + run.opt_state.nu,
+                                  again.opt_state.mu + again.opt_state.nu)
+             if not torch.equal(a, b)]
+    if diff:
+        raise RuntimeError(f"train CLI: resumed state differs: {diff[:5]}")
+    print(f"entry points: train CLI losses " + ", ".join(
+        f"{x:.4f}" for x in losses) + "; epoch_2 kept, epoch_1 pruned; "
+        f"resumed at epoch 2, step 4, {len(ref)} tensors and the moments "
+        "bit for bit; TF32 off after the CLI set its precision",
+        flush=True)
+
+
+def _phase_freeze(cfg, batch, device):
+    """Two steps of FocalFormer3D_L with ``freeze_pts``."""
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.models.detector import FocalFormer3D
+    from focalformer3d_tpu_torch.training import optim, train_step
+    from focalformer3d_tpu_torch.utils.ref_keys import make_fake_state_dict
+
+    k1, _, _ = _wrappers()
+    fcfg = dataclasses.replace(cfg, freeze_pts=True)
+    model = FocalFormer3D(fcfg)
+    model.load_state_dict(make_fake_state_dict(model, seed=0), strict=True)
+    model = model.to(device)
+    tx = optim.make_optimizer(total_steps=100)
+    opt_state = tx.init(model.named_parameters())
+    step = train_step.make_train_step(
+        fcfg, get_config("FocalFormer3D_L")["loss"], tx)
+    gen = torch.Generator(device=device)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    before_k1 = {k: k1.launch_count(k) for k in ("forward", "dx", "wgrad")}
+    for i in range(2):
+        gen.manual_seed(i)
+        metrics = step(model, opt_state, batch, gen)
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise RuntimeError(f"freeze_pts step {i}: non-finite metrics")
+    per_step = {k: (k1.launch_count(k) - n) / 2
+                for k, n in before_k1.items()}
+    want = {"forward": LAUNCHES_PER_SCAN["cuda"][0], "dx": 0, "wgrad": 0}
+    if per_step != want:
+        raise RuntimeError(f"freeze_pts: K1 launches per step {per_step}, "
+                           f"expected {want}")
+    after = model.state_dict()
+    pts = ("pts_middle_encoder.", "pts_backbone.", "pts_neck.",
+           "imgpts_neck.shared_conv_pts.")
+    frozen = [k for k in after if k.startswith(pts)]
+    changed = [k for k in frozen if not torch.equal(after[k], before[k])]
+    head = [k for k in after if k.startswith("pts_bbox_head.")]
+    moved = [k for k in head if not torch.equal(after[k], before[k])]
+    if changed or len(moved) < len(head) // 2:
+        raise RuntimeError(f"freeze_pts: frozen tensors changed "
+                           f"{changed[:5]}; head moved {len(moved)} of "
+                           f"{len(head)}")
+    print(f"entry points: freeze_pts, 2 steps: {len(frozen)} point-branch "
+          f"tensors (parameters, batch-norm statistics, shared_conv_pts) "
+          f"bit-identical, {len(moved)} of {len(head)} head tensors moved; "
+          f"K1 forward / dx / dW per step {per_step}", flush=True)
+
+
+def phase_entry_points(cfg, batch, device):
+    """The train and benchmark CLIs and a frozen-branch run; returns the
+    model-path kernels' launches, counted from zero just before the phase
+    and read just after."""
+    import tempfile
+
+    from focalformer3d_tpu_torch.tools import benchmark
+
+    t0 = time.perf_counter()
+    for k in _wrappers():
+        k.reset_launch_count()
+    with tempfile.TemporaryDirectory() as work:
+        _phase_train_cli(work)
+    torch.cuda.empty_cache()
+    _phase_freeze(cfg, batch, device)
+    torch.cuda.empty_cache()
+    _, rec = _run_cli(benchmark.main, [
+        "FocalFormer3D_L", "--engines", ",".join(ENGINES), "--samples", "3",
+        "--warmup", "1"])
+    if rec is None or sorted(rec["engines"]) != sorted(ENGINES):
+        raise RuntimeError(f"benchmark: no JSON line for {ENGINES}")
+    torch.cuda.empty_cache()
+    _, rec = _run_cli(benchmark.main, [
+        "FocalFormer3D_L", "--train", "--samples", "2", "--batch-size",
+        str(TRAIN_BATCH)])
+    if rec is None or not math.isfinite(rec["ms_per_step"]["median"]):
+        raise RuntimeError("benchmark --train: no JSON line")
+    torch.cuda.empty_cache()
+    launches = _model_path_launches()
+    if not all(launches.values()):
+        raise RuntimeError(f"entry points: a kernel was not launched: "
+                           f"{launches}")
+    print(f"entry points: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
 
 
 def _probe_launches():
@@ -1120,11 +1293,13 @@ def main():
     batch = _train_batch(tcfg, device)
     grad = phase_k1_grad(tcfg, batch, device)
     train = phase_train(tcfg, batch, device)
+    torch.cuda.empty_cache()
+    entry = phase_entry_points(tcfg, batch, device)
     del batch
     torch.cuda.empty_cache()
     probes, probe_launches = phase_probes(device)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "optax", "focalformer3d_tpu")]
+        "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
         raise RuntimeError(f"JAX or the JAX package was imported: {jaxy[:5]}")
     eval_paths = {f"eval_{e}": n for e, n in by_path.items()}
@@ -1138,6 +1313,8 @@ def main():
         ("plan_rules", k2, {p: n[1] for p, n in eval_paths.items()}),
         ("sparse_conv_zrun", k3, {p: n[2] for p, n in eval_paths.items()}),
     ]
+    for name, _stats, by in rows:
+        by["entry_points"] = entry[name]
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

@@ -2,9 +2,11 @@
 
 Counterparts of ``focalformer3d_tpu.ops.voxelize.VoxelConfig``,
 ``models.detector.DetectorConfig`` / ``with_compute_dtype``,
-``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig`` and
-``core.box_coder.BBoxCoderConfig``. Field names, defaults and the two named
-configs (``FocalFormer3D_L``, ``Tiny_L``) are identical, so
+``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig``,
+``core.box_coder.BBoxCoderConfig`` and ``configs.focalformer3d_l
+.TrainRecipe``. Field names, defaults and the two named configs
+(``FocalFormer3D_L``, ``Tiny_L``: model, loss, training recipe, class names
+and dataset) are identical, so
 ``focalformer3d_tpu.utils.ref_keys.reference_state_shapes(cfg)`` accepts a
 config of either package. Only the dtype properties differ: they return
 torch dtypes here.
@@ -225,6 +227,23 @@ def with_compute_dtype(cfg: DetectorConfig, dtype: str) -> DetectorConfig:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainRecipe:
+    """The reference training recipe (FocalFormer3D_L.py: AdamW 1e-4, wd
+    0.01, clip 0.1, one-cycle LR and momentum, 6 epochs, Fading after
+    epoch 1, 2 samples per card)."""
+
+    base_lr: float = 1e-4
+    weight_decay: float = 0.01
+    grad_clip: float = 0.1
+    total_epochs: int = 6
+    fade_epoch: int = 1
+    samples_per_device: int = 2
+    lr_target_ratio: tuple = (10.0, 1e-4)
+    momentum_target_ratio: tuple = (0.8947368421052632, 1.0)
+    step_ratio_up: float = 0.4
+
+
 _NUSC_CLASSES = (
     "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
     "motorcycle", "bicycle", "pedestrian", "traffic_cone",
@@ -290,7 +309,18 @@ def _focalformer3d_l():
             score_threshold=0.0,
         ),
     )
-    return {"model": model, "class_names": _NUSC_CLASSES}
+    from .training.losses import LossConfig  # it imports this module
+
+    loss = LossConfig(
+        code_weights=(1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.2, 0.2),
+        loss_cls_weight=1.0,
+        loss_bbox_weight=0.25,
+        loss_heatmap_weight=1.0,
+        gaussian_overlap=0.1,
+        min_radius=2,
+    )
+    return {"model": model, "loss": loss, "train": TrainRecipe(),
+            "class_names": _NUSC_CLASSES, "dataset": "nuscenes"}
 
 
 def _tiny_l():
@@ -334,15 +364,23 @@ def _tiny_l():
             post_center_range=(-10, -10, -5, 10, 10, 5),
         ),
     )
-    return {"model": model, "class_names": classes}
+    from .training.losses import LossConfig  # it imports this module
+
+    loss = LossConfig(code_weights=(1.0,) * 8 + (0.2, 0.2))
+    return {"model": model, "loss": loss,
+            "train": TrainRecipe(total_epochs=2, fade_epoch=1,
+                                 samples_per_device=2),
+            "class_names": classes, "dataset": "nuscenes"}
 
 
 _REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l}
 
 
 def get_config(name: str):
-    """Named config: ``{"model": DetectorConfig, "class_names": ...}``.
-    Only the LiDAR-only configs of the ported slice are registered."""
+    """Named config: ``{"model": DetectorConfig, "loss": LossConfig,
+    "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes"}``, as
+    the JAX ``configs.get_config`` returns it. Only the LiDAR-only configs
+    of the ported slice are registered."""
     if name not in _REGISTRY:
         raise KeyError(
             f"config {name!r} is not ported; available: {sorted(_REGISTRY)}"

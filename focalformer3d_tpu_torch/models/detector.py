@@ -11,11 +11,24 @@ argument: in eval the sparse encoder's dense boundary is
 training the boundary is ``sparse_dense_from``, batch norm uses batch
 statistics and updates the running ones, and the head adds its denoising
 GT groups and dropouts (``training/train_step.py`` drives it).
+
+Branch freezing, as the JAX detector does it (``detector.py:239-273``):
+with ``freeze_pts`` the point branch (``pts_middle_encoder``,
+``pts_backbone``, ``pts_neck``) stays in eval mode when the model trains,
+so its batch norm uses and keeps its running statistics and the encoder
+takes the eval dense boundary, and it runs without autograd, so its
+backward launches no kernel (JAX cuts the gradient at the FPN output). The
+camera branch that ``freeze_img`` and ``freeze_camlss`` cover is not
+ported. Which parameters a flag freezes is decided here, by
+``trainable_mask``: the model marks them ``requires_grad=False`` when it is
+built, as the reference does, and the optimizer (``training/optim``) takes
+only the parameters that require a gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -43,6 +56,31 @@ def preprocess_points(cfg: DetectorConfig, points: torch.Tensor,
     outs = [vox.hard_voxelize_simple(vcfg, points[b], mask[b])
             for b in range(points.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _frozen_prefixes(cfg: DetectorConfig) -> List[str]:
+    """Module prefixes frozen by the reference's staged finetune flags
+    (focalformer3d.py:80-131): ``freeze_pts`` covers the point branch and
+    ``imgpts_neck.shared_conv_pts``; ``freeze_img`` the image backbone and
+    neck; ``freeze_camlss`` the LSS module."""
+    prefixes = []
+    if cfg.freeze_img:
+        prefixes += ["img_backbone", "img_neck"]
+    if cfg.freeze_camlss:
+        prefixes += ["imgpts_neck.cam_lss"]
+    if cfg.freeze_pts:
+        prefixes += ["vfe", "pts_middle_encoder", "pts_backbone", "pts_neck",
+                     "imgpts_neck.shared_conv_pts"]
+    return prefixes
+
+
+def trainable_mask(cfg: DetectorConfig, names: Iterable[str]
+                   ) -> Dict[str, bool]:
+    """True per trainable parameter name (reference state-dict key), False
+    per one the config's freeze flags freeze."""
+    prefixes = _frozen_prefixes(cfg)
+    return {n: not any(n.startswith(p) or f".{p}" in n for p in prefixes)
+            for n in names}
 
 
 def _sparse_out_z(cfg: DetectorConfig) -> int:
@@ -81,25 +119,52 @@ class FocalFormer3D(nn.Module):
             cfg.extra_feat,
         )
         self.pts_bbox_head = fd.FocalDecoder(cfg.decoder)
+        keep = trainable_mask(cfg, [n for n, _ in self.named_parameters()])
+        for n, p in self.named_parameters():
+            p.requires_grad_(keep[n])
+
+    def frozen_branches(self):
+        """The submodules that the config's freeze flags keep in eval mode
+        and out of autograd."""
+        if not self.cfg.freeze_pts:
+            return []
+        return [self.pts_middle_encoder, self.pts_backbone, self.pts_neck]
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        for m in self.frozen_branches():
+            m.eval()
+        return self
 
     def forward(self, voxel_data: Dict[str, torch.Tensor],
                 gt_boxes: Optional[torch.Tensor] = None,
                 gt_labels: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                mark: Optional[Callable[[str], None]] = None
                 ) -> Dict[str, torch.Tensor]:
         """voxel_data from ``preprocess_points``; in training the padded GT
         (boxes (B, G, 9), labels, validity) for the head's denoising groups
-        and the generator of its dropouts and noise. Returns the head's
-        dict."""
+        and the generator of its dropouts and noise. ``mark(stage)``, if
+        given, is called as each stage ends: the encoder's (see
+        ``SparseEncoder.forward``), then "SECOND + neck", "FocalEncoder" and
+        "decoder". Returns the head's dict."""
+        mark = mark or (lambda _: None)
         dt = self.cfg.tdtype
-        bev = self.pts_middle_encoder(voxel_data["features"],
-                                      voxel_data["coords"],
-                                      voxel_data["voxel_mask"])
-        fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
+        frozen = (torch.no_grad() if self.cfg.freeze_pts
+                  else contextlib.nullcontext())
+        with frozen:
+            bev = self.pts_middle_encoder(voxel_data["features"],
+                                          voxel_data["coords"],
+                                          voxel_data["voxel_mask"], mark)
+            fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
+        mark("SECOND + neck")
         pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt)
-        return self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
-                                  gt_labels, gt_valid, generator)
+        mark("FocalEncoder")
+        out = self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
+                                 gt_labels, gt_valid, generator)
+        mark("decoder")
+        return out
 
     def get_bboxes(self, out: Dict[str, torch.Tensor], max_out: int = 200):
         return get_bboxes(self.cfg, out, max_out)

@@ -56,7 +56,7 @@ overflow counters have nothing to guard here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -286,9 +286,18 @@ class SparseEncoder(nn.Module):
                               index)
         return torch.where(m, F.relu(y + x), 0.0)
 
-    def forward(self, features, coords, valid):
+    def forward(self, features, coords, valid,
+                mark: Optional[Callable[[str], None]] = None,
+                levels: Optional[List[Level]] = None):
         """features (B, V0, Cin), coords (B, V0, 3) int32 zyx in CSR order,
-        valid (B, V0). Returns BEV features (B, H', W', C_out * D_out)."""
+        valid (B, V0). Returns BEV features (B, H', W', C_out * D_out).
+
+        ``mark(stage)``, if given, is called as each stage ends: "index
+        build" after each level's active set and rulebook (or plan), "sparse
+        convs" after the convs that read them, "dense tail" after the dense
+        levels. ``levels``, if given, receives each sparse level built."""
+        mark = mark or (lambda _: None)
+        record = levels.append if levels is not None else (lambda _: None)
         engine = self._engine(features.device)
         meta_chain = engine == "cuda_mxu"
         dense_from = (self.train_dense_from if self.training
@@ -298,7 +307,9 @@ class SparseEncoder(nn.Module):
         B = features.shape[0]
         x = torch.where(valid[..., None], features, 0.0)
         lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
+        record(lvl)
         index = conv_index(lvl, lvl, 3, 1, 1, engine)
+        mark("index build")
         x = F.relu(self._sparse_conv(x, index, self.conv_input[0],
                                      self.conv_input[1], lvl.valid, engine,
                                      index))
@@ -310,13 +321,17 @@ class SparseEncoder(nn.Module):
                 x = self._basic(stage[j], x, index, lvl.valid, engine)
             if last:
                 break
+            mark("sparse convs")
             pad = self.down_paddings[i]
             out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
+            record(out)
             index = conv_index(lvl, out, 3, 2, pad, engine)
+            mark("index build")
             x = F.relu(self._sparse_conv(
                 x, index, stage[-1][0], stage[-1][1], out.valid, engine,
                 _transposed(index, lvl.capacity) if want_t else None))
             lvl = out
+            mark("sparse convs")
             if not meta_chain and i + 1 == dense_from:
                 sites = lvl.sites()
                 dense = torch.stack([
@@ -327,19 +342,27 @@ class SparseEncoder(nn.Module):
                 mask = torch.stack([
                     sc.to_dense(ones, sites[b], lvl.valid[b],
                                 lvl.shape)[..., 0] > 0 for b in range(B)])
-                return self._dense_tail(dense, mask, i + 1, engine)
+                bev = self._dense_tail(dense, mask, i + 1, engine)
+                mark("dense tail")
+                return bev
             index = conv_index(lvl, lvl, 3, 1, 1, engine)
+            mark("index build")
 
+        mark("sparse convs")
         ks_out, st_out = (3, 1, 1), (2, 1, 1)
         out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
+        record(out)
         index = conv_index(lvl, out, ks_out, st_out, 0, engine)
+        mark("index build")
         x = F.relu(self._sparse_conv(
             x, index, self.conv_out[0], self.conv_out[1], out.valid, engine,
             _transposed(index, lvl.capacity) if want_t else None))
         sites = out.sites()
         dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
                                          out.shape) for b in range(B)])
-        return self._collapse(dense)
+        bev = self._collapse(dense)
+        mark("sparse convs")
+        return bev
 
     @staticmethod
     def _collapse(dense):

@@ -12,7 +12,18 @@ transformation here does the same arithmetic on a list of parameters:
   bias corrections with the step's own b1 (as ``inject_hyperparams`` feeds
   it), ``p -= lr (mu_hat / (sqrt(nu_hat) + eps) + wd p)``; weight decay
   on every parameter, as optax's ``adamw`` without a mask;
-- LR and b1 of update i from ``cyclic_schedule`` at count i.
+- LR and b1 of update i from ``cyclic_schedule`` at count i, or held at
+  their base values (``cyclic=False``).
+
+Frozen parameters (``requires_grad=False``, which the detector sets from
+the config's freeze flags; ``optax.masked`` around the whole chain in JAX)
+are left out of the transformation altogether: ``init`` of named
+parameters keeps only those that require a gradient (the train step
+refuses a state that holds a frozen one), so the frozen ones get no
+update, no weight decay and no moments, and their gradients take no share
+of the clip's global norm. Unlike ``optax.masked``, which passes a masked-out
+leaf's gradient through as its update (so ``apply_updates`` adds it to a
+frozen parameter that still gets one), nothing here touches them.
 
 The moments live in an ``OptState`` updated in place; the updates run as
 multi-tensor (``torch._foreach_*``) ops.
@@ -21,7 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import (Callable, Iterable, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -56,11 +68,25 @@ def cyclic_schedule(base: float, total_steps: int,
 
 @dataclasses.dataclass
 class OptState:
-    """AdamW moments per parameter and the update count."""
+    """AdamW moments per updated parameter and the update count. ``names``
+    are the updated parameters' names in order when the state was made from
+    named parameters (``ClipAdamW.init``), else None (every parameter, in
+    the model's order)."""
 
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     count: int = 0
+    names: Optional[List[str]] = None
+
+    def params(self, model: torch.nn.Module) -> List[torch.Tensor]:
+        """The parameters of ``model`` this state updates, in its order."""
+        if self.names is None:
+            return list(model.parameters())
+        named = dict(model.named_parameters())
+        return [named[n] for n in self.names]
+
+
+Params = Union[Iterable[torch.Tensor], Iterable[Tuple[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +101,17 @@ class ClipAdamW:
     weight_decay: float = 0.01
     grad_clip: float = 0.1
 
-    def init(self, params: Sequence[torch.Tensor]) -> OptState:
+    def init(self, params: Params) -> OptState:
+        """Zero moments for ``params``: tensors (every one is updated), or
+        (name, tensor) pairs such as ``model.named_parameters()``, of which
+        those that require a gradient are kept and named in the state."""
+        params = list(params)
+        names = None
+        if params and isinstance(params[0], tuple):
+            names = [n for n, p in params if p.requires_grad]
+            params = [p for _, p in params if p.requires_grad]
         return OptState([torch.zeros_like(p) for p in params],
-                        [torch.zeros_like(p) for p in params])
+                        [torch.zeros_like(p) for p in params], names=names)
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
@@ -113,13 +147,23 @@ def make_optimizer(base_lr: float = 1e-4, weight_decay: float = 0.01,
                    momentum_target_ratio: Tuple[float, float] = (
                        0.8947368421052632, 1.0),
                    step_ratio_up: float = 0.4,
-                   base_b1: float = 0.9) -> ClipAdamW:
+                   base_b1: float = 0.9, cyclic: bool = True
+                   ) -> ClipAdamW:
     """The reference recipe (FocalFormer3D_L: AdamW lr 1e-4, wd 0.01, clip
     0.1, one-cycle LR (10, 1e-4) with the matching cyclic momentum on
-    beta1), as the JAX ``make_optimizer`` with its default ``cyclic``."""
-    return ClipAdamW(
-        lr=cyclic_schedule(base_lr, total_steps, lr_target_ratio,
-                           step_ratio_up),
-        b1=cyclic_schedule(base_b1, total_steps, momentum_target_ratio,
-                           step_ratio_up),
-        weight_decay=weight_decay, grad_clip=grad_clip)
+    beta1), as the JAX ``make_optimizer``. ``cyclic=False`` holds LR and b1
+    at ``base_lr`` and ``base_b1``. Frozen parameters are left out by
+    ``init`` (see the module's docstring)."""
+    if cyclic:
+        lr = cyclic_schedule(base_lr, total_steps, lr_target_ratio,
+                             step_ratio_up)
+        b1 = cyclic_schedule(base_b1, total_steps, momentum_target_ratio,
+                             step_ratio_up)
+    else:
+        def lr(_step):
+            return base_lr
+
+        def b1(_step):
+            return base_b1
+    return ClipAdamW(lr=lr, b1=b1, weight_decay=weight_decay,
+                     grad_clip=grad_clip)

@@ -1,14 +1,25 @@
-"""One training step of the detector.
+"""Training and eval steps of the detector.
 
-Port of ``focalformer3d_tpu/training/train_step.make_train_step``: the
-training voxelization (``preprocess_points(train=True)``), the forward in
-training mode (batch statistics, running averages updated as flax does,
+Port of ``focalformer3d_tpu/training/train_step.py``: ``make_train_step``
+(the training voxelization ``preprocess_points(train=True)``, the forward
+in training mode (batch statistics, running averages updated as flax does,
 the head's denoising GT groups and dropouts), the Hungarian-matched
 ``detection_loss``, the backward (on engine ``cuda``: K1 on the transposed
-rulebooks for dx and the dW kernel on the sparse levels), and the
-clipped, scheduled AdamW update (``training/optim.py``).
+rulebooks for dx and the dW kernel on the sparse levels), and the clipped,
+scheduled AdamW update of ``training/optim.py``), ``make_eval_step`` and the
+branch-freeze masks.
 
-Branch freezing, the training loop and checkpoints are not ported yet.
+Branch freezing follows the reference's ``requires_grad=False`` +
+``.eval()`` on the img / cam_lss / pts branches (detectors/
+focalformer3d.py:80-131): the detector runs a frozen point branch in
+inference mode and without autograd and builds its frozen parameters with
+``requires_grad=False`` (``models/detector.py``, whose ``trainable_mask``
+this module re-exports, as the JAX module has it); the optimizer state
+holds only the parameters that require a gradient, and the step refuses
+one that holds a frozen parameter, so none of them changes. The mask works
+on the reference state-dict keys (the port's parameter names), where the
+JAX mask works on flax paths; the two agree leaf for leaf through the
+weight bridge (``utils/jax_keys``).
 """
 from __future__ import annotations
 
@@ -17,9 +28,12 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..configs import DetectorConfig
-from ..models.detector import FocalFormer3D, preprocess_points
+from ..models.detector import (FocalFormer3D, preprocess_points,
+                               trainable_mask)
 from .losses import LossConfig, detection_loss
 from .optim import ClipAdamW, OptState
+
+__all__ = ["PHASES", "make_eval_step", "make_train_step", "trainable_mask"]
 
 PHASES = ("voxelize", "forward", "loss", "backward", "optimizer")
 
@@ -28,15 +42,17 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
     """Returns ``train_step(model, opt_state, batch, generator, mark=None)
     -> metrics``.
 
-    ``model`` is a ``FocalFormer3D`` of ``cfg`` whose parameters, in
-    ``model.parameters()`` order, ``opt_state`` (``tx.init``) was made for;
-    both are updated in place. ``batch`` holds points (B, N, 5),
-    points_mask (B, N), gt_boxes (B, G, 9), gt_labels (B, G) int32 and
-    gt_valid (B, G) on the model's device; ``generator`` (on that device)
-    draws the dropouts and the GT-group noise. ``mark(name)``, if given,
-    is called after each phase of ``PHASES``. Metrics are the loss terms
-    of ``detection_loss`` (detached), ``grad_norm`` (the global norm before
-    clipping, as the JAX step reports it) and ``assign_iterations``."""
+    ``model`` is a ``FocalFormer3D`` of ``cfg``; ``opt_state`` (``tx.init``
+    of its parameters or named parameters, which keeps those that require
+    a gradient) names the parameters it updates: a frozen one among them
+    raises. Both are updated in place. ``batch`` holds points (B, N, 5), points_mask (B, N), gt_boxes
+    (B, G, 9), gt_labels (B, G) int32 and gt_valid (B, G) on the model's
+    device; ``generator`` (on that device) draws the dropouts and the
+    GT-group noise. ``mark(name)``, if given, is called after each phase of
+    ``PHASES``. Metrics are the loss terms of ``detection_loss``
+    (detached), ``grad_norm`` (the global norm of the updated parameters'
+    gradients before clipping; the JAX step's metric also counts frozen
+    leaves' gradients) and ``assign_iterations``."""
 
     def train_step(model: FocalFormer3D, opt_state: OptState,
                    batch: Dict[str, torch.Tensor],
@@ -49,6 +65,11 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
             vox = preprocess_points(cfg, batch["points"],
                                     batch["points_mask"], train=True)
         mark("voxelize")
+        params = opt_state.params(model)
+        if not all(p.requires_grad for p in params):
+            raise ValueError("the optimizer state holds a parameter that "
+                             "the config's freeze flags freeze; make it "
+                             "with tx.init of this model's parameters")
         with torch.enable_grad():  # whatever the caller's grad mode
             out = model(vox, batch["gt_boxes"], batch["gt_labels"],
                         batch["gt_valid"], generator)
@@ -58,13 +79,16 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
                                            batch["gt_labels"],
                                            batch["gt_valid"])
             mark("loss")
-            params = list(model.parameters())
-            for p in params:
+            for p in model.parameters():
                 p.grad = None
-            loss.backward()
+            # only the updated parameters' gradients: a frozen parameter
+            # outside the no-grad branch (shared_conv_pts) requires none
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = g
         mark("backward")
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for p, g in zip(params, grads)]
         grad_norm = tx.update(grads, opt_state, params)
         mark("optimizer")
         metrics = {k: v.detach() if torch.is_tensor(v) else v
@@ -73,3 +97,18 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
         return metrics
 
     return train_step
+
+
+def make_eval_step(cfg: DetectorConfig, max_out: int = 200):
+    """Returns ``eval_step(model, batch) -> boxes``: the inference
+    voxelization, the forward in eval mode and ``get_bboxes``, without
+    autograd."""
+
+    @torch.no_grad()
+    def eval_step(model: FocalFormer3D, batch: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        model.eval()
+        vox = preprocess_points(cfg, batch["points"], batch["points_mask"])
+        return model.get_bboxes(model(vox), max_out)
+
+    return eval_step

@@ -21,8 +21,10 @@ A and B's ``gather_taps`` against their plain versions (1e-3), B's
 production K1 bit for bit and in its other modes exactly, and every probe
 module at its small size. The redesigned K1 (persistent blocks, hit masks,
 pipelined gather, wgmma and mma.sync routes) and kernel A (both routes) have
-their own grids of widths, tap counts, batch sizes and ragged sizes at the
-end of the file.
+their own grids of widths, tap counts, batch sizes and ragged sizes near the
+end of the file; last come branch freezing (``freeze_pts`` launches no dx
+or dW and keeps the point branch's bits) and a checkpoint round trip of a
+card model.
 """
 import dataclasses
 
@@ -1027,3 +1029,76 @@ def test_k3_and_wgrad_reject_dtypes_and_devices(dev):
         k1.conv_wgrad(f, cot, rules.cpu())
     assert torch.equal(k1.conv_wgrad(f, cot, rules),
                        torch.zeros(27, 16, 16, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# branch freezing and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_freeze_setup(dev, freeze_pts):
+    from focalformer3d_tpu_torch.training import optim
+
+    c = get_config("Tiny_L")
+    cfg = dataclasses.replace(c["model"], sparse_engine="cuda",
+                              freeze_pts=freeze_pts)
+    m = tdet.FocalFormer3D(cfg)
+    m.load_state_dict(make_fake_state_dict(m, 2), strict=True)
+    m = m.to(dev)
+    tx = optim.make_optimizer(total_steps=10)
+    state = tx.init(m.named_parameters())
+    batch = synthetic.make_batch(
+        np.random.RandomState(5), batch_size=2, n_points=2000, n_boxes=4,
+        max_gts=8, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    return cfg, c["loss"], tx, m, state, b
+
+
+def test_freeze_pts_step_on_card(dev):
+    """Tiny_L with ``freeze_pts`` on engine ``cuda``: two steps launch K1
+    forward at the eval boundary's 11 convs per step and no dx or dW, and
+    leave every point-branch parameter and batch-norm statistic (with
+    ``imgpts_neck.shared_conv_pts``) bit-identical while the head moves."""
+    from focalformer3d_tpu_torch.training import train_step
+
+    cfg, lcfg, tx, m, state, b = _tiny_freeze_setup(dev, True)
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    step = train_step.make_train_step(cfg, lcfg, tx)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    k1.reset_launch_count()
+    for _ in range(2):
+        met = step(m, state, b, gen)
+        assert all(np.isfinite(float(v)) for v in met.values())
+    assert [k1.launch_count(k) for k in ("forward", "dx", "wgrad")] == \
+        [22, 0, 0]
+    after = m.state_dict()
+    pts = ("pts_middle_encoder.", "pts_backbone.", "pts_neck.",
+           "imgpts_neck.shared_conv_pts.")
+    frozen = [k for k in after if k.startswith(pts)]
+    assert any(k.endswith("running_var") for k in frozen)
+    for k in frozen:
+        assert torch.equal(after[k], before[k]), k
+    head = [k for k in after if k.startswith("pts_bbox_head.")
+            and not torch.equal(after[k], before[k])]
+    assert len(head) > 50
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A card model and its optimizer state after one step, saved and
+    restored into a fresh card model: parameters, buffers, moments and the
+    step bit for bit, all on the card."""
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+    from focalformer3d_tpu_torch.training import train_step
+
+    cfg, lcfg, tx, m, state, b = _tiny_freeze_setup(dev, False)
+    train_step.make_train_step(cfg, lcfg, tx)(m, state, b, None)
+    ckpt.save_checkpoint(str(tmp_path), m, state, epoch=1)
+    _, _, _, m2, s2, _ = _tiny_freeze_setup(dev, False)
+    assert ckpt.auto_resume(str(tmp_path), m2, s2) == 1
+    assert s2.count == state.count == 1
+    for k, v in m.state_dict().items():
+        got = m2.state_dict()[k]
+        assert got.device == v.device and torch.equal(got, v), k
+    for a, c in zip(s2.mu + s2.nu, state.mu + state.nu):
+        assert a.device.type == "cuda" and torch.equal(a, c)

@@ -3,8 +3,8 @@
 ``test_no_jax_imports`` walks the syntax tree of every module of
 ``focalformer3d_tpu_torch/`` and of ``chip_smoke.py`` (imports inside
 functions included) and fails on any import of ``jax``, ``jaxlib``,
-``flax``, ``optax`` or ``focalformer3d_tpu``. The port's copy of the
-reference checkpoint's key inventory and key mapping
+``flax``, ``optax``, ``orbax`` or ``focalformer3d_tpu``. The port's copy
+of the reference checkpoint's key inventory and key mapping
 (``utils/jax_keys.py``) is held here against the JAX package's originals:
 the same keys, shapes and flax paths, and transforms that rearrange an
 index array the same way.
@@ -22,7 +22,7 @@ from focalformer3d_tpu_torch import configs as tconfigs
 from focalformer3d_tpu_torch.utils import jax_keys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "flax", "optax", "focalformer3d_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")
 
 
 def _port_files():
@@ -53,6 +53,16 @@ def test_no_jax_imports():
         bad += [f"{f.relative_to(REPO)}:{line} imports {root}"
                 for line, root in _imported_roots(tree) if root in BANNED]
     assert not bad, bad
+
+
+def test_walk_covers_the_entry_points_and_training_modules():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("tools/train.py", "tools/benchmark.py", "training/loop.py",
+                "training/checkpoint.py", "training/train_step.py",
+                "training/optim.py", "data/prefetch.py", "utils/profiler.py",
+                "configs.py"):
+        assert pkg + mod in files, mod
 
 
 def test_guard_sees_nested_imports():
