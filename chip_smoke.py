@@ -89,7 +89,22 @@ Phases (any failure raises and exits non-zero):
    variants); each prints one JSON line, which must parse. K1 (forward,
    dx, dW), K2 and K3 launches are counted from zero before the phase and
    must all be non-zero after it. Prints its seconds.
-10. probes: the nine TPU probes P1-P9 of ``tools/micro_*.py`` as their
+10. dataset: ``write_nuscenes`` writes a nuScenes-format directory (6
+   samples, each a 30k-point key frame of ``data/synthetic`` and 9 sweeps
+   of ~29k points seen from a moved sensor, ~290k points a sample, the
+   size of a real 10-sweep sample; the infos of mmdet3d v0.17 with the
+   calibration of a submission), the port's ``create_gt_database`` its
+   GT database. The host ms per sample of ``get_sample`` (train pipeline
+   with GT-paste) and ``collate``. Then the train CLI on FocalFormer3D_L,
+   batch 2, 2 epochs of 2 steps, with GT-paste and ``Fading`` (which takes
+   ``ObjectSample`` out before the second epoch): finite losses, s/it per
+   step, ``epoch_2`` saved, K1 forward / dx / dW 64 / 60 / 64 launches, 10
+   native point loads (the first batch, drawn as the JAX CLI draws it, and
+   four steps). Then the test CLI on that checkpoint over the 6 samples on
+   ``cuda``, ``cuda_mxu`` and ``cuda_zrun``: samples/s, the metric keys,
+   6 tokens in the submission with at most 500 finite boxes each, and
+   exactly the launches of 6 scans (K1 66; K1 126 + K2 48; K3 66).
+11. probes: the nine TPU probes P1-P9 of ``tools/micro_*.py`` as their
    ports in ``focalformer3d_tpu_torch/tools/`` (``run(device, "full")``,
    the originals' shapes, each once), one line per probe. Every kernel
    case is held against its plain version: kernel A (``micro_dot``) and
@@ -106,7 +121,8 @@ Phases (any failure raises and exits non-zero):
    of its byte bound.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths
-(``launches_by_path``; ``entry_points`` is phase 9's),
+(``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
+phase 10's),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -163,6 +179,17 @@ LAUNCHES_PER_SCAN = {"cuda": (11, 0, 0), "cuda_mxu": (21, 8, 0),
 # L3): 16 sparse convs (conv_input; per level L0-L2 four subm convs and the
 # strided one); conv_input's voxel features need no dx
 TRAIN_LAUNCHES_PER_STEP = {"forward": 16, "dx": 15, "wgrad": 16}
+# phase 10: a written nuScenes directory of samples the size of a real
+# 10-sweep one (a 30k-point key frame + 9 sweeps, ~290k points)
+DATASET_SEED = 20
+DATASET_SAMPLES = 6
+DATASET_POINTS = 30_000
+DATASET_SWEEPS = 9
+# model-path kernel launches of the test CLI over the samples, per engine
+DATASET_TEST_LAUNCHES = {
+    engine: {k: n * DATASET_SAMPLES for k, n in zip(
+        ("sparse_conv", "plan_rules", "sparse_conv_zrun"), counts) if n}
+    for engine, counts in LAUNCHES_PER_SCAN.items()}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # dense, published; "bf16 split": an f32 operand split into two bf16
 # parts, two bf16 products per multiply-add (the dW kernel)
@@ -258,6 +285,85 @@ def _scan(cfg, seed, device):
             torch.from_numpy(batch["points_mask"]).to(device))
 
 
+def _quat_z(yaw):
+    """(w, x, y, z) of a rotation by ``yaw`` about z."""
+    return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+
+def write_nuscenes(root, *, seed, samples, points, sweeps, pc_range,
+                   classes, boxes=12):
+    """Write a nuScenes-format directory (mmdet3d v0.17 infos) from the
+    port's synthetic scenes: per sample a radial key frame of ``points``
+    points (``data/synthetic.make_scene``) and ``sweeps`` sweeps, each
+    about 97% of the key frame's points, jittered and seen from a sensor
+    that moved (a small yaw and a shift, given as ``sensor2lidar_*``).
+    The infos carry ``gt_boxes`` (bottom-centred, 7 values),
+    ``gt_names``, ``gt_velocity``, ``num_lidar_pts`` (key-frame points in
+    the box), ``valid_flag``, ``timestamp`` (us), ``sweeps`` and the
+    ``lidar2ego_*`` / ``ego2global_*`` calibration of a submission; one
+    pickle is written as both ``nuscenes_infos_train.pkl`` and
+    ``nuscenes_infos_val.pkl``. Returns the train infos' path."""
+    import pathlib
+    import pickle
+
+    from focalformer3d_tpu_torch.data import synthetic
+
+    root = pathlib.Path(root)
+    (root / "samples").mkdir(parents=True, exist_ok=True)
+    (root / "sweeps").mkdir(exist_ok=True)
+    rng = np.random.RandomState(seed)
+    infos = []
+    for i in range(samples):
+        pts, gt, labels = synthetic.make_scene(
+            rng, n_points=points, n_boxes=boxes, num_classes=len(classes),
+            pc_range=pc_range, mode="radial")
+        ts = 1_600_000_000_000_000 + i * 500_000
+        lidar_path = root / "samples" / f"lidar_{i:04d}.bin"
+        pts.tofile(lidar_path)
+        sweep_infos = []
+        for j in range(sweeps):
+            yaw = rng.uniform(-0.02, 0.02)
+            c, s = math.cos(yaw), math.sin(yaw)
+            rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+            shift = rng.uniform(-0.25, 0.25, 3) * (j + 1)
+            sp = pts[rng.uniform(size=len(pts)) < 0.97].copy()
+            sp[:, :3] += rng.normal(0.0, 0.02, (len(sp), 3))
+            # lidar = rot @ sensor + shift  =>  sensor = rot^T (lidar - shift)
+            sp[:, :3] = (sp[:, :3] - shift) @ rot
+            path = root / "sweeps" / f"lidar_{i:04d}_{j}.bin"
+            sp.astype(np.float32).tofile(path)
+            sweep_infos.append({
+                "data_path": str(path), "sensor2lidar_rotation": rot,
+                "sensor2lidar_translation": shift,
+                "timestamp": ts - (j + 1) * 50_000})
+        # key-frame points inside each bottom-centred box
+        d = pts[:, None, :2] - gt[None, :, :2]
+        cy, sy = np.cos(gt[:, 6]), np.sin(gt[:, 6])
+        lx = d[..., 0] * cy + d[..., 1] * sy
+        ly = -d[..., 0] * sy + d[..., 1] * cy
+        dz = pts[:, None, 2] - gt[None, :, 2]
+        inside = ((np.abs(lx) <= gt[:, 3] / 2) & (np.abs(ly) <= gt[:, 4] / 2)
+                  & (dz >= 0) & (dz <= gt[:, 5]))
+        n_in = inside.sum(0).astype(np.int64)
+        infos.append({
+            "token": f"sample_{i:04d}", "lidar_path": str(lidar_path),
+            "timestamp": ts, "sweeps": sweep_infos,
+            "gt_boxes": gt[:, :7].copy(),
+            "gt_names": np.array([classes[k] for k in labels], object),
+            "gt_velocity": gt[:, 7:9].astype(np.float64),
+            "num_lidar_pts": n_in, "valid_flag": n_in > 0,
+            "lidar2ego_rotation": _quat_z(0.01),
+            "lidar2ego_translation": [0.94, 0.0, 1.84],
+            "ego2global_rotation": _quat_z(0.3 + 0.05 * i),
+            "ego2global_translation": [600.0 + 2.0 * i, 1600.0, 0.0]})
+    ann = root / "nuscenes_infos_train.pkl"
+    for name in ("nuscenes_infos_train.pkl", "nuscenes_infos_val.pkl"):
+        with open(root / name, "wb") as f:
+            pickle.dump({"infos": infos, "metadata": {"version": "synthetic"}},
+                        f)
+    return str(ann)
+
+
 def _median_ms(fn, reps=REPS):
     fn()  # warm-up
     times = []
@@ -284,7 +390,7 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    return torch.device("cuda", 0)
+    return torch.device("cuda", 0), smi
 
 
 def phase_build():
@@ -1031,7 +1137,7 @@ def _model_path_launches():
             "sparse_conv_zrun": k3.launch_count()}
 
 
-def _phase_train_cli(work):
+def _phase_train_cli(work, card):
     from focalformer3d_tpu_torch.tools import train as train_cli
     from focalformer3d_tpu_torch.training import checkpoint as ckpt
 
@@ -1050,6 +1156,7 @@ def _phase_train_cli(work):
     with open(f"{work}/train_log.jsonl") as fh:
         recs = [json.loads(x) for x in fh]
     losses = [r["loss"] for r in recs if r["mode"] == "train"]
+    secs = [r["time"] for r in recs if r["mode"] == "train"]
     if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"train CLI: losses {losses}")
     if ckpt.list_epochs(work) != [2] or run.opt_state.count != 4:
@@ -1068,8 +1175,9 @@ def _phase_train_cli(work):
              if not torch.equal(a, b)]
     if diff:
         raise RuntimeError(f"train CLI: resumed state differs: {diff[:5]}")
-    print(f"entry points: train CLI losses " + ", ".join(
-        f"{x:.4f}" for x in losses) + "; epoch_2 kept, epoch_1 pruned; "
+    print(f"entry points ({card}): train CLI losses " + ", ".join(
+        f"{x:.4f}" for x in losses) + "; s/it (synthetic) " + ", ".join(
+        f"{x:.3f}" for x in secs) + "; epoch_2 kept, epoch_1 pruned; "
         f"resumed at epoch 2, step 4, {len(ref)} tensors and the moments "
         "bit for bit; TF32 off after the CLI set its precision",
         flush=True)
@@ -1122,7 +1230,7 @@ def _phase_freeze(cfg, batch, device):
           f"K1 forward / dx / dW per step {per_step}", flush=True)
 
 
-def phase_entry_points(cfg, batch, device):
+def phase_entry_points(cfg, batch, device, card):
     """The train and benchmark CLIs and a frozen-branch run; returns the
     model-path kernels' launches, counted from zero just before the phase
     and read just after."""
@@ -1134,7 +1242,7 @@ def phase_entry_points(cfg, batch, device):
     for k in _wrappers():
         k.reset_launch_count()
     with tempfile.TemporaryDirectory() as work:
-        _phase_train_cli(work)
+        _phase_train_cli(work, card)
     torch.cuda.empty_cache()
     _phase_freeze(cfg, batch, device)
     torch.cuda.empty_cache()
@@ -1155,6 +1263,161 @@ def phase_entry_points(cfg, batch, device):
         raise RuntimeError(f"entry points: a kernel was not launched: "
                            f"{launches}")
     print(f"entry points: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _host_ms(cfg_all, root):
+    """Host ms per sample of the train CLI's data path
+    (``tools.train.nuscenes_batches``: ``get_sample`` through the train
+    pipeline with GT-paste, then ``collate`` at batch 2), over every sample
+    of the written directory."""
+    from focalformer3d_tpu_torch.data import nuscenes as nusc
+    from focalformer3d_tpu_torch.tools import train as train_cli
+
+    classes = cfg_all["class_names"]
+    cfg = cfg_all["model"]
+    rng = np.random.RandomState(0)
+    _, _, ds = train_cli.nuscenes_batches(
+        train_cli.parse_args(["FocalFormer3D_L", "--data-root", root]),
+        cfg_all, 2, rng)
+    get_ms, collate_ms, n_pts, n_gts = [], [], [], []
+    for i in range(0, len(ds), 2):
+        t0 = time.perf_counter()
+        samples = [ds.get_sample(j, rng) for j in (i, i + 1)]
+        t1 = time.perf_counter()
+        nusc.collate(samples, classes, max_points=300000,
+                     max_gts=cfg.decoder.max_gts // 4)
+        t2 = time.perf_counter()
+        get_ms.append((t1 - t0) * 1e3 / 2)
+        collate_ms.append((t2 - t1) * 1e3 / 2)
+        n_pts += [len(s["points"]) for s in samples]
+        n_gts += [len(s["gt_boxes"]) for s in samples]
+    return get_ms, collate_ms, n_pts, n_gts
+
+
+def _check_submission(path, n_samples, engine):
+    with open(path) as fh:
+        sub = json.load(fh)["results"]
+    if len(sub) != n_samples:
+        raise RuntimeError(f"test CLI {engine}: {len(sub)} tokens in the "
+                           f"submission, expected {n_samples}")
+    for token, anns in sub.items():
+        vals = [x for a in anns for k in ("translation", "size", "rotation",
+                                          "velocity") for x in a[k]]
+        vals += [a["detection_score"] for a in anns]
+        if len(anns) > 500 or not all(math.isfinite(x) for x in vals):
+            raise RuntimeError(f"test CLI {engine}: {token}: {len(anns)} "
+                               "boxes or non-finite values")
+    return sum(len(a) for a in sub.values())
+
+
+def phase_dataset(card):
+    """The train and test CLIs on a written nuScenes-format directory;
+    returns the model-path kernels' launches, counted from zero just
+    before the train CLI and read just after the last test CLI."""
+    import tempfile
+
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.data import native
+    from focalformer3d_tpu_torch.tools import create_data
+    from focalformer3d_tpu_torch.tools import test as test_cli
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    cfg_all = get_config("FocalFormer3D_L")
+    k1, _, _ = _wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/nuscenes"
+        t0 = time.perf_counter()
+        ann = write_nuscenes(
+            root, seed=DATASET_SEED, samples=DATASET_SAMPLES,
+            points=DATASET_POINTS, sweeps=DATASET_SWEEPS,
+            pc_range=cfg_all["model"].voxel.point_cloud_range,
+            classes=cfg_all["class_names"])
+        t1 = time.perf_counter()
+        create_data.create_gt_database(ann, root, root)
+        print(f"dataset ({card}): wrote {DATASET_SAMPLES} samples of a "
+              f"{DATASET_POINTS}-point key frame and {DATASET_SWEEPS} sweeps "
+              f"in {t1 - t0:.1f} s, GT database in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        get_ms, collate_ms, n_pts, n_gts = _host_ms(cfg_all, root)
+        print(f"dataset host ms per sample ({card}; train pipeline with "
+              f"GT-paste, batch 2): get_sample " + ", ".join(
+                  f"{x:.1f}" for x in get_ms) + "; collate " + ", ".join(
+                  f"{x:.1f}" for x in collate_ms) + f"; points per sample "
+              f"{min(n_pts)}-{max(n_pts)}, GT boxes {min(n_gts)}-"
+              f"{max(n_gts)}", flush=True)
+
+        work = f"{tmp}/work"
+        for k in _wrappers():
+            k.reset_launch_count()
+        native.reset_call_count()
+        run, _ = _run_cli(train_cli.main, [
+            "FocalFormer3D_L", "--data-root", root, "--epochs", "2",
+            "--iters-per-epoch", "2", "--batch-size", str(TRAIN_BATCH),
+            "--log-interval", "1", "--work-dir", work, "--no-tensorboard"])
+        with open(f"{work}/train_log.jsonl") as fh:
+            recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
+        losses = [r["loss"] for r in recs]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"dataset train CLI: losses {losses}")
+        if 2 not in ckpt.list_epochs(work):
+            raise RuntimeError(f"dataset train CLI: epochs "
+                               f"{ckpt.list_epochs(work)} saved")
+        launches = {kind: k1.launch_count(kind)
+                    for kind in TRAIN_LAUNCHES_PER_STEP}
+        want = {kind: 4 * n for kind, n in TRAIN_LAUNCHES_PER_STEP.items()}
+        if launches != want:
+            raise RuntimeError(f"dataset train CLI: K1 forward/dx/dW "
+                               f"{launches}, expected {want}")
+        # the first batch (drawn as JAX draws it to initialise) + 4 steps
+        loads = native.call_count()
+        if loads != 5 * TRAIN_BATCH:
+            raise RuntimeError(f"dataset train CLI: {loads} native loads, "
+                               f"expected {5 * TRAIN_BATCH}")
+        if any(type(t).__name__ == "ObjectSample"
+               for t in run.pipeline.transforms):
+            raise RuntimeError("dataset train CLI: Fading left ObjectSample")
+        print(f"dataset train CLI ({card}; FocalFormer3D_L float32, batch "
+              f"{TRAIN_BATCH}, GT-paste, Fading at epoch 1): losses "
+              + ", ".join(f"{x:.4f}" for x in losses) + "; s/it "
+              + ", ".join(f"{r['time']:.3f}" for r in recs)
+              + f"; epoch_2 saved; K1 forward/dx/dW {launches}; {loads} "
+              "native loads; ObjectSample gone after Fading", flush=True)
+        torch.cuda.empty_cache()
+
+        for engine, want in DATASET_TEST_LAUNCHES.items():
+            before = _model_path_launches()
+            out = f"{tmp}/sub_{engine}.json"
+            res, rec = _run_cli(test_cli.main, [
+                "FocalFormer3D_L", "--data-root", root, "--checkpoint",
+                f"{work}/epoch_2", "--limit", str(DATASET_SAMPLES),
+                "--engine", engine, "--out", out, "--tracking-out",
+                f"{tmp}/trk_{engine}.json"])
+            got = {k: n - before[k] for k, n in _model_path_launches().items()}
+            full = {k: want.get(k, 0) for k in got}
+            if got != full:
+                raise RuntimeError(f"dataset test CLI {engine}: launches "
+                                   f"{got}, expected {full}")
+            keys = {"mAP", "mATE", "mASE", "mAOE", "mAVE", "nds_no_attr"}
+            keys |= {f"AP_{c}" for c in cfg_all["class_names"]}
+            if rec is None or set(rec) != keys:
+                raise RuntimeError(f"dataset test CLI {engine}: metrics "
+                                   f"{rec}")
+            n_boxes = _check_submission(out, DATASET_SAMPLES, engine)
+            steady = (res.samples - 1) / (res.seconds - res.seconds_first)
+            print(f"dataset test CLI {engine} ({card}): "
+                  f"{res.samples / res.seconds:.3f} samples/s ("
+                  f"{res.samples} samples in {res.seconds:.2f} s, the first "
+                  f"in {res.seconds_first:.2f} s; after it {steady:.3f} "
+                  f"samples/s); {n_boxes} boxes in the submission, all "
+                  f"finite; mAP {rec['mAP']}, nds_no_attr "
+                  f"{rec['nds_no_attr']}; launches {got}", flush=True)
+            torch.cuda.empty_cache()
+    launches = _model_path_launches()
+    print(f"dataset ({card}): {time.perf_counter() - t_phase:.1f} s; launches "
           f"{launches}", flush=True)
     return launches
 
@@ -1256,7 +1519,7 @@ def phase_probes(device):
 
 
 def main():
-    device = phase_device()
+    device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
     from focalformer3d_tpu_torch.models.detector import preprocess_points
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
@@ -1294,8 +1557,10 @@ def main():
     grad = phase_k1_grad(tcfg, batch, device)
     train = phase_train(tcfg, batch, device)
     torch.cuda.empty_cache()
-    entry = phase_entry_points(tcfg, batch, device)
+    entry = phase_entry_points(tcfg, batch, device, card)
     del batch
+    torch.cuda.empty_cache()
+    dataset = phase_dataset(card)
     torch.cuda.empty_cache()
     probes, probe_launches = phase_probes(device)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
@@ -1315,6 +1580,7 @@ def main():
     ]
     for name, _stats, by in rows:
         by["entry_points"] = entry[name]
+        by["dataset"] = dataset[name]
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

@@ -386,3 +386,8 @@ def get_config(name: str):
             f"config {name!r} is not ported; available: {sorted(_REGISTRY)}"
         )
     return _REGISTRY[name]()
+
+
+def available() -> list:
+    """The names ``get_config`` resolves."""
+    return sorted(_REGISTRY)

@@ -1,1 +1,2 @@
-"""Synthetic LiDAR scenes for tests, benchmarks and the smoke run."""
+"""Host-side data: synthetic LiDAR scenes, the nuScenes reader, transforms
+and pipelines, the native point loader and the batch prefetcher."""

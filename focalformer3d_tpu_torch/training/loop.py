@@ -21,9 +21,10 @@ Randomness: JAX folds the step into one key per run
 would. Here the step's ``torch.Generator`` is re-seeded from ``(seed + 1,
 step)`` before every step (``step_seed``) to the same end.
 
-The JAX loop's ``Fading`` hook, which drops ``ObjectSample`` from a dataset
-pipeline at ``fade_epoch``, comes with the dataset layer: the synthetic
-stream has no pipeline.
+Hooks: before each epoch the loop calls ``h.before_train_epoch(epoch,
+h.pipeline)`` of every hook, as the JAX loop does; ``Fading`` (the
+reference's core/hook/fading.py:6-16) drops the ``ObjectSample`` GT-paste
+stage from a dataset pipeline from ``fade_epoch`` on.
 """
 from __future__ import annotations
 
@@ -42,6 +43,22 @@ from .optim import OptState
 # metrics of the port's step with no counterpart in the JAX step's (the
 # auction's loop count): kept out of the log records, whose keys are JAX's
 NOT_LOGGED = ("assign_iterations",)
+
+
+class Fading:
+    """Removes the ObjectSample stage from a Compose at fade_epoch."""
+
+    def __init__(self, fade_epoch: int):
+        self.fade_epoch = fade_epoch
+
+    def before_train_epoch(self, epoch: int, pipeline) -> None:
+        if pipeline is None or epoch < self.fade_epoch:
+            return
+        from ..data.nuscenes import ObjectSample
+
+        pipeline.transforms = [
+            t for t in pipeline.transforms if not isinstance(t, ObjectSample)
+        ]
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -72,6 +89,7 @@ def run_training(
     keep_last: Optional[int] = None,
     log_interval: int = 50,
     log_fn: Callable[[str], None] = print,
+    hooks: Iterable = (),
     json_log_path: Optional[str] = None,
     save_checkpoints: bool = True,
     tensorboard_dir: Optional[str] = None,
@@ -79,7 +97,8 @@ def run_training(
     """Train ``model`` and ``opt_state`` in place from ``start_epoch`` to
     ``epochs``. ``train_step(model, opt_state, batch, generator)`` is
     ``train_step.make_train_step``'s; ``batch_iter_fn(epoch)`` yields host
-    (numpy) batches."""
+    (numpy) batches; each of ``hooks`` is called before every epoch
+    (``Fading``)."""
     gen = torch.Generator(device=device)
     jlog = None
     if json_log_path:
@@ -108,6 +127,8 @@ def run_training(
 
     try:
         for epoch in range(start_epoch, epochs):
+            for h in hooks:
+                h.before_train_epoch(epoch, getattr(h, "pipeline", None))
             t_ep = time.time()
             n_iter = 0
             t_it = time.time()

@@ -22,9 +22,10 @@ production K1 bit for bit and in its other modes exactly, and every probe
 module at its small size. The redesigned K1 (persistent blocks, hit masks,
 pipelined gather, wgmma and mma.sync routes) and kernel A (both routes) have
 their own grids of widths, tap counts, batch sizes and ragged sizes near the
-end of the file; last come branch freezing (``freeze_pts`` launches no dx
+end of the file; then come branch freezing (``freeze_pts`` launches no dx
 or dW and keeps the point branch's bits) and a checkpoint round trip of a
-card model.
+card model; last, the test CLI on a written nuScenes-format directory on
+the card against the same run on the CPU's plain engine (1e-2).
 """
 import dataclasses
 
@@ -1102,3 +1103,61 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
         assert got.device == v.device and torch.equal(got, v), k
     for a, c in zip(s2.mu + s2.nu, state.mu + state.nu):
         assert a.device.type == "cuda" and torch.equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# the test CLI on a written nuScenes-format directory
+# ---------------------------------------------------------------------------
+
+def _top_boxes_close(got, ref, k=50, tol=1e-2):
+    """The ``k`` best-scored boxes of ``ref`` (the CPU run) each have a box
+    of the same label in ``got`` (the card's ``k + 10`` best) within
+    ``tol`` of the scale of ``ref``'s boxes (yaw as its wrapped
+    difference, in radians against pi), and the ``k`` best scores agree
+    within ``tol`` of the best score. Near-ties may swap order, so boxes
+    are paired by their nearest BEV centre, not by rank."""
+    top = np.argsort(-ref["scores"])[:k]
+    cand = np.argsort(-got["scores"])[:k + 10]
+    scores = np.sort(ref["scores"])[::-1][:k]
+    np.testing.assert_allclose(np.sort(got["scores"])[::-1][:k], scores,
+                               rtol=0, atol=tol * scores[0])
+    cols = [0, 1, 2, 3, 4, 5, 7, 8]
+    scale = np.abs(ref["boxes"][top][:, cols]).max()
+    for i in top:
+        same = cand[got["labels"][cand] == ref["labels"][i]]
+        d = np.linalg.norm(got["boxes"][same, :2] - ref["boxes"][i, :2],
+                           axis=1)
+        j = same[np.argmin(d)]
+        assert np.abs(got["boxes"][j, cols] - ref["boxes"][i, cols]).max() \
+            <= tol * scale, (i, got["boxes"][j], ref["boxes"][i])
+        dyaw = (got["boxes"][j, 6] - ref["boxes"][i, 6] + np.pi) \
+            % (2 * np.pi) - np.pi
+        assert abs(dyaw) <= tol * np.pi, (i, dyaw)
+
+
+def test_test_cli_on_card_matches_cpu(dev, tmp_path):
+    """The test CLI (Tiny_L, random weights from a seed) on a directory of
+    ``chip_smoke.write_nuscenes``: engine ``cuda`` on the card (K1, 11
+    launches a sample) against ``--device cpu`` on the plain engine, the
+    best 50 boxes of each sample (all 32 that Tiny_L keeps) within 1e-2
+    (``_top_boxes_close``)."""
+    import chip_smoke
+    from focalformer3d_tpu_torch.tools import test as test_cli
+
+    cfg_all = get_config("Tiny_L")
+    chip_smoke.write_nuscenes(
+        tmp_path, seed=3, samples=2, points=1500, sweeps=2,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], boxes=4)
+    runs = {}
+    for device, engine in (("cuda", "cuda"), ("cpu", "plain")):
+        k1.reset_launch_count()
+        runs[device] = test_cli.main([
+            "Tiny_L", "--data-root", str(tmp_path), "--device", device,
+            "--engine", engine, "--limit", "2", "--max-points", "6000",
+            "--seed", "3"])
+        assert k1.launch_count() == (22 if device == "cuda" else 0)
+    assert set(runs["cuda"].predictions) == set(runs["cpu"].predictions)
+    for tok, ref in runs["cpu"].predictions.items():
+        assert len(ref["scores"]) >= 30  # Tiny_L keeps 32
+        _top_boxes_close(runs["cuda"].predictions[tok], ref)

@@ -12,8 +12,9 @@ Tiny_L on the CPU (engine ``plain``), 2 epochs x 2 iterations:
   step's generator is re-seeded from the run's seed and the step);
 - ``make_optimizer(cyclic=False)`` holds LR and b1 constant;
 - ``tools/train.py --synthetic --device cpu`` trains, saves, prunes and
-  auto-resumes; without ``--synthetic``, or with ``--data-root``, it
-  raises (the dataset layer is not ported); the CLIs turn TF32 off;
+  auto-resumes; without ``--synthetic`` it reads a nuScenes infos pkl and
+  raises, naming it, where there is none (the dataset branch itself:
+  ``tests/test_torch_dataset_cli.py``); the CLIs turn TF32 off;
 - the prefetcher passes the cases of ``tests/test_data.py``; the
   profiler's timer and stage clock time on the host clock;
 - ``configs.get_config`` gives JAX's loss config, training recipe, class
@@ -236,12 +237,16 @@ def test_train_cli_synthetic(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--data-root", "data/nuscenes"],
-    ["--synthetic", "--data-root", "data/nuscenes"]])
+    [], ["--data-root", "no/such/nuscenes"],
+    ["--ann-file", "no/such/nuscenes_infos_train.pkl"]])
 def test_train_cli_dataset_branches_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="dataset layer"):
+    """Without ``--synthetic`` the CLI reads the infos pkl of
+    ``--data-root`` (default ``data/nuscenes``) or ``--ann-file``; where
+    there is none it raises, naming the file, and writes nothing."""
+    with pytest.raises(FileNotFoundError, match="nuscenes_infos_train.pkl"):
         train_cli.main(["Tiny_L", "--device", "cpu", "--work-dir",
                         str(tmp_path), *extra])
+    assert not list(tmp_path.iterdir())
 
 
 def test_train_cli_needs_a_card_unless_cpu_is_asked_for(monkeypatch,
