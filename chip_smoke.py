@@ -119,10 +119,35 @@ Phases (any failure raises and exits non-zero):
    names the route its kernel took. One line per P9 level gives C's time,
    the strided view copy's, their ratio, C's route and tile, and C's share
    of its byte bound.
+12. variants and TTA (after the probes; phase 10's directory and
+   checkpoint): DeformFormer3D_L at full width and depth (bf16, random
+   weights from seed 0; FocalFormer3D_L's encoder with the single-stage
+   head) answers phase 4's three scans on each engine, and
+   DeformFormer3D_L_dynamic (dynamic voxelization) on ``cuda``: finite
+   boxes, 1-200 kept a scan (200 queries, so a box decoded out of range
+   leaves fewer), and phase 4's launches per scan exactly. Its
+   ``dynamic_voxelize`` at the eval cap on scan 0 against the same function
+   on the CPU: coords and mask bit for bit, features within 2 * 2**-23 *
+   sum|x| per voxel. One float32 training step of DeformFormer3D_L at
+   batch 2 on ``cuda``: finite losses, K1 forward / dx / dW 16 / 15 / 16.
+   Then the test CLI with ``--tta`` (the double flip, 4 passes a sample)
+   over phase 10's 6 samples and checkpoint, on ``cuda`` with
+   ``--tta-cache-dir A`` (K1 264 launches) and on ``cuda_mxu`` with
+   ``--tta-cache-dir B`` (K1 504, K2 192), then ``--tta-ensemble A B`` (no
+   model kernel launched): samples/s, the merge's ms a sample, the metric
+   keys, 6 tokens with at most 500 finite boxes each. Last, one sample's
+   merge of 4 x 600 candidates on the card against the CPU (the first of
+   the cached samples where no valid pair's IoU lies within 1e-5 of the
+   0.1 or 0.65 threshold): mask, labels and scores equal, boxes within 1e-5
+   of each value's magnitude; and the merge's split on the card: the IoU
+   matrix (CUDA events; beside it the same intersections with every pair
+   clipped, not only the pairs near enough to overlap), the greedy NMS
+   pass (host clock: one copy of the suppression matrix, then numpy) and
+   the whole merge.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
-phase 10's),
+phase 10's, ``variants`` and ``tta`` phase 12's),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -158,6 +183,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -190,6 +216,17 @@ DATASET_TEST_LAUNCHES = {
     engine: {k: n * DATASET_SAMPLES for k, n in zip(
         ("sparse_conv", "plan_rules", "sparse_conv_zrun"), counts) if n}
     for engine, counts in LAUNCHES_PER_SCAN.items()}
+# phase 12: the test CLI's TTA runs the double flip (tta_augs({})), 4 eval
+# passes a sample; the merge on the card is held to the CPU's on the first
+# sample with no valid pair within MERGE_MARGIN of an IoU threshold
+TTA_PASSES = 4
+TTA_TEST_LAUNCHES = {
+    engine: {k: n * TTA_PASSES for k, n in DATASET_TEST_LAUNCHES[engine]
+             .items()} for engine in ("cuda", "cuda_mxu")}
+MERGE_TOL = 1e-5
+MERGE_MARGIN = 1e-5
+MODEL_KERNELS = ("sparse_conv", "sparse_conv_dx", "sparse_conv_wgrad",
+                 "plan_rules", "sparse_conv_zrun")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # dense, published; "bf16 split": an f32 operand split into two bf16
 # parts, two bf16 products per multiply-add (the dW kernel)
@@ -722,9 +759,11 @@ def _model(cfg, device):
     return model.to(device)
 
 
-def phase_slice(cfg, model, engine, scans):
+def phase_slice(cfg, model, engine, scans, name=None, kept_exact=True):
     """Three scans on one engine; returns the (K1, K2, K3) launches, counted
-    from zero just before the first scan and read just after the last."""
+    from zero just before the first scan and read just after the last.
+    ``name`` labels a config other than FocalFormer3D_L; without
+    ``kept_exact`` a scan keeps 1 to 200 boxes, not exactly 200."""
     from focalformer3d_tpu_torch.models.detector import preprocess_points
 
     kernels = _wrappers()
@@ -763,7 +802,8 @@ def phase_slice(cfg, model, engine, scans):
                 if not torch.isfinite(dec[k]).all():
                     raise RuntimeError(f"{engine}: non-finite {k}")
             kept = int(dec["mask"].sum())
-            if dec["bboxes"].shape[-1] != 9 or kept != 200:
+            if dec["bboxes"].shape[-1] != 9 or not (
+                    kept == 200 if kept_exact else 0 < kept <= 200):
                 raise RuntimeError(f"{engine}: expected 200 kept 9-dim "
                                    f"boxes, got {kept} of "
                                    f"{tuple(dec['bboxes'].shape)}")
@@ -777,7 +817,8 @@ def phase_slice(cfg, model, engine, scans):
                            f"times for {len(scans)} scans, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(wall)
-    print(f"slice {engine}: ms/scan " + ", ".join(f"{t:.1f}" for t in wall)
+    label = f"{name} {engine}" if name else engine
+    print(f"slice {label}: ms/scan " + ", ".join(f"{t:.1f}" for t in wall)
           + f" (median {med:.1f}); voxelize/encoder/rest ms "
           + "; ".join("/".join(f"{x:.1f}" for x in s) for s in split)
           + f"; peak memory {peak / 2**30:.2f} GiB; (K1, K2, K3) launches "
@@ -1312,12 +1353,11 @@ def _check_submission(path, n_samples, engine):
     return sum(len(a) for a in sub.values())
 
 
-def phase_dataset(card):
-    """The train and test CLIs on a written nuScenes-format directory;
-    returns the model-path kernels' launches, counted from zero just
-    before the train CLI and read just after the last test CLI."""
-    import tempfile
-
+def phase_dataset(card, tmp):
+    """The train and test CLIs on a nuScenes-format directory written in
+    ``tmp``; returns the model-path kernels' launches, counted from zero
+    just before the train CLI and read just after the last test CLI, the
+    directory and the trained checkpoint."""
     from focalformer3d_tpu_torch.configs import get_config
     from focalformer3d_tpu_torch.data import native
     from focalformer3d_tpu_torch.tools import create_data
@@ -1328,98 +1368,97 @@ def phase_dataset(card):
     t_phase = time.perf_counter()
     cfg_all = get_config("FocalFormer3D_L")
     k1, _, _ = _wrappers()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = f"{tmp}/nuscenes"
-        t0 = time.perf_counter()
-        ann = write_nuscenes(
-            root, seed=DATASET_SEED, samples=DATASET_SAMPLES,
-            points=DATASET_POINTS, sweeps=DATASET_SWEEPS,
-            pc_range=cfg_all["model"].voxel.point_cloud_range,
-            classes=cfg_all["class_names"])
-        t1 = time.perf_counter()
-        create_data.create_gt_database(ann, root, root)
-        print(f"dataset ({card}): wrote {DATASET_SAMPLES} samples of a "
-              f"{DATASET_POINTS}-point key frame and {DATASET_SWEEPS} sweeps "
-              f"in {t1 - t0:.1f} s, GT database in "
-              f"{time.perf_counter() - t1:.1f} s", flush=True)
-        get_ms, collate_ms, n_pts, n_gts = _host_ms(cfg_all, root)
-        print(f"dataset host ms per sample ({card}; train pipeline with "
-              f"GT-paste, batch 2): get_sample " + ", ".join(
-                  f"{x:.1f}" for x in get_ms) + "; collate " + ", ".join(
-                  f"{x:.1f}" for x in collate_ms) + f"; points per sample "
-              f"{min(n_pts)}-{max(n_pts)}, GT boxes {min(n_gts)}-"
-              f"{max(n_gts)}", flush=True)
+    root = f"{tmp}/nuscenes"
+    t0 = time.perf_counter()
+    ann = write_nuscenes(
+        root, seed=DATASET_SEED, samples=DATASET_SAMPLES,
+        points=DATASET_POINTS, sweeps=DATASET_SWEEPS,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"])
+    t1 = time.perf_counter()
+    create_data.create_gt_database(ann, root, root)
+    print(f"dataset ({card}): wrote {DATASET_SAMPLES} samples of a "
+          f"{DATASET_POINTS}-point key frame and {DATASET_SWEEPS} sweeps "
+          f"in {t1 - t0:.1f} s, GT database in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    get_ms, collate_ms, n_pts, n_gts = _host_ms(cfg_all, root)
+    print(f"dataset host ms per sample ({card}; train pipeline with "
+          f"GT-paste, batch 2): get_sample " + ", ".join(
+              f"{x:.1f}" for x in get_ms) + "; collate " + ", ".join(
+              f"{x:.1f}" for x in collate_ms) + f"; points per sample "
+          f"{min(n_pts)}-{max(n_pts)}, GT boxes {min(n_gts)}-"
+          f"{max(n_gts)}", flush=True)
 
-        work = f"{tmp}/work"
-        for k in _wrappers():
-            k.reset_launch_count()
-        native.reset_call_count()
-        run, _ = _run_cli(train_cli.main, [
-            "FocalFormer3D_L", "--data-root", root, "--epochs", "2",
-            "--iters-per-epoch", "2", "--batch-size", str(TRAIN_BATCH),
-            "--log-interval", "1", "--work-dir", work, "--no-tensorboard"])
-        with open(f"{work}/train_log.jsonl") as fh:
-            recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
-        losses = [r["loss"] for r in recs]
-        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
-            raise RuntimeError(f"dataset train CLI: losses {losses}")
-        if 2 not in ckpt.list_epochs(work):
-            raise RuntimeError(f"dataset train CLI: epochs "
-                               f"{ckpt.list_epochs(work)} saved")
-        launches = {kind: k1.launch_count(kind)
-                    for kind in TRAIN_LAUNCHES_PER_STEP}
-        want = {kind: 4 * n for kind, n in TRAIN_LAUNCHES_PER_STEP.items()}
-        if launches != want:
-            raise RuntimeError(f"dataset train CLI: K1 forward/dx/dW "
-                               f"{launches}, expected {want}")
-        # the first batch (drawn as JAX draws it to initialise) + 4 steps
-        loads = native.call_count()
-        if loads != 5 * TRAIN_BATCH:
-            raise RuntimeError(f"dataset train CLI: {loads} native loads, "
-                               f"expected {5 * TRAIN_BATCH}")
-        if any(type(t).__name__ == "ObjectSample"
-               for t in run.pipeline.transforms):
-            raise RuntimeError("dataset train CLI: Fading left ObjectSample")
-        print(f"dataset train CLI ({card}; FocalFormer3D_L float32, batch "
-              f"{TRAIN_BATCH}, GT-paste, Fading at epoch 1): losses "
-              + ", ".join(f"{x:.4f}" for x in losses) + "; s/it "
-              + ", ".join(f"{r['time']:.3f}" for r in recs)
-              + f"; epoch_2 saved; K1 forward/dx/dW {launches}; {loads} "
-              "native loads; ObjectSample gone after Fading", flush=True)
+    work = f"{tmp}/work"
+    for k in _wrappers():
+        k.reset_launch_count()
+    native.reset_call_count()
+    run, _ = _run_cli(train_cli.main, [
+        "FocalFormer3D_L", "--data-root", root, "--epochs", "2",
+        "--iters-per-epoch", "2", "--batch-size", str(TRAIN_BATCH),
+        "--log-interval", "1", "--work-dir", work, "--no-tensorboard"])
+    with open(f"{work}/train_log.jsonl") as fh:
+        recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
+    losses = [r["loss"] for r in recs]
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"dataset train CLI: losses {losses}")
+    if 2 not in ckpt.list_epochs(work):
+        raise RuntimeError(f"dataset train CLI: epochs "
+                           f"{ckpt.list_epochs(work)} saved")
+    launches = {kind: k1.launch_count(kind)
+                for kind in TRAIN_LAUNCHES_PER_STEP}
+    want = {kind: 4 * n for kind, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    if launches != want:
+        raise RuntimeError(f"dataset train CLI: K1 forward/dx/dW "
+                           f"{launches}, expected {want}")
+    # the first batch (drawn as JAX draws it to initialise) + 4 steps
+    loads = native.call_count()
+    if loads != 5 * TRAIN_BATCH:
+        raise RuntimeError(f"dataset train CLI: {loads} native loads, "
+                           f"expected {5 * TRAIN_BATCH}")
+    if any(type(t).__name__ == "ObjectSample"
+           for t in run.pipeline.transforms):
+        raise RuntimeError("dataset train CLI: Fading left ObjectSample")
+    print(f"dataset train CLI ({card}; FocalFormer3D_L float32, batch "
+          f"{TRAIN_BATCH}, GT-paste, Fading at epoch 1): losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; s/it "
+          + ", ".join(f"{r['time']:.3f}" for r in recs)
+          + f"; epoch_2 saved; K1 forward/dx/dW {launches}; {loads} "
+          "native loads; ObjectSample gone after Fading", flush=True)
+    torch.cuda.empty_cache()
+
+    for engine, want in DATASET_TEST_LAUNCHES.items():
+        before = _model_path_launches()
+        out = f"{tmp}/sub_{engine}.json"
+        res, rec = _run_cli(test_cli.main, [
+            "FocalFormer3D_L", "--data-root", root, "--checkpoint",
+            f"{work}/epoch_2", "--limit", str(DATASET_SAMPLES),
+            "--engine", engine, "--out", out, "--tracking-out",
+            f"{tmp}/trk_{engine}.json"])
+        got = {k: n - before[k] for k, n in _model_path_launches().items()}
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise RuntimeError(f"dataset test CLI {engine}: launches "
+                               f"{got}, expected {full}")
+        keys = {"mAP", "mATE", "mASE", "mAOE", "mAVE", "nds_no_attr"}
+        keys |= {f"AP_{c}" for c in cfg_all["class_names"]}
+        if rec is None or set(rec) != keys:
+            raise RuntimeError(f"dataset test CLI {engine}: metrics "
+                               f"{rec}")
+        n_boxes = _check_submission(out, DATASET_SAMPLES, engine)
+        steady = (res.samples - 1) / (res.seconds - res.seconds_first)
+        print(f"dataset test CLI {engine} ({card}): "
+              f"{res.samples / res.seconds:.3f} samples/s ("
+              f"{res.samples} samples in {res.seconds:.2f} s, the first "
+              f"in {res.seconds_first:.2f} s; after it {steady:.3f} "
+              f"samples/s); {n_boxes} boxes in the submission, all "
+              f"finite; mAP {rec['mAP']}, nds_no_attr "
+              f"{rec['nds_no_attr']}; launches {got}", flush=True)
         torch.cuda.empty_cache()
-
-        for engine, want in DATASET_TEST_LAUNCHES.items():
-            before = _model_path_launches()
-            out = f"{tmp}/sub_{engine}.json"
-            res, rec = _run_cli(test_cli.main, [
-                "FocalFormer3D_L", "--data-root", root, "--checkpoint",
-                f"{work}/epoch_2", "--limit", str(DATASET_SAMPLES),
-                "--engine", engine, "--out", out, "--tracking-out",
-                f"{tmp}/trk_{engine}.json"])
-            got = {k: n - before[k] for k, n in _model_path_launches().items()}
-            full = {k: want.get(k, 0) for k in got}
-            if got != full:
-                raise RuntimeError(f"dataset test CLI {engine}: launches "
-                                   f"{got}, expected {full}")
-            keys = {"mAP", "mATE", "mASE", "mAOE", "mAVE", "nds_no_attr"}
-            keys |= {f"AP_{c}" for c in cfg_all["class_names"]}
-            if rec is None or set(rec) != keys:
-                raise RuntimeError(f"dataset test CLI {engine}: metrics "
-                                   f"{rec}")
-            n_boxes = _check_submission(out, DATASET_SAMPLES, engine)
-            steady = (res.samples - 1) / (res.seconds - res.seconds_first)
-            print(f"dataset test CLI {engine} ({card}): "
-                  f"{res.samples / res.seconds:.3f} samples/s ("
-                  f"{res.samples} samples in {res.seconds:.2f} s, the first "
-                  f"in {res.seconds_first:.2f} s; after it {steady:.3f} "
-                  f"samples/s); {n_boxes} boxes in the submission, all "
-                  f"finite; mAP {rec['mAP']}, nds_no_attr "
-                  f"{rec['nds_no_attr']}; launches {got}", flush=True)
-            torch.cuda.empty_cache()
     launches = _model_path_launches()
     print(f"dataset ({card}): {time.perf_counter() - t_phase:.1f} s; launches "
           f"{launches}", flush=True)
-    return launches
+    return launches, root, f"{work}/epoch_2"
 
 
 def _probe_launches():
@@ -1518,6 +1557,255 @@ def phase_probes(device):
     return out, launches
 
 
+def _voxel_abs_sums(vcfg, points, mask):
+    """float64 sum of |x| over each kept voxel's points, (max_voxels, D)
+    in CSR order: the scale of a voxel mean's float32 rounding."""
+    from focalformer3d_tpu_torch.ops.voxelize import (INT32_MAX,
+                                                      _linear_key,
+                                                      point_voxel_coords)
+
+    coords, valid = point_voxel_coords(vcfg, points, mask)
+    key = _linear_key(coords, valid, vcfg.grid_size)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    sums = torch.zeros((len(uniq), points.shape[1]), dtype=torch.float64)
+    sums.index_add_(0, inv, points.abs().double())
+    sums = sums[uniq != INT32_MAX][:vcfg.max_voxels]
+    out = torch.zeros((vcfg.max_voxels, points.shape[1]), dtype=torch.float64)
+    out[:len(sums)] = sums
+    return out
+
+
+def _check_dynamic_voxelize(cfg, scan, card):
+    """``dynamic_voxelize`` at the eval cap on the card against the same
+    function on the CPU: coords and mask bit for bit, features within
+    2 * 2**-23 * sum|x| of each voxel (atomic adds sum in any order)."""
+    from focalformer3d_tpu_torch.ops.voxelize import dynamic_voxelize
+
+    vcfg = dataclasses.replace(cfg.voxel, max_voxels=(
+        cfg.voxel.max_voxels_test or cfg.voxel.max_voxels))
+    pts, mask = scan[0][0], scan[1][0]  # the scan's one sample
+    got = dynamic_voxelize(vcfg, pts, mask)
+    ref = dynamic_voxelize(vcfg, pts.cpu(), mask.cpu())
+    for k in ("coords", "voxel_mask"):
+        if not torch.equal(got[k].cpu(), ref[k]):
+            raise RuntimeError(f"dynamic_voxelize: {k} differs on the card")
+    bound = 2 * 2.0 ** -23 * _voxel_abs_sums(vcfg, pts.cpu(), mask.cpu())
+    err = (got["features"].cpu().double() - ref["features"].double()).abs()
+    if not bool((err <= bound).all()):
+        raise RuntimeError(f"dynamic_voxelize: features differ by "
+                           f"{float(err.max()):.3g} beyond the bound")
+    ms = _median_ms(lambda: dynamic_voxelize(vcfg, pts, mask))
+    print(f"dynamic_voxelize ({card}): {int(ref['voxel_mask'].sum())} voxels "
+          f"of {vcfg.max_voxels} from {int(mask.sum())} points; coords and "
+          f"mask bit for bit against the CPU, features max |diff| "
+          f"{float(err.max()):.3g} (within 2 * 2**-23 * sum|x| per voxel); "
+          f"{ms:.3f} ms (events, median of {REPS})", flush=True)
+
+
+def phase_variants(card, device, scans):
+    """DeformFormer3D_L (bf16, random weights from seed 0) on the three
+    engines and DeformFormer3D_L_dynamic on ``cuda``, three scans each,
+    ``dynamic_voxelize`` on the card against the CPU, then one float32
+    training step of DeformFormer3D_L at batch 2 on ``cuda``. Returns the
+    model-path kernels' launches, each run's counted from zero just before
+    it and read just after it, summed."""
+    from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
+    from focalformer3d_tpu_torch.training import optim, train_step
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+
+    def add(launches):
+        for name, n in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                           launches):
+            total[name] += n
+
+    all_cfg = get_config("DeformFormer3D_L")
+    cfg = with_compute_dtype(dataclasses.replace(
+        all_cfg["model"], sparse_engine="cuda"), "bfloat16")
+    model = _model(cfg, device)
+    for engine in ENGINES:
+        add(phase_slice(cfg, model, engine, scans, "DeformFormer3D_L",
+                        kept_exact=False))
+    del model
+    dyn = with_compute_dtype(dataclasses.replace(
+        get_config("DeformFormer3D_L_dynamic")["model"], sparse_engine="cuda"),
+        "bfloat16")
+    model = _model(dyn, device)
+    add(phase_slice(dyn, model, "cuda", scans, "DeformFormer3D_L_dynamic",
+                    kept_exact=False))
+    del model
+    _check_dynamic_voxelize(dyn, scans[0], card)
+    torch.cuda.empty_cache()
+
+    # one training step: FocalFormer3D_L's encoder, so its launches
+    k1, _, _ = _wrappers()
+    tcfg = dataclasses.replace(all_cfg["model"], sparse_engine="cuda")
+    batch = _train_batch(tcfg, device)
+    model = _model(tcfg, device).train()
+    tx = optim.make_optimizer(total_steps=100)
+    opt_state = tx.init(list(model.parameters()))
+    step = train_step.make_train_step(tcfg, all_cfg["loss"], tx)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    k1.reset_launch_count()
+    t0 = time.perf_counter()
+    metrics = step(model, opt_state, batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise RuntimeError(f"DeformFormer3D_L train step: {vals}")
+    launches = {kind: k1.launch_count(kind)
+                for kind in TRAIN_LAUNCHES_PER_STEP}
+    if launches != TRAIN_LAUNCHES_PER_STEP:
+        raise RuntimeError(f"DeformFormer3D_L train step: K1 forward/dx/dW "
+                           f"{launches}, expected {TRAIN_LAUNCHES_PER_STEP}")
+    for kind, name in (("forward", "sparse_conv"), ("dx", "sparse_conv_dx"),
+                       ("wgrad", "sparse_conv_wgrad")):
+        total[name] += launches[kind]
+    print(f"variants train step ({card}; DeformFormer3D_L float32, batch "
+          f"{TRAIN_BATCH}, cuda, a fresh model's first step): {ms:.1f} ms; "
+          f"loss {vals['loss']:.5g}, all {len(vals)} metrics finite; K1 "
+          f"forward/dx/dW {launches}", flush=True)
+    del model, batch, opt_state
+    torch.cuda.empty_cache()
+    print(f"variants ({card}): {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}", flush=True)
+    return total
+
+
+def _decided(cands, cfg, margin=MERGE_MARGIN):
+    """True where no two valid class-offset candidates have a BEV IoU
+    within ``margin`` of the NMS or the vote threshold (on the CPU): there
+    two correct IoUs may decide differently."""
+    from focalformer3d_tpu_torch.core.iou import boxes_iou_bev
+
+    b, _, lab, v = (torch.from_numpy(x) for x in cands)
+    b = b[v].clone()
+    b[:, 0] += lab[v].to(b.dtype) * (2.0 * 200.0)
+    iou = boxes_iou_bev(b, b)
+    return not any(bool(((iou - t).abs() <= margin).any())
+                   for t in (cfg.nms_thresh, cfg.vote_iou))
+
+
+def _check_merge(card, device, cache, n_cands):
+    """One sample's merge of ``n_cands`` candidates (a cached sample padded
+    to the test CLI's 4 x 600) on the card against the CPU: masks, labels
+    and scores equal, boxes within MERGE_TOL of each value's magnitude (at
+    least 1), on the first sample whose comparisons are all decided. Then
+    the merge's split on the card."""
+    from focalformer3d_tpu_torch.core import merge_augs as ma
+    from focalformer3d_tpu_torch.core.iou import (boxes_intersection_bev,
+                                                  boxes_iou_bev)
+    from focalformer3d_tpu_torch.core.nms import nms_from_iou
+
+    cfg = ma.TTAConfig(num_classes=10)
+    for i in range(DATASET_SAMPLES):
+        cands = ma.load_ensemble([cache], f"sample_{i:04d}", pad_to=n_cands)
+        if _decided(cands, cfg):
+            break
+    else:
+        raise RuntimeError("tta merge: every sample has a pair within "
+                           f"{MERGE_MARGIN} of a threshold")
+    cpu = [torch.from_numpy(x)[None] for x in cands]
+    ref = ma.merge_aug_boxes(cfg, *cpu)
+    got = {k: v.cpu() for k, v in ma.merge_aug_boxes(
+        cfg, *(x.to(device) for x in cpu)).items()}
+    for k in ("mask", "labels", "scores"):
+        if not torch.equal(got[k], ref[k]):
+            raise RuntimeError(f"tta merge: {k} differs on the card")
+    err = float(((got["bboxes"] - ref["bboxes"]).abs()
+                 / ref["bboxes"].abs().clamp(min=1)).max())
+    if err > MERGE_TOL:
+        raise RuntimeError(f"tta merge: boxes differ by {err:.3g}")
+
+    b, s, lab, v = (x[0].to(device) for x in cpu)
+    b_off = b.clone()
+    b_off[:, 0] += lab.to(b.dtype) * (2.0 * 200.0)
+    iou = boxes_iou_bev(b_off, b_off)
+    iou_ms = _median_ms(lambda: boxes_iou_bev(b_off, b_off))
+    # the same intersections with every pair clipped, not only the near ones
+    every_ms = _median_ms(lambda: boxes_intersection_bev(b_off, b_off))
+    near = int((iou > 0).sum())
+
+    def host_ms(fn):
+        times = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    nms_ms = host_ms(lambda: nms_from_iou(iou, s, v, cfg.nms_thresh))
+    merge_ms = host_ms(lambda: ma.merge_aug_boxes(
+        cfg, *(x.to(device) for x in cpu))["mask"].cpu())
+    print(f"tta merge ({card}): sample_{i:04d} ({i} undecided before it), "
+          f"{int(v.sum())} valid of {n_cands} candidates: mask, labels and "
+          f"scores equal to the CPU's, boxes within {err:.3g} (tol "
+          f"{MERGE_TOL}); kept {int(ref['mask'].sum())}; on the card the "
+          f"IoU matrix {iou_ms:.2f} ms (events; {near} pairs overlap; every "
+          f"pair clipped {every_ms:.2f} ms), the greedy NMS pass "
+          f"{nms_ms:.2f} ms (host: one copy of the bool matrix, numpy), the "
+          f"whole merge {merge_ms:.2f} ms (host), medians of {REPS}",
+          flush=True)
+
+
+def phase_tta(card, device, root, checkpoint, tmp):
+    """The test CLI with ``--tta`` over phase 10's samples and checkpoint,
+    on ``cuda`` (caching to A) and ``cuda_mxu`` (to B), then
+    ``--tta-ensemble A B``; one sample's merge on the card against the
+    CPU. Returns the model-path kernels' launches, each run's counted from
+    zero just before it and read just after it, summed."""
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.tools import test as test_cli
+
+    t_phase = time.perf_counter()
+    cfg_all = get_config("FocalFormer3D_L")
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+    caches = {"cuda": f"{tmp}/tta_A", "cuda_mxu": f"{tmp}/tta_B"}
+    base = ["FocalFormer3D_L", "--data-root", root, "--limit",
+            str(DATASET_SAMPLES)]
+    keys = {"mAP", "mATE", "mASE", "mAOE", "mAVE", "nds_no_attr"}
+    keys |= {f"AP_{c}" for c in cfg_all["class_names"]}
+    runs = [(f"--tta {e}", TTA_TEST_LAUNCHES[e],
+             ["--checkpoint", checkpoint, "--engine", e, "--tta",
+              "--tta-cache-dir", c]) for e, c in caches.items()]
+    runs.append(("--tta-ensemble", {}, ["--tta-ensemble", *caches.values()]))
+    for label, want, extra in runs:
+        for k in _wrappers():
+            k.reset_launch_count()
+        out = f"{tmp}/sub_{label.strip('-').replace(' ', '_')}.json"
+        res, rec = _run_cli(test_cli.main, [*base, *extra, "--out", out])
+        got = _model_path_launches()
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise RuntimeError(f"test CLI {label}: launches {got}, expected "
+                               f"{full}")
+        for k, n in got.items():
+            total[k] += n
+        if rec is None or set(rec) != keys:
+            raise RuntimeError(f"test CLI {label}: metrics {rec}")
+        n_boxes = _check_submission(out, DATASET_SAMPLES, label)
+        print(f"tta test CLI {label} ({card}): "
+              f"{res.samples / res.seconds:.3f} samples/s ({res.samples} "
+              f"samples in {res.seconds:.2f} s, the first in "
+              f"{res.seconds_first:.2f} s; {res.passes} passes a sample); "
+              f"the merge {res.seconds_merge / res.samples * 1e3:.1f} ms a "
+              f"sample; {n_boxes} boxes in the submission, all finite; mAP "
+              f"{rec['mAP']}; launches {got}", flush=True)
+        torch.cuda.empty_cache()
+    num_prop = cfg_all["model"].decoder.total_stages * \
+        cfg_all["model"].decoder.num_proposals
+    _check_merge(card, device, caches["cuda"], TTA_PASSES * num_prop)
+    print(f"tta ({card}): {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -1547,7 +1835,7 @@ def main():
     by_path = {engine: phase_slice(cfg, model, engine, scans)
                for engine in ENGINES}
     phase_engine_parity(cfg, model, device)
-    del model, scans
+    del model
     torch.cuda.empty_cache()
 
     # training: float32 (FocalFormer3D_L's compute dtype), engine cuda
@@ -1560,9 +1848,14 @@ def main():
     entry = phase_entry_points(tcfg, batch, device, card)
     del batch
     torch.cuda.empty_cache()
-    dataset = phase_dataset(card)
-    torch.cuda.empty_cache()
-    probes, probe_launches = phase_probes(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dataset, root, checkpoint = phase_dataset(card, tmp)
+        torch.cuda.empty_cache()
+        probes, probe_launches = phase_probes(device)
+        torch.cuda.empty_cache()
+        variants = phase_variants(card, device, scans)
+        del scans
+        tta = phase_tta(card, device, root, checkpoint, tmp)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -1581,6 +1874,8 @@ def main():
     for name, _stats, by in rows:
         by["entry_points"] = entry[name]
         by["dataset"] = dataset[name]
+        by["variants"] = variants[name]
+        by["tta"] = tta[name]
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

@@ -4,9 +4,10 @@ Counterparts of ``focalformer3d_tpu.ops.voxelize.VoxelConfig``,
 ``models.detector.DetectorConfig`` / ``with_compute_dtype``,
 ``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig``,
 ``core.box_coder.BBoxCoderConfig`` and ``configs.focalformer3d_l
-.TrainRecipe``. Field names, defaults and the two named configs
-(``FocalFormer3D_L``, ``Tiny_L``: model, loss, training recipe, class names
-and dataset) are identical, so
+.TrainRecipe``. Field names, defaults and the four named configs
+(``FocalFormer3D_L``, ``Tiny_L``, ``DeformFormer3D_L`` and
+``DeformFormer3D_L_dynamic``: model, loss, training recipe, class names and
+dataset) are identical, so
 ``focalformer3d_tpu.utils.ref_keys.reference_state_shapes(cfg)`` accepts a
 config of either package. Only the dtype properties differ: they return
 torch dtypes here.
@@ -373,7 +374,40 @@ def _tiny_l():
             "class_names": classes, "dataset": "nuscenes"}
 
 
-_REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l}
+def deform_deltas(cfg: dict) -> dict:
+    """The single-stage head of DeformFormer3D on a config (JAX
+    ``configs/deformformer3d_l.py``, ``variants._deform_deltas``): no extra
+    value map, 200 proposals, one decoder round, one heatmap stage without
+    reuse, no RoI features and no RoI-based regression."""
+    model = cfg["model"]
+    return {**cfg, "model": dataclasses.replace(
+        model, extra_feat=False, decoder=dataclasses.replace(
+            model.decoder, num_proposals=200, num_decoder_layers=1,
+            multistage_heatmap=1, reuse_first_heatmap=False,
+            extra_feat=False, roi_feats=0, roi_based_reg=False))}
+
+
+def _deformformer3d_l():
+    """DeformFormer3D_L: FocalFormer3D_L with the single-stage head,
+    trained 20 epochs with the fade at epoch 15."""
+    cfg = deform_deltas(_focalformer3d_l())
+    cfg["train"] = dataclasses.replace(cfg["train"], total_epochs=20,
+                                       fade_epoch=15)
+    return cfg
+
+
+def _deformformer3d_l_dynamic():
+    """DeformFormer3D_L_dynamic: DeformFormer3D_L on dynamic voxelization
+    (``DynamicSimpleVFE``: each voxel the mean of all its points)."""
+    cfg = _deformformer3d_l()
+    cfg["model"] = dataclasses.replace(cfg["model"],
+                                       vfe_type="DynamicSimpleVFE")
+    return cfg
+
+
+_REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l,
+             "DeformFormer3D_L": _deformformer3d_l,
+             "DeformFormer3D_L_dynamic": _deformformer3d_l_dynamic}
 
 
 def get_config(name: str):

@@ -1,29 +1,24 @@
 """Rotated BEV / 3D IoU by convex polygon clipping in fixed buffers.
 
-Port of ``focalformer3d_tpu/core/iou.py`` (the ``boxes_iou_3d`` the
-Hungarian assigner's IoU cost reads): the intersection of two rotated
-rectangles by Sutherland-Hodgman clipping of one box's corners against the
-other's four edges in an 8-vertex buffer, then the shoelace area. Every
-(N, M) pair is clipped at once.
+Port of ``focalformer3d_tpu/core/iou.py``: ``boxes_iou_3d``, which the
+Hungarian assigner's IoU cost reads, and ``boxes_iou_bev``, which rotated
+NMS and the TTA box vote read. The intersection of two rotated rectangles is
+Sutherland-Hodgman clipping of one box's corners against the other's four
+edges in an 8-vertex buffer, then the shoelace area; the pairs are clipped
+all at once (``boxes_iou_bev``: only the pairs near enough to overlap).
 """
 from __future__ import annotations
 
 import torch
 
+from .boxes import bev_corners
+
 _MAX_VERTS = 8
-
-
-def bev_corners(boxes: torch.Tensor) -> torch.Tensor:
-    """(..., >=7) boxes -> (..., 4, 2) BEV corners, counter-clockwise from
-    (+dx/2, +dy/2) in the box frame."""
-    x, y = boxes[..., 0], boxes[..., 1]
-    hdx, hdy = 0.5 * boxes[..., 3], 0.5 * boxes[..., 4]
-    c, s = torch.cos(boxes[..., 6]), torch.sin(boxes[..., 6])
-    lx = torch.stack([hdx, -hdx, -hdx, hdx], dim=-1)
-    ly = torch.stack([hdy, hdy, -hdy, -hdy], dim=-1)
-    wx = x[..., None] + c[..., None] * lx - s[..., None] * ly
-    wy = y[..., None] + s[..., None] * lx + c[..., None] * ly
-    return torch.stack([wx, wy], dim=-1)
+# boxes_iou_bev clips the pairs whose circumscribed circles come this close
+# (in the boxes' unit, metres): far beyond float32 rounding at the
+# coordinates TTA's class offset reaches (~4 km, 2.4e-4 an ulp)
+NEAR_SLACK = 0.1
+PAIR_CHUNK = 1 << 20
 
 
 def _next_index(n: torch.Tensor) -> torch.Tensor:
@@ -88,6 +83,35 @@ def boxes_intersection_bev(boxes1: torch.Tensor,
         poly, n = _clip_halfplane(poly, n, c2[..., k, :],
                                   c2[..., (k + 1) % 4, :])
     return _poly_area(poly, n)
+
+
+def boxes_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pairwise rotated BEV IoU, (N, >=7) x (M, >=7) -> (N, M).
+
+    Only the pairs whose circumscribed circles come within ``NEAR_SLACK``
+    of each other are clipped, ``PAIR_CHUNK`` pairs at a time (~600 bytes
+    of transient memory a pair); every other pair is apart by more than that,
+    so its clipped polygon is empty and its IoU 0, as the full computation
+    gives it. So is a pair with a point box (zero extents, such as the
+    padding of a merge): its corners coincide. Finding the pairs syncs
+    with the host once."""
+    a1 = boxes1[:, 3] * boxes1[:, 4]
+    a2 = boxes2[:, 3] * boxes2[:, 4]
+    r1 = 0.5 * torch.hypot(boxes1[:, 3], boxes1[:, 4])
+    r2 = 0.5 * torch.hypot(boxes2[:, 3], boxes2[:, 4])
+    d2 = ((boxes1[:, None, 0] - boxes2[None, :, 0]) ** 2
+          + (boxes1[:, None, 1] - boxes2[None, :, 1]) ** 2)
+    near = ((d2 <= (r1[:, None] + r2[None, :] + NEAR_SLACK) ** 2)
+            & (r1[:, None] > 0) & (r2[None, :] > 0))
+    i, j = near.nonzero(as_tuple=True)
+    inter = boxes1.new_zeros(near.shape)
+    for s in range(0, i.shape[0], PAIR_CHUNK):
+        ii, jj = i[s:s + PAIR_CHUNK], j[s:s + PAIR_CHUNK]
+        inter[ii, jj] = boxes_intersection_bev(boxes1[ii, None],
+                                               boxes2[jj, None])[:, 0, 0]
+    union = a1[:, None] + a2[None, :] - inter
+    return inter / torch.clamp(union, min=1e-8)
 
 
 def boxes_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

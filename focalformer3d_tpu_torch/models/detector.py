@@ -1,7 +1,8 @@
 """FocalFormer3D detector, LiDAR only.
 
 Port of ``focalformer3d_tpu/models/detector.py`` (``preprocess_points``,
-``FocalFormer3D``, ``get_bboxes``): voxelization with the mean VFE ->
+``FocalFormer3D``, ``get_bboxes``): voxelization with the mean VFE (hard or
+dynamic, both parameter-free) ->
 SparseEncoder -> SECOND -> SECONDFPN -> FocalEncoder -> FocalDecoder ->
 boxes. Submodules carry the reference checkpoint's top-level names
 (``pts_middle_encoder``, ``pts_backbone``, ``pts_neck``, ``imgpts_neck``,
@@ -44,16 +45,21 @@ from .sparse_encoder import SparseEncoder
 def preprocess_points(cfg: DetectorConfig, points: torch.Tensor,
                       mask: torch.Tensor, train: bool = False
                       ) -> Dict[str, torch.Tensor]:
-    """Batched hard voxelization + mean VFE. points (B, N, D), mask (B, N).
+    """Batched voxelization + mean VFE. points (B, N, D), mask (B, N).
 
-    Inference uses the test-time voxel cap when the config sets one;
-    ``train=True`` keeps the training cap ``max_voxels``."""
-    if cfg.vfe_type != "HardSimpleVFE":
+    ``HardSimpleVFE``: hard voxelization, the mean of each voxel's first
+    ``max_num_points`` points; ``DynamicSimpleVFE``: dynamic voxelization,
+    the mean of all its points. Either returns features, coords and
+    voxel_mask. Inference uses the test-time voxel cap when the config sets
+    one; ``train=True`` keeps the training cap ``max_voxels``."""
+    voxelize = {"HardSimpleVFE": vox.hard_voxelize_simple,
+                "DynamicSimpleVFE": vox.dynamic_voxelize}.get(cfg.vfe_type)
+    if voxelize is None:
         raise NotImplementedError(f"vfe {cfg.vfe_type!r} is not ported")
     vcfg = cfg.voxel
     if not train and vcfg.max_voxels_test:
         vcfg = dataclasses.replace(vcfg, max_voxels=vcfg.max_voxels_test)
-    outs = [vox.hard_voxelize_simple(vcfg, points[b], mask[b])
+    outs = [voxelize(vcfg, points[b], mask[b])
             for b in range(points.shape[0])]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

@@ -1,10 +1,12 @@
-"""Hard voxelization with the mean VFE, fixed capacity, CSR output order.
+"""Hard and dynamic voxelization with the mean VFE, fixed capacity, CSR
+output order.
 
 Port of ``focalformer3d_tpu/ops/voxelize.py`` (``point_voxel_coords``,
-``_linear_key``, ``hard_voxelize_simple``). Points are padded to a fixed N
-with a validity mask; a stable sort on a CSR-compatible linear key groups the
-points of each voxel, and the voxels come out in CSR order (column-major over
-BEV, z-minor), the order every rulebook of ``ops/sparse_conv.py`` rests on.
+``_linear_key``, ``hard_voxelize_simple``, ``dynamic_voxelize``). Points
+are padded to a fixed N with a validity mask; a stable sort on a
+CSR-compatible linear key groups the points of each voxel, and the voxels
+come out in CSR order (column-major over BEV, z-minor), the order every
+rulebook of ``ops/sparse_conv.py`` rests on.
 
 The JAX version takes each voxel's sum as a difference of two prefix sums,
 which cancels in float32 at 200k points. Here each voxel is summed directly
@@ -97,3 +99,41 @@ def hard_voxelize_simple(cfg: VoxelConfig, points: torch.Tensor,
         "coords": out_coords[:V],
         "voxel_mask": count > 0,
     }
+
+
+def dynamic_voxelize(cfg: VoxelConfig, points: torch.Tensor,
+                     mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Dynamic voxelization with the mean VFE (``DynamicSimpleVFE``) for
+    one sample: every point of a voxel enters its mean (no per-voxel
+    cap); voxels past ``max_voxels`` in CSR order are dropped, and so are
+    their points (they reach no kept slot). Returns features (V, D),
+    coords (V, 3) int32 (z, y, x), voxel_mask (V,), in the CSR order of
+    ``hard_voxelize_simple``."""
+    V = cfg.max_voxels
+    N, D = points.shape
+    dev = points.device
+    coords, valid = point_voxel_coords(cfg, points, mask)
+    key = _linear_key(coords, valid, cfg.grid_size)
+
+    skey, order = torch.sort(key, stable=True)
+    svalid = valid[order]
+    is_start = torch.ones_like(svalid)
+    is_start[1:] = skey[1:] != skey[:-1]
+    is_start &= svalid
+    voxel_id = torch.cumsum(is_start, 0, dtype=torch.int64) - 1
+
+    # dropped points go to the sentinel row V, which is cut off
+    seg = torch.where(svalid & (voxel_id < V), voxel_id,
+                      torch.full_like(voxel_id, V))
+    total = torch.zeros((V + 1, D), dtype=points.dtype, device=dev)
+    total.index_add_(0, seg, points[order])
+    count = torch.zeros((V + 1,), dtype=torch.int64, device=dev)
+    count.index_add_(0, seg, torch.ones_like(seg))
+    feats = total[:V] / count[:V].clamp(min=1)[:, None].to(points.dtype)
+
+    vslot = torch.where(is_start & (voxel_id < V), voxel_id,
+                        torch.full_like(voxel_id, V))
+    out_coords = torch.zeros((V + 1, 3), dtype=torch.int32, device=dev)
+    out_coords[vslot] = coords[order]
+    return {"features": feats, "coords": out_coords[:V],
+            "voxel_mask": count[:V] > 0}

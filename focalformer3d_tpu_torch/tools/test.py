@@ -1,24 +1,38 @@
 """Evaluation CLI.
 
-Port of ``tools/test.py`` without test-time augmentation: runs the eval
-step over a nuScenes split on one card, scores the boxes with the port's
-evaluator (``core/eval_nuscenes.py``), and writes a nuScenes submission
-(``--out``) and a tracking file (``--tracking-out``):
+Port of ``tools/test.py``: runs the eval step over a nuScenes split on one
+card, optionally with test-time augmentation, scores the boxes with the
+port's evaluator (``core/eval_nuscenes.py``), and writes a nuScenes
+submission (``--out``) and a tracking file (``--tracking-out``):
 
     python -m focalformer3d_tpu_torch.tools.test FocalFormer3D_L \\
         --checkpoint work_dirs/ff3d_l/epoch_6 --data-root data/nuscenes \\
-        --out results/ff3d_l.json
+        --out results/ff3d_l.json [--tta [--tta-cache-dir cache/ff3d_l]]
+    python -m focalformer3d_tpu_torch.tools.test FocalFormer3D_L \\
+        --data-root data/nuscenes --tta-ensemble cache/a cache/b
 
 The model gets random weights from ``--seed``, or the weights of an
-``epoch_N`` directory of the train CLI (``--checkpoint``). Samples load in
-a prefetching thread (depth 4); each runs through ``make_eval_step`` on the
-sparse engine of ``--engine`` (``auto``: ``cuda`` on a card, ``plain`` on
-the CPU). ``--official-eval`` runs the nuscenes-devkit's DetectionEval on
-the submission where the devkit and the raw dataset are present.
+``epoch_N`` directory of the train CLI or of ``tools/convert_checkpoint.py``
+(``--checkpoint``). Samples load in a prefetching thread (depth 4); each
+runs through ``make_eval_step`` on the sparse engine of ``--engine``
+(``auto``: ``cuda`` on a card, ``plain`` on the CPU). ``--official-eval``
+runs the nuscenes-devkit's DetectionEval on the submission where the devkit
+and the raw dataset are present.
+
+Test-time augmentation (``--tta``, as the JAX CLI runs it): one eval pass
+per entry of ``core.merge_augs.tta_augs`` of the config's ``tta`` dict (the
+LiDAR configs have none: the double flip, 4 passes), each on the sample's
+points scaled and flipped on the host before ``collate``; the passes'
+boxes are mapped back and merged on the device (``merge_tta_results``:
+per-class rotated NMS, IoU-weighted voting, the top 500). With
+``--tta-cache-dir`` each sample's mapped-back candidates are also written
+there (``dump_aug_cache``, the JAX package's pickle layout). With
+``--tta-ensemble`` no model is built and nothing runs forward: each
+sample's cached candidates of the given folders (padded to ``--max-out`` x
+8 x folders) are merged (``merge_aug_boxes``).
 
 It runs on the card unless ``--device cpu`` is given, and raises where
-there is none. ``--tta``, ``--tta-cache-dir`` and ``--tta-ensemble`` raise
-(ROADMAP.md, Queue 1 item 9), as does a Waymo config (item 10).
+there is none. A Waymo config raises (ROADMAP.md, Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -31,10 +45,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .train import load_config, resolve_device
+import torch
 
-TTA = ("test-time augmentation is not ported yet: it comes with TTA and "
-       "box merging (ROADMAP.md, Queue 1 item 9)")
+from .train import load_config, resolve_device
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -58,9 +71,14 @@ def parse_args(argv: Optional[List[str]] = None):
                         "the CPU)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights without --checkpoint")
-    p.add_argument("--tta", action="store_true", help=TTA)
-    p.add_argument("--tta-cache-dir", default=None, help=TTA)
-    p.add_argument("--tta-ensemble", nargs="+", default=None, help=TTA)
+    p.add_argument("--tta", action="store_true",
+                   help="double-flip TTA with box voting")
+    p.add_argument("--tta-cache-dir", default=None,
+                   help="with --tta, write each sample's mapped-back "
+                        "candidates here for offline ensembling")
+    p.add_argument("--tta-ensemble", nargs="+", default=None,
+                   help="no forward pass: merge the cached candidates of "
+                        "these folders")
     p.add_argument("--official-eval", action="store_true",
                    help="run the nuscenes-devkit DetectionEval on the "
                         "submission (needs --out, raw dataset, devkit)")
@@ -75,9 +93,11 @@ def parse_args(argv: Optional[List[str]] = None):
 @dataclasses.dataclass
 class EvalRun:
     """What ``main`` leaves: the metrics, the kept boxes and the ground
-    truth per sample token, the submission (None without ``--out``), and
-    the samples and seconds of the loop over them, and the seconds to the
-    first sample's boxes (set-up included)."""
+    truth per sample token, the submission (None without ``--out``), the
+    samples and seconds of the loop over them, the seconds to the first
+    sample's boxes (set-up included), the eval passes per sample (0 for an
+    ensemble) and the seconds of the TTA merges (host clock from the
+    device's last pass to the merged boxes on the host)."""
 
     metrics: Dict[str, float]
     predictions: Dict[str, dict]
@@ -86,6 +106,8 @@ class EvalRun:
     samples: int
     seconds: float
     seconds_first: float
+    passes: int = 1
+    seconds_merge: float = 0.0
 
 
 def ground_truth_of(sample: dict, classes) -> dict:
@@ -100,13 +122,36 @@ def ground_truth_of(sample: dict, classes) -> dict:
     return {"boxes": np.zeros((0, 9)), "labels": np.zeros(0)}
 
 
+def augment_points(points: np.ndarray, scale: float, flip_h: bool,
+                   flip_v: bool) -> np.ndarray:
+    """A TTA pass's points (JAX ``tools/test.py:185-193``): xyz scaled by
+    ``scale``, then y negated for the horizontal flip and x for the
+    vertical one."""
+    pts = points.copy()
+    if scale != 1.0:
+        pts[:, :3] = pts[:, :3] * scale
+    if flip_h:
+        pts[:, 1] = -pts[:, 1]
+    if flip_v:
+        pts[:, 0] = -pts[:, 0]
+    return pts
+
+
+def kept(dec: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The boxes, scores and labels that a result's mask keeps, on the
+    host."""
+    m = dec["mask"].cpu().numpy()
+    return {k: dec[src].cpu().numpy()[m]
+            for k, src in (("boxes", "bboxes"), ("scores", "scores"),
+                           ("labels", "labels"))}
+
+
 def main(argv: Optional[List[str]] = None) -> EvalRun:
     args = parse_args(argv)
-    if args.tta or args.tta_cache_dir or args.tta_ensemble:
-        raise NotImplementedError(TTA)
     device = resolve_device(args.device)
 
     from ..core import eval_nuscenes
+    from ..core import merge_augs as ma
     from ..core import results as res
     from ..data import nuscenes as nusc
     from ..data import pipelines as pl
@@ -128,36 +173,80 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
                                   with_images=cfg.input_img),
         with_images=cfg.input_img, test_mode=True)
     n = len(ds) if args.limit is None else min(args.limit, len(ds))
-    print(f"evaluating {n} samples on {device}, engine {args.engine}",
-          flush=True)
+    augs = (ma.tta_augs(cfg_all.get("tta", {})) if args.tta
+            else [(1.0, False, False)])
+    tta_cfg = ma.TTAConfig(num_classes=len(classes))
+    if args.tta_ensemble:
+        mode = f"an ensemble of {len(args.tta_ensemble)} caches"
+    else:
+        mode = f"engine {args.engine}, {len(augs)} pass(es) a sample"
+    print(f"evaluating {n} samples on {device}, {mode}", flush=True)
 
-    model = FocalFormer3D(cfg)
-    model.load_state_dict(make_fake_state_dict(model, seed=args.seed),
-                          strict=True)
-    model = model.to(device)
-    if args.checkpoint:
-        ckpt.restore_checkpoint(args.checkpoint, model)
-        print(f"loaded {args.checkpoint}", flush=True)
-    eval_step = make_eval_step(cfg, args.max_out)
+    eval_step = model = None
+    if not args.tta_ensemble:
+        model = FocalFormer3D(cfg)
+        model.load_state_dict(make_fake_state_dict(model, seed=args.seed),
+                              strict=True)
+        model = model.to(device)
+        if args.checkpoint:
+            ckpt.restore_checkpoint(args.checkpoint, model)
+            print(f"loaded {args.checkpoint}", flush=True)
+        eval_step = make_eval_step(cfg, args.max_out)
+
+    def merge(fn, *a):
+        """``fn(*a)``'s kept boxes on the host, and its host seconds from
+        the device's last pass on."""
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.time()
+        out = kept(fn(*a))
+        return out, time.time() - t
 
     rng = np.random.RandomState(0)
     predictions, gt = {}, {}
-    first = 0.0
+    first = merge_s = 0.0
     t0 = time.time()
     # sample loading is host-side IO + numpy work; a thread keeps it off
     # the eval step's path (one producer: the rng draw order is unchanged)
     for i, s in enumerate(prefetch(
             (ds.get_sample(j, rng) for j in range(n)), depth=4)):
         token = s["token"]
-        b = nusc.collate([s], classes, max_points=args.max_points,
-                         max_gts=cfg.decoder.max_gts // 4)
-        b.pop("tokens")
-        dec = eval_step(model, to_device(b, device))
-        m = dec["mask"][0].cpu().numpy()
-        predictions[token] = {
-            k: dec[src][0].cpu().numpy()[m]
-            for k, src in (("boxes", "bboxes"), ("scores", "scores"),
-                           ("labels", "labels"))}
+        if args.tta_ensemble:
+            cands = ma.load_ensemble(
+                args.tta_ensemble, token,
+                pad_to=args.max_out * 8 * len(args.tta_ensemble))
+            predictions[token], sec = merge(
+                ma.merge_aug_boxes, tta_cfg,
+                *(torch.from_numpy(x)[None].to(device) for x in cands))
+            merge_s += sec
+        else:
+            results = []
+            for scale, fh, fv in augs:
+                b = nusc.collate(
+                    [dict(s, points=augment_points(s["points"], scale, fh,
+                                                   fv))],
+                    classes, max_points=args.max_points,
+                    max_gts=cfg.decoder.max_gts // 4)
+                b.pop("tokens")
+                dec = eval_step(model, to_device(b, device))
+                results.append({k: dec[k][0] for k in
+                                ("bboxes", "scores", "labels", "mask")})
+            if len(results) == 1:
+                predictions[token] = kept(results[0])
+            else:
+                if args.tta_cache_dir:
+                    ma.dump_aug_cache(args.tta_cache_dir, token, *(
+                        torch.cat(x).cpu().numpy() for x in (
+                            [ma.mapping_back(r["bboxes"], *aug)
+                             for r, aug in zip(results, augs)],
+                            [r["scores"] for r in results],
+                            [r["labels"] for r in results],
+                            [r["mask"] for r in results])))
+                predictions[token], sec = merge(
+                    ma.merge_tta_results, tta_cfg, results,
+                    [a[0] for a in augs], [a[1] for a in augs],
+                    [a[2] for a in augs])
+                merge_s += sec
         gt[token] = ground_truth_of(s, classes)
         if i == 0:
             first = time.time() - t0
@@ -165,8 +254,10 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
             print(f"{i + 1}/{n} ({(i + 1) / (time.time() - t0):.2f} "
                   "samples/s)", flush=True)
     seconds = time.time() - t0
+    merged = (f"; the TTA merge {merge_s / n * 1e3:.1f} ms a sample"
+              if merge_s else "")
     print(f"{n} samples in {seconds:.2f} s ({n / seconds:.3f} samples/s; "
-          f"the first {first:.2f} s)", flush=True)
+          f"the first {first:.2f} s{merged})", flush=True)
 
     metrics = eval_nuscenes.evaluate_detections(predictions, gt, classes)
     print(json.dumps({k: round(v, 4) for k, v in metrics.items()}),
@@ -190,7 +281,8 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
         if official is not None:
             print("official nuScenes devkit metrics:")
             print(json.dumps(official, indent=1), flush=True)
-    return EvalRun(metrics, predictions, gt, sub, n, seconds, first)
+    return EvalRun(metrics, predictions, gt, sub, n, seconds, first,
+                   0 if args.tta_ensemble else len(augs), merge_s)
 
 
 def run_official_nuscenes_eval(submission_json, data_root, eval_set,

@@ -24,8 +24,13 @@ pipelined gather, wgmma and mma.sync routes) and kernel A (both routes) have
 their own grids of widths, tap counts, batch sizes and ragged sizes near the
 end of the file; then come branch freezing (``freeze_pts`` launches no dx
 or dW and keeps the point branch's bits) and a checkpoint round trip of a
-card model; last, the test CLI on a written nuScenes-format directory on
-the card against the same run on the CPU's plain engine (1e-2).
+card model; then the test CLI on a written nuScenes-format directory on
+the card against the same run on the CPU's plain engine (1e-2); last,
+``dynamic_voxelize`` on the card against the CPU (coords and mask exactly,
+features within 2 * 2**-23 * sum|x| per voxel), a DeformFormer3D_L scan
+per engine with FocalFormer3D_L's launch counts, the TTA merge on the card
+against the CPU (masks, labels and scores exactly, boxes 1e-5), and the
+train and benchmark CLIs on DeformFormer3D_L.
 """
 import dataclasses
 
@@ -1161,3 +1166,130 @@ def test_test_cli_on_card_matches_cpu(dev, tmp_path):
     for tok, ref in runs["cpu"].predictions.items():
         assert len(ref["scores"]) >= 30  # Tiny_L keeps 32
         _top_boxes_close(runs["cuda"].predictions[tok], ref)
+
+
+# ---------------------------------------------------------------------------
+# dynamic voxelization, DeformFormer3D_L and the TTA merge
+# ---------------------------------------------------------------------------
+
+def _radial(cfg, seed, n):
+    batch = synthetic.make_batch(
+        np.random.RandomState(seed), batch_size=1, n_points=n, n_boxes=12,
+        max_gts=16, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    return (torch.from_numpy(batch["points"]),
+            torch.from_numpy(batch["points_mask"]))
+
+
+@pytest.mark.parametrize("max_voxels", [60000, 5000])
+def test_dynamic_voxelize_on_card_matches_cpu(dev, max_voxels):
+    """DeformFormer3D_L_dynamic's voxelizer on a 60k-point radial scan, all
+    voxels kept and capped: coords and mask bit for bit, features within
+    2 * 2**-23 * sum|x| of each voxel (the card's atomic adds sum in any
+    order)."""
+    from focalformer3d_tpu_torch.ops.voxelize import dynamic_voxelize
+
+    import chip_smoke
+
+    cfg = get_config("DeformFormer3D_L_dynamic")["model"]
+    vcfg = dataclasses.replace(cfg.voxel, max_voxels=max_voxels)
+    pts, mask = (x[0] for x in _radial(cfg, 5, 60000))
+    ref = dynamic_voxelize(vcfg, pts, mask)
+    got = dynamic_voxelize(vcfg, pts.to(dev), mask.to(dev))
+    for k in ("coords", "voxel_mask"):
+        assert torch.equal(got[k].cpu(), ref[k]), k
+    n = int(ref["voxel_mask"].sum())
+    assert (n == max_voxels) == (max_voxels == 5000)
+    bound = 2 * 2.0 ** -23 * chip_smoke._voxel_abs_sums(vcfg, pts, mask)
+    err = (got["features"].cpu().double() - ref["features"].double()).abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("engine,counts", [
+    ("cuda", (11, 0, 0)), ("cuda_mxu", (21, 8, 0)), ("cuda_zrun", (0, 0, 11))])
+def test_deformformer3d_l_scan_on_card(dev, engine, counts):
+    """DeformFormer3D_L at full width, bf16, one radial 200k-point scan per
+    engine: FocalFormer3D_L's launches per scan (its encoder), 200 queries
+    with finite boxes and scores, 1-200 kept."""
+    from focalformer3d_tpu_torch.configs import with_compute_dtype
+
+    cfg = with_compute_dtype(dataclasses.replace(
+        get_config("DeformFormer3D_L")["model"], sparse_engine=engine),
+        "bfloat16")
+    m = tdet.FocalFormer3D(cfg).eval()
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev)
+    pts, mask = (x.to(dev) for x in _radial(cfg, 0, 200000))
+    for k in (k1, k2, k3):
+        k.reset_launch_count()
+    with torch.no_grad():
+        dec = m.get_bboxes(m(tdet.preprocess_points(cfg, pts, mask)), 200)
+    assert (k1.launch_count(), k2.launch_count(), k3.launch_count()) \
+        == counts
+    assert dec["bboxes"].shape == (1, 200, 9)
+    assert torch.isfinite(dec["bboxes"]).all()
+    assert torch.isfinite(dec["scores"]).all()
+    assert 0 < int(dec["mask"].sum()) <= 200
+
+
+def test_tta_merge_on_card_matches_cpu(dev):
+    """4 passes x 600 candidates (the test CLI's merge for FocalFormer3D_L)
+    merged on the card and on the CPU: mask, labels and scores equal, boxes
+    within 1e-5 of each value's magnitude; the seeded candidates have no
+    valid pair within 1e-5 of an IoU threshold (asserted first)."""
+    from focalformer3d_tpu_torch.core import merge_augs as ma
+
+    import chip_smoke
+
+    rng = np.random.RandomState(8)
+    n, objects = 600, 150
+    obj = np.zeros((objects, 9), np.float32)
+    obj[:, :2] = rng.uniform(-50, 50, (objects, 2))
+    obj[:, 2] = rng.uniform(-2, 0, objects)
+    obj[:, 3:6] = rng.uniform(0.5, 5.0, (objects, 3))
+    obj[:, 6] = rng.uniform(-np.pi, np.pi, objects)
+    obj[:, 7:9] = rng.uniform(-3, 3, (objects, 2))
+    boxes = obj[rng.randint(0, objects, (4, n))]
+    boxes[..., :2] += rng.normal(0, 0.2, (4, n, 2))
+    boxes[..., 6] += rng.normal(0, 0.05, (4, n))
+    boxes = boxes.astype(np.float32)
+    scores = rng.uniform(0.01, 1, (4, n)).astype(np.float32)
+    labels = rng.randint(0, 10, (4, n)).astype(np.int32)
+    valid = np.zeros((4, n), bool)
+    valid[:, :200] = True  # the eval step keeps max_out 200 of each pass
+    cfg = ma.TTAConfig(num_classes=10)
+    assert chip_smoke._decided((boxes.reshape(-1, 9), scores.reshape(-1),
+                                labels.reshape(-1), valid.reshape(-1)), cfg)
+    cpu = [torch.from_numpy(x) for x in (boxes, scores, labels, valid)]
+    ref = ma.merge_aug_boxes(cfg, *cpu)
+    got = ma.merge_aug_boxes(cfg, *(x.to(dev) for x in cpu))
+    for k in ("mask", "labels", "scores"):
+        assert torch.equal(got[k].cpu(), ref[k]), k
+    err = (got["bboxes"].cpu() - ref["bboxes"]).abs() \
+        / ref["bboxes"].abs().clamp(min=1)
+    assert float(err.max()) <= 1e-5
+    assert 150 <= int(ref["mask"].sum()) <= 500
+
+
+def test_deformformer3d_cli_entry_points_on_card(tmp_path, dev):
+    """The train CLI (``--synthetic``, one step) and the benchmark CLI
+    (two scans on ``cuda``) on DeformFormer3D_L, on the card."""
+    import json
+
+    from focalformer3d_tpu_torch.tools import benchmark
+    from focalformer3d_tpu_torch.tools import train as train_cli
+
+    k1.reset_launch_count()
+    run = train_cli.main(["DeformFormer3D_L", "--synthetic", "--epochs", "1",
+                          "--iters-per-epoch", "1", "--batch-size", "2",
+                          "--work-dir", str(tmp_path / "w"),
+                          "--no-tensorboard"])
+    assert run.opt_state.count == 1
+    assert (k1.launch_count("forward"), k1.launch_count("dx"),
+            k1.launch_count("wgrad")) == (16, 15, 16)
+    with open(tmp_path / "w" / "train_log.jsonl") as f:
+        recs = [json.loads(x) for x in f]
+    assert np.isfinite([r["loss"] for r in recs if r["mode"] == "train"]) \
+        .all()
+    benchmark.main(["DeformFormer3D_L", "--engines", "cuda", "--samples",
+                    "2", "--warmup", "1", "--big-batch", "0"])

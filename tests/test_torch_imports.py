@@ -73,7 +73,17 @@ def test_guard_sees_nested_imports():
     assert roots == ["focalformer3d_tpu", "jax", "flax"]
 
 
-@pytest.mark.parametrize("name", ["Tiny_L", "FocalFormer3D_L"])
+def test_walk_covers_the_tta_and_checkpoint_modules():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("core/boxes.py", "core/merge_augs.py", "core/nms.py",
+                "tools/convert_checkpoint.py",
+                "tools/make_fake_checkpoint.py"):
+        assert pkg + mod in files, mod
+
+
+@pytest.mark.parametrize("name", ["Tiny_L", "FocalFormer3D_L",
+                                  "DeformFormer3D_L"])
 def test_jax_keys_match_the_jax_package(name):
     jcfg = jax_get_config(name)["model"]
     tcfg = tconfigs.get_config(name)["model"]

@@ -126,7 +126,9 @@ def setup():
 # configs, weights, import hygiene
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["FocalFormer3D_L", "Tiny_L"])
+@pytest.mark.parametrize("name", ["FocalFormer3D_L", "Tiny_L",
+                                  "DeformFormer3D_L",
+                                  "DeformFormer3D_L_dynamic"])
 def test_config_fields_equal(name):
     jcfg = jax_get_config(name)["model"]
     tcfg = tconfigs.get_config(name)["model"]

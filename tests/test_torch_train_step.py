@@ -114,16 +114,14 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-12)
 
 
-@pytest.fixture(scope="module")
-def both(request):
-    jm, jlcfg, tm, lcfg = _configs()
-    batch = _batch()
+def run_both(jm, jlcfg, tm, lcfg, batch, mp):
+    """One ``make_train_step`` step of each package on ``batch`` from one
+    state dict, dropout off, the same numpy group noise; ``mp`` is a
+    MonkeyPatch the caller undoes. Returns what the checks below read."""
     noise = _noise(jm, batch)
     sd = make_fake_state_dict(jm, seed=4)
 
     # ---- JAX: one make_train_step step, dropout 0, the numpy noise ----
-    mp = pytest.MonkeyPatch()
-    request.addfinalizer(mp.undo)
     mp.setattr(jfd, "DeformableDecoder",
                functools.partial(DeformableDecoder, dropout=0.0))
 
@@ -178,6 +176,13 @@ def both(request):
                 new_vars=new_vars, old_vars=variables)
 
 
+@pytest.fixture(scope="module")
+def both(request):
+    mp = pytest.MonkeyPatch()
+    request.addfinalizer(mp.undo)
+    return run_both(*_configs(), _batch(), mp)
+
+
 def _jax_loss(jm, jlcfg, model, params, state, batch):
     """The JAX step's own loss function (``make_train_step.loss_fn``)."""
     from focalformer3d_tpu.training.losses import detection_loss
@@ -192,7 +197,8 @@ def _jax_loss(jm, jlcfg, model, params, state, batch):
                           batch["gt_labels"], batch["gt_valid"])[0]
 
 
-def test_losses_match(both):
+def check_losses(both):
+    """Every loss term and metric within LOSS_TOL, ``num_pos`` exactly."""
     jmet, tmet = both["jmetrics"], both["tmetrics"]
     keys = set(jmet)
     assert keys <= set(tmet), keys - set(tmet)
@@ -204,7 +210,12 @@ def test_losses_match(both):
     assert float(tmet["gt_query_loss_cls"]) > 0
 
 
-def test_gradients_match(both):
+def test_losses_match(both):
+    check_losses(both)
+
+
+def check_gradients(both):
+    """Every gradient within GRAD_TOL of its tensor's largest."""
     tgrads = both["tgrads"]
     assert len(tgrads) > 100
     jgrads = both["jgrads"]
@@ -231,6 +242,10 @@ def test_gradients_match(both):
         worst.append((_rel(got[path], r), name))
     worst.sort()
     assert worst[-1][0] <= GRAD_TOL, worst[-5:]
+
+
+def test_gradients_match(both):
+    check_gradients(both)
 
 
 def test_updated_params_and_batch_stats_match(both):
