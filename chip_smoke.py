@@ -145,9 +145,36 @@ Phases (any failure raises and exits non-zero):
    pass (host clock: one copy of the suppression matrix, then numpy) and
    the whole merge.
 
+13. camera (last; after phase 12): FocalFormer3D_LC at full width
+   (ResNet-50 + FPN, 6 cameras at 448 x 800, LSS with 41 depth bins on the
+   112 x 200 feature map into 13 x 64 = 832 channels on the 180 x 180 BEV,
+   two ``bevfusion`` fusion layers; bf16 compute where the config computes
+   in its dtype, the image branch and the LSS in float32; random weights
+   from seed 0) answers phase 4's three scans, each with its synthetic
+   camera rig and six images rendered from the scan, on each engine:
+   finite boxes, 200 kept, phase 4's (K1, K2, K3) launches per sample
+   exactly; ms a sample, the stage split by CUDA events (image backbone +
+   FPN, the point branch's stages, LSS lift / splat / BevEncode, the fusion
+   layers, decoder) and peak memory. Sample 0's LSS on the card (splat and
+   encoded BEV) against the same module on the CPU in float32, within
+   ``LSS_TOL`` (1e-4) of scale: ``index_add_`` adds in atomic order on the
+   card, and a frustum point an ulp from a cell boundary may land in the
+   next cell (the line counts them). DeformFormer3D_C_R50 on the same
+   samples: finite boxes, no kernel launched, and its dense heatmap moves
+   when the images are zeroed. Two float32 FocalFormer3D_LC training steps
+   at batch 2 on ``cuda`` with its freeze flags: K1 forward only (11
+   launches a step, the eval dense boundary; no dx, no dW), every frozen
+   tensor bit-identical, the trainable parameters moved, each step's ms
+   and split by CUDA events, peak memory; then a third step under
+   ``torch.profiler`` (device busy share, the largest kernels and the ops
+   that launched them). Last, the train CLI:
+   DeformFormer3D_C_R50 one step, then FocalFormer3D_LC 2 steps
+   ``--load-img-from`` that checkpoint (the loaded image branch bit for
+   bit, K1 forward 22).
+
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
-phase 10's, ``variants`` and ``tta`` phase 12's),
+phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -1098,10 +1125,11 @@ def phase_train(cfg, batch, device):
     return launches
 
 
-def _profile_step(run):
-    """One more step under ``torch.profiler`` (after the counted, timed
-    ones): kernels launched, device busy time (union of kernel intervals)
-    against the step's host time, and the kernels that take the most."""
+def _profile_step(run, tag="train profile"):
+    """One more step under ``torch.profiler`` (after the timed ones):
+    kernels launched, device busy time (union of kernel intervals) against
+    the step's host time, and the kernels that take the most; each line
+    begins with ``tag``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1123,7 +1151,7 @@ def _profile_step(run):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         count[e.name] = count.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(f"train profile (one step, profiler on): {len(kernels)} kernels, "
+    print(f"{tag} (one step, profiler on): {len(kernels)} kernels, "
           f"device busy {busy / 1e3:.1f} ms of {wall:.1f} ms host time "
           f"(share {busy / 1e3 / wall:.2f}); top kernels ms (launches): "
           + "; ".join(f"{n[:60]} {t / 1e3:.2f} ({count[n]})" for n, t in top),
@@ -1146,7 +1174,7 @@ def _profile_step(run):
             d[label] = d.get(label, 0.0) + k.duration
     for name, _ in top[:3]:
         ops = sorted(owners.get(name, {}).items(), key=lambda kv: -kv[1])
-        print(f"train profile: {name[:60]} launched by: "
+        print(f"{tag}: {name[:60]} launched by: "
               + "; ".join(lab for lab, _ in ops[:3]), flush=True)
 
 
@@ -1806,6 +1834,312 @@ def phase_tta(card, device, root, checkpoint, tmp):
     return total
 
 
+# phase 13: the camera path, FocalFormer3D_LC and DeformFormer3D_C_R50 on
+# phase 4's scans with six rendered 448 x 800 cameras each
+CAMERA_STAGES = ("voxelize", "image backbone + FPN", "index build",
+                 "sparse convs", "dense tail", "SECOND + neck", "LSS lift",
+                 "LSS splat", "BevEncode", "FocalEncoder", "decoder",
+                 "get_bboxes")
+LSS_TOL = 1e-4  # the card's LSS BEV against the CPU's, of its scale
+CAMERA_TRAIN_STEPS = 2
+CAMERA_CLI_STEPS = 2
+FROZEN_LC = ("img_backbone.", "img_neck.", "imgpts_neck.cam_lss.",
+             "pts_middle_encoder.", "pts_backbone.", "pts_neck.",
+             "imgpts_neck.shared_conv_pts.")
+
+
+def _camera_scans(cfg, device, seeds=SCAN_SEEDS, batch_size=1):
+    """Phase 4's radial scans (the same draws) with the synthetic camera rig
+    of each, its six images rendered from the scan: one dict per seed."""
+    from focalformer3d_tpu_torch.data import synthetic
+
+    out = []
+    for seed in seeds:
+        b = synthetic.make_batch(
+            np.random.RandomState(seed), batch_size=batch_size,
+            n_points=N_POINTS, n_boxes=24, max_gts=32,
+            num_classes=cfg.decoder.num_classes,
+            pc_range=cfg.voxel.point_cloud_range, mode="radial",
+            with_images=True, img_hw=cfg.lss.img_scale)
+        out.append({k: torch.from_numpy(v).to(device) for k, v in b.items()})
+    return out
+
+
+def _camera_inputs(cfg, scan):
+    from focalformer3d_tpu_torch.models.detector import preprocess_points
+
+    vox = (preprocess_points(cfg, scan["points"], scan["points_mask"])
+           if cfg.input_pts else None)
+    return vox, {k: scan[k] for k in ("imgs", "lidar2img", "img_aug",
+                                       "bev_aug")}
+
+
+def _camera_slice(cfg, model, engine, scans, name, kept_exact):
+    """The samples on one engine: ms a sample (host clock around a
+    synchronise), the median stage split by CUDA events, peak memory;
+    finite boxes, 200 kept (1-200 without ``kept_exact``). Returns the
+    (K1, K2, K3) launches, counted from zero just before the first sample
+    and read just after the last, and the outputs of the first."""
+    from focalformer3d_tpu_torch.utils.profiler import StageClock
+
+    if cfg.input_pts:
+        model.pts_middle_encoder.engine = engine
+    kernels = _wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.reset_launch_count()
+    wall, splits, first = [], [], None
+    for scan in scans:
+        clock = StageClock(scan["points"].device, CAMERA_STAGES)
+        t0 = time.perf_counter()
+        clock.start()
+        vox, img = _camera_inputs(cfg, scan)
+        clock.mark("voxelize")
+        out = model(vox, mark=clock.mark, img_data=img)
+        dec = model.get_bboxes(out, 200)
+        clock.mark("get_bboxes")
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        splits.append(clock.split())
+        first = first or out
+        for k in ("bboxes", "scores"):
+            if not torch.isfinite(dec[k]).all():
+                raise RuntimeError(f"{name} {engine}: non-finite {k}")
+        kept = int(dec["mask"].sum())
+        if dec["bboxes"].shape[-1] != 9 or not (
+                kept == 200 if kept_exact else 0 < kept <= 200):
+            raise RuntimeError(f"{name} {engine}: {kept} kept boxes of "
+                               f"{tuple(dec['bboxes'].shape)}")
+    launches = tuple(k.launch_count() for k in kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = {st: statistics.median(x[st] for x in splits)
+             for st in CAMERA_STAGES}
+    print(f"camera {name} {engine}: ms/sample " + ", ".join(
+        f"{t:.1f}" for t in wall) + f" (median {statistics.median(wall):.1f}"
+        "); stage split (CUDA events, median, ms): " + ", ".join(
+        f"{st} {t:.2f}" for st, t in split.items() if t)
+        + f"; peak memory {peak:.2f} GiB; (K1, K2, K3) launches {launches}",
+        flush=True)
+    return launches, first
+
+
+def _check_lss_on_cpu(model, scan, card):
+    """Sample 0's LSS on the card (float32, ``index_add_`` in atomic order)
+    against the same module on the CPU, from the card's FPN level 0: the
+    splat's pooled BEV and the encoded BEV within ``LSS_TOL`` of scale."""
+    import copy
+
+    from focalformer3d_tpu_torch.models import lss as tlss
+
+    vox, img = _camera_inputs(model.cfg, scan)
+    neck_img = model.image_features(img)
+    lss = model.imgpts_neck.cam_lss
+    cpu = copy.deepcopy(lss).cpu()
+    args = [neck_img[k] for k in ("img_feats", "cam2lidar_rot",
+                                  "cam2lidar_trans", "img_aug", "bev_aug")]
+    rows = {}
+    for tag, mod, a in (("card", lss, args),
+                        ("cpu", cpu, [x.cpu() for x in args])):
+        lifted, _ = mod.camencode(a[0].float().flatten(0, 1))
+        geom = mod.geometry(*a[1:])
+        rows[tag] = (tlss.splat_to_bev(mod.cfg, geom[0], lifted),
+                     mod(*a)[0][0], tlss.splat_ranks(mod.cfg, geom[0]))
+    errs = []
+    for i, what in enumerate(("splat", "BEV")):
+        got, ref = rows["card"][i].cpu(), rows["cpu"][i]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        if not err <= LSS_TOL:
+            raise RuntimeError(f"LSS {what} card vs CPU rel {err:.3g}")
+        errs.append(f"{what} {tuple(got.shape)} rel {err:.3g}")
+    ranks = rows["card"][2].cpu()
+    nx, ny, nz = lss.cfg.nx
+    flips = int((ranks != rows["cpu"][2]).sum())
+    print(f"camera LSS sample 0 ({card}): card vs float32 CPU "
+          + ", ".join(errs) + f" (limit {LSS_TOL}); {ranks.numel()} frustum "
+          f"points, {int((ranks < nx * ny * nz).sum())} in the grid, "
+          f"{flips} in another cell on the card (an ulp of geometry)",
+          flush=True)
+
+
+def _camera_train_step(card, device):
+    """``CAMERA_TRAIN_STEPS`` float32 FocalFormer3D_LC steps at batch 2 on
+    ``cuda`` with its freeze flags, then one more under the profiler: K1
+    forward only, the frozen branches bit-identical, the fusion layers and
+    head moved; each timed step's ms and split by CUDA events, the
+    profiled step's largest kernels. Returns the K1 forward launches."""
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.training import optim, train_step
+    from focalformer3d_tpu_torch.utils.profiler import StageClock
+
+    k1, _, _ = _wrappers()
+    all_cfg = get_config("FocalFormer3D_LC")
+    cfg = dataclasses.replace(all_cfg["model"], sparse_engine="cuda")
+    scans = _camera_scans(cfg, device, (TRAIN_SEED,), TRAIN_BATCH)
+    model = _model(cfg, device).train()
+    tx = optim.make_optimizer(total_steps=100)
+    opt_state = tx.init(model.named_parameters())
+    step = train_step.make_train_step(cfg, all_cfg["loss"], tx)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_launch_count()
+    rows = []
+    for _ in range(CAMERA_TRAIN_STEPS):
+        clock = StageClock(device, train_step.PHASES)
+        t0 = time.perf_counter()
+        clock.start()
+        with torch.enable_grad():
+            metrics = step(model, opt_state, scans[0], gen, clock.mark)
+        torch.cuda.synchronize()
+        rows.append(((time.perf_counter() - t0) * 1e3, clock.split()))
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"LC train step: {vals}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.enable_grad():
+        _profile_step(lambda: step(model, opt_state, scans[0], gen),
+                      "camera train profile")
+    launches = {k: k1.launch_count(k) for k in ("forward", "dx", "wgrad")}
+    want = {"forward": (CAMERA_TRAIN_STEPS + 1)
+            * LAUNCHES_PER_SCAN["cuda"][0], "dx": 0, "wgrad": 0}
+    if launches != want:
+        raise RuntimeError(f"LC train step: K1 launches {launches}, "
+                           f"expected {want}")
+    after = model.state_dict()
+    frozen = [k for k in after if k.startswith(FROZEN_LC)]
+    changed = [k for k in frozen if not torch.equal(after[k], before[k])]
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    moved = [k for k in trainable if not torch.equal(after[k], before[k])]
+    if changed or len(moved) < len(trainable) // 2:
+        raise RuntimeError(f"LC train step: frozen tensors changed "
+                           f"{changed[:5]}; {len(moved)} of "
+                           f"{len(trainable)} trainable moved")
+    print(f"camera train steps ({card}; FocalFormer3D_LC float32, batch "
+          f"{TRAIN_BATCH}, cuda, freeze_img/camlss/pts, a fresh model): "
+          + "; ".join(f"step {i + 1} {ms:.1f} ms, split (CUDA events, ms) "
+                      + ", ".join(f"{p} {t:.1f}" for p, t in split.items())
+                      for i, (ms, split) in enumerate(rows))
+          + f"; peak memory {peak:.2f} GiB; loss {vals['loss']:.5g}; "
+          f"{len(frozen)} frozen tensors bit-identical, {len(moved)} of "
+          f"{len(trainable)} trainable parameters moved; K1 forward/dx/dW "
+          f"{launches}", flush=True)
+    del model, opt_state, scans
+    torch.cuda.empty_cache()
+    return launches["forward"]
+
+
+def _camera_train_cli(card):
+    """The train CLI: DeformFormer3D_C_R50 one step (its checkpoint holds
+    an image branch), then FocalFormer3D_LC ``CAMERA_CLI_STEPS`` steps with
+    ``--load-img-from`` it: the loaded image branch bit for bit, finite
+    losses, K1 forward launches as many as eval scans on ``cuda``. Returns
+    the K1 forward launches."""
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    k1, _, _ = _wrappers()
+    img_branch = ("img_backbone.", "img_neck.", "imgpts_neck.cam_lss.")
+    with tempfile.TemporaryDirectory() as work:
+        common = ["--synthetic", "--epochs", "1", "--log-interval", "1",
+                  "--no-tensorboard"]
+        k1.reset_launch_count()
+        _run_cli(train_cli.main, ["DeformFormer3D_C_R50", "--batch-size",
+                                  "1", "--iters-per-epoch", "1",
+                                  "--work-dir", f"{work}/c"] + common)
+        if k1.launch_count("forward"):
+            raise RuntimeError("DeformFormer3D_C_R50 launched K1")
+        run, _ = _run_cli(train_cli.main, [
+            "FocalFormer3D_LC", "--batch-size", str(TRAIN_BATCH),
+            "--iters-per-epoch", str(CAMERA_CLI_STEPS), "--work-dir",
+            f"{work}/lc", "--load-img-from", f"{work}/c/epoch_1"] + common)
+        launches = k1.launch_count("forward")
+        with open(f"{work}/lc/train_log.jsonl") as fh:
+            losses = [json.loads(x)["loss"] for x in fh
+                      if json.loads(x)["mode"] == "train"]
+        src = ckpt.load_payload(f"{work}/c/epoch_1")["state_dict"]
+    got = run.model.state_dict()
+    img = [n for n, _ in run.model.named_parameters()
+           if n.startswith(img_branch)]
+    diff = [k for k in img if not torch.equal(got[k].cpu(), src[k])]
+    want = CAMERA_CLI_STEPS * LAUNCHES_PER_SCAN["cuda"][0]
+    if (diff or len(losses) != CAMERA_CLI_STEPS or launches != want
+            or not all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"camera train CLI: image branch differs at "
+                           f"{diff[:3]}; losses {losses}; K1 {launches}, "
+                           f"expected {want}")
+    print(f"camera train CLI ({card}): DeformFormer3D_C_R50 1 step, then "
+          f"FocalFormer3D_LC {CAMERA_CLI_STEPS} steps at batch {TRAIN_BATCH} "
+          f"with --load-img-from it: {len(img)} image-branch parameters as "
+          "loaded, bit for bit; losses " + ", ".join(
+              f"{x:.4f}" for x in losses) + f"; K1 forward {launches}",
+          flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_camera(card, device):
+    """FocalFormer3D_LC (bf16, random weights from seed 0) on phase 4's
+    scans with their cameras on each engine, its LSS against the CPU,
+    DeformFormer3D_C_R50 on the same samples, two frozen LC train steps and
+    the train CLI. Returns the model-path kernels' launches, each run's
+    counted from zero just before it and read just after it, summed."""
+    from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+
+    def add(launches):
+        for name, n in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                           launches):
+            total[name] += n
+
+    cfg = with_compute_dtype(dataclasses.replace(
+        get_config("FocalFormer3D_LC")["model"], sparse_engine="cuda"),
+        "bfloat16")
+    scans = _camera_scans(cfg, device)
+    model = _model(cfg, device)
+    for engine in ENGINES:
+        launches, _ = _camera_slice(cfg, model, engine, scans,
+                                    "FocalFormer3D_LC", True)
+        want = tuple(n * len(scans) for n in LAUNCHES_PER_SCAN[engine])
+        if launches != want:
+            raise RuntimeError(f"FocalFormer3D_LC {engine}: (K1, K2, K3) "
+                               f"{launches}, expected {want} (phase 4's)")
+        add(launches)
+    _check_lss_on_cpu(model, scans[0], card)
+    del model
+    torch.cuda.empty_cache()
+
+    ccfg = with_compute_dtype(get_config("DeformFormer3D_C_R50")["model"],
+                              "bfloat16")
+    model = _model(ccfg, device)
+    launches, out = _camera_slice(ccfg, model, "none", scans,
+                                  "DeformFormer3D_C_R50", False)
+    if any(launches):
+        raise RuntimeError(f"DeformFormer3D_C_R50 launched {launches}")
+    dark = dict(scans[0], imgs=torch.zeros_like(scans[0]["imgs"]))
+    with torch.no_grad():
+        out0 = model(None, img_data=_camera_inputs(ccfg, dark)[1])
+    delta = float((out0["dense_heatmap"] - out["dense_heatmap"]).abs().max())
+    if not delta > 0:
+        raise RuntimeError("DeformFormer3D_C_R50: outputs do not depend on "
+                           "the images")
+    print(f"camera DeformFormer3D_C_R50: zeroed images move the dense "
+          f"heatmap by up to {delta:.4g}; no kernel launched", flush=True)
+    del model, scans, out, out0
+    torch.cuda.empty_cache()
+
+    total["sparse_conv"] += _camera_train_step(card, device)
+    total["sparse_conv"] += _camera_train_cli(card)
+    print(f"camera ({card}): {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}", flush=True)
+    return total
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -1856,6 +2190,8 @@ def main():
         variants = phase_variants(card, device, scans)
         del scans
         tta = phase_tta(card, device, root, checkpoint, tmp)
+    torch.cuda.empty_cache()
+    camera = phase_camera(card, device)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -1876,6 +2212,7 @@ def main():
         by["dataset"] = dataset[name]
         by["variants"] = variants[name]
         by["tta"] = tta[name]
+        by["camera"] = camera[name]
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

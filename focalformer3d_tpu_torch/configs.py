@@ -4,10 +4,11 @@ Counterparts of ``focalformer3d_tpu.ops.voxelize.VoxelConfig``,
 ``models.detector.DetectorConfig`` / ``with_compute_dtype``,
 ``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig``,
 ``core.box_coder.BBoxCoderConfig`` and ``configs.focalformer3d_l
-.TrainRecipe``. Field names, defaults and the four named configs
-(``FocalFormer3D_L``, ``Tiny_L``, ``DeformFormer3D_L`` and
-``DeformFormer3D_L_dynamic``: model, loss, training recipe, class names and
-dataset) are identical, so
+.TrainRecipe``. Field names, defaults and the six named configs
+(``FocalFormer3D_L``, ``Tiny_L``, ``DeformFormer3D_L``,
+``DeformFormer3D_L_dynamic``, and the camera configs ``FocalFormer3D_LC``
+and ``DeformFormer3D_C_R50``: model, loss, training recipe, class names,
+dataset and, for the camera configs, the image size) are identical, so
 ``focalformer3d_tpu.utils.ref_keys.reference_state_shapes(cfg)`` accepts a
 config of either package. Only the dtype properties differ: they return
 torch dtypes here.
@@ -64,8 +65,9 @@ class BBoxCoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LSSConfig:
-    """Camera lift-splat settings; carried so ``DetectorConfig`` matches the
-    JAX one field for field. The camera branch is not ported yet."""
+    """Camera lift-splat settings (``models/lss.py`` re-exports it): the
+    network input size, the depth bins, the BEV voxel grid and the
+    channels of the lifted points and of the encoded BEV."""
 
     img_scale: Tuple[int, int] = (448, 800)
     camera_depth_range: Tuple[float, float, float] = (4.0, 45.0, 1.0)
@@ -405,16 +407,81 @@ def _deformformer3d_l_dynamic():
     return cfg
 
 
+IMG_SCALE = (448, 800)  # (H, W) network input of the camera configs
+
+
+def _nusc_lss():
+    return LSSConfig(img_scale=IMG_SCALE, camera_depth_range=(4.0, 45.0, 1.0),
+                     pc_range=_NUSC_PC_RANGE, downsample=4, grid=0.6,
+                     input_channels=256, cam_channels=64, out_channels=128)
+
+
+def _focalformer3d_lc():
+    """FocalFormer3D_LC (JAX ``configs/focalformer3d_lc.py``): the LiDAR
+    model's point branch, a ResNet-50 + FPN image branch at 448 x 800, the
+    LSS camera BEV, two ``bevfusion`` fusion layers, two heatmap stages
+    without reuse, and the image, LSS and point branches frozen (the staged
+    finetune from DeformFormer3D_C_R50 and FocalFormer3D_L)."""
+    cfg = _focalformer3d_l()
+    model = cfg["model"]
+    cfg["model"] = dataclasses.replace(
+        model, neck_layers=2, iterbev="bevfusion", input_img=True,
+        input_pts=True, img_backbone_depth=50, use_grid_mask=True,
+        cam_proj="lss", iter_bev_cam=True, max_points_height=10,
+        lss=_nusc_lss(), freeze_img=True, freeze_camlss=True,
+        freeze_pts=True, decoder=dataclasses.replace(
+            model.decoder, multistage_heatmap=2, reuse_first_heatmap=False))
+    cfg["img_scale"] = IMG_SCALE
+    return cfg
+
+
+def _deformformer3d_c_r50():
+    """DeformFormer3D_C_R50 (JAX ``configs/deformformer3d_c_r50.py``):
+    camera only (no point branch), ResNet-50 + FPN at 448 x 800, the LSS
+    camera BEV into the head with no fusion layer, one heatmap stage, 200
+    proposals, one decoder round, no denoising groups and no RoI features;
+    20 epochs, the fade at epoch 15."""
+    cfg = _focalformer3d_l()
+    model = cfg["model"]
+    cfg["model"] = DetectorConfig(
+        voxel=VoxelConfig(point_cloud_range=_NUSC_PC_RANGE,
+                          voxel_size=_NUSC_VOXEL, max_num_points=10,
+                          max_voxels=120000),
+        neck_layers=0, hidden=128, iterbev="bevfusion", extra_feat=False,
+        input_img=True, input_pts=False, img_backbone_depth=50,
+        use_grid_mask=True, cam_proj="lss", iter_bev_cam=True,
+        max_points_height=10, lss=_nusc_lss(),
+        decoder=FocalDecoderConfig(
+            num_classes=len(_NUSC_CLASSES), hidden=128, num_proposals=200,
+            num_decoder_layers=1, inner_layers=3, num_heads=8,
+            nms_kernel_size=3, multistage_heatmap=1,
+            reuse_first_heatmap=False, extra_feat=False, multiscale=True,
+            bevpos=True, roi_feats=0, roi_based_reg=False, add_gt_groups=0,
+            max_gts=200, kernel1_classes=(8, 9), code_size=10,
+            pc_range=_NUSC_PC_RANGE, voxel_size=_NUSC_VOXEL,
+            out_size_factor=8,
+            post_center_range=model.decoder.post_center_range,
+            score_threshold=0.0))
+    cfg["train"] = dataclasses.replace(cfg["train"], total_epochs=20,
+                                       fade_epoch=15)
+    cfg["img_scale"] = IMG_SCALE
+    return cfg
+
+
 _REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l,
              "DeformFormer3D_L": _deformformer3d_l,
-             "DeformFormer3D_L_dynamic": _deformformer3d_l_dynamic}
+             "DeformFormer3D_L_dynamic": _deformformer3d_l_dynamic,
+             "FocalFormer3D_LC": _focalformer3d_lc,
+             "DeformFormer3D_C_R50": _deformformer3d_c_r50}
 
 
 def get_config(name: str):
     """Named config: ``{"model": DetectorConfig, "loss": LossConfig,
-    "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes"}``, as
-    the JAX ``configs.get_config`` returns it. Only the LiDAR-only configs
-    of the ported slice are registered."""
+    "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes"}`` (and
+    ``"img_scale"`` for a camera config), as the JAX
+    ``configs.get_config`` returns it. The configs of ROADMAP.md Queue 1
+    items 8b (``FocalFormer3D_LC_Proj``), 8c (``FocalFormer3D_LC_TTA``)
+    and 10b (Waymo) are not registered."""
     if name not in _REGISTRY:
         raise KeyError(
             f"config {name!r} is not ported; available: {sorted(_REGISTRY)}"

@@ -14,8 +14,11 @@ packages give equal samples and batches for one seed
 
 Everything here is host-side NumPy; ``collate`` gives a dict of
 fixed-shape arrays for the device (padded points + masks, padded GTs,
-``bev_aug``). The camera parts (``lidar2img_matrices``, the images of
-``get_sample``) come with the camera branch: ``with_images=True`` raises.
+``bev_aug``). The camera parts (``lidar2img_matrices``, ``CAM_ORDER``,
+the images of ``get_sample`` and ``collate``) are the camera data layer,
+ROADMAP.md Queue 1 item 8c (the JAX copy decodes and resamples images with
+Pillow, which the card's machine lacks): ``with_images=True`` raises. The
+camera models train on the synthetic camera stream meanwhile.
 Points load through the native loader (``data/native``), which raises if
 it cannot be built; ``use_native=False`` takes the numpy path.
 """
@@ -49,8 +52,9 @@ DEFAULT_ATTRIBUTES = {
     "traffic_cone": "",
 }
 
-CAMERA_BRANCH = ("camera inputs are not ported yet: they come with the "
-                 "camera branch (ROADMAP.md, Queue 1 item 8)")
+CAMERA_BRANCH = ("camera inputs of the dataset layer are not ported yet: "
+                 "they come with the camera branch's data layer (ROADMAP.md, "
+                 "Queue 1 item 8c); the camera configs train on --synthetic")
 
 
 # ---------------------------------------------------------------------------

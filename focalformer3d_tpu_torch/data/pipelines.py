@@ -5,7 +5,7 @@ The port's copy of ``focalformer3d_tpu/data/pipelines.py`` without the
 camera stages: the LiDAR stacks of FocalFormer3D_L.py:64-134. Point
 loading is ``NuScenesDataset``'s own; the pipeline covers augmentation and
 filtering. ``with_images=True`` raises: the image stages come with the
-camera branch.
+camera data layer (ROADMAP.md, Queue 1 item 8c).
 """
 from __future__ import annotations
 

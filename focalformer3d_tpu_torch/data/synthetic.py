@@ -1,11 +1,12 @@
 """Synthetic LiDAR scenes: ground clutter plus boxes with surface points.
 
-Port of the LiDAR part of ``focalformer3d_tpu/data/synthetic.py``
-(``make_scene``, ``make_batch`` without camera images). It is numpy code
+Port of ``focalformer3d_tpu/data/synthetic.py`` (``make_scene``,
+``make_cameras``, ``render_images``, ``make_batch``). It is numpy code
 kept in the port so that the port runs where the JAX package is absent; it
 draws the same numbers from the same ``numpy.random.RandomState`` calls,
 so both packages give equal arrays for one seed
-(``tests/test_torch_voxelize.py``).
+(``tests/test_torch_voxelize.py``; the camera batch in
+``tests/test_torch_camera_model.py``).
 """
 from __future__ import annotations
 
@@ -119,14 +120,73 @@ def make_scene(rng: np.random.RandomState, n_points: int = 30000,
     return pts, boxes, labels
 
 
+def make_cameras(rng: np.random.RandomState, n_cams: int = 6,
+                 img_hw=(448, 800)) -> np.ndarray:
+    """Synthetic surround-view rig: a ring of cameras 1 m out from the
+    sensor at 1.8 m height, yawed evenly (jittered by up to 0.05 rad), one
+    pinhole intrinsic. Returns lidar2img (Ncam, 4, 4)."""
+    H, W = img_hw
+    fx = fy = 0.6 * W
+    K = np.array([
+        [fx, 0, W / 2, 0],
+        [0, fy, H / 2, 0],
+        [0, 0, 1, 0],
+        [0, 0, 0, 1],
+    ], np.float32)
+    mats = []
+    for i in range(n_cams):
+        yaw = 2 * np.pi * i / n_cams + rng.uniform(-0.05, 0.05)
+        c, s = np.cos(yaw), np.sin(yaw)
+        # lidar -> camera; the camera frame is (right, down, forward)
+        R_l2c = np.array([
+            [-s, c, 0],
+            [0, 0, -1],
+            [c, s, 0],
+        ], np.float32)
+        t = -R_l2c @ np.array([1.0 * c, 1.0 * s, 1.8], np.float32)
+        ext = np.eye(4, dtype=np.float32)
+        ext[:3, :3] = R_l2c
+        ext[:3, 3] = t
+        mats.append(K @ ext)
+    return np.stack(mats)
+
+
+def render_images(points: np.ndarray, lidar2img: np.ndarray,
+                  img_hw=(448, 800)) -> np.ndarray:
+    """Splat the scene's points into each camera, intensity 1 / depth
+    summed per pixel and clipped to [0, 1]: (Ncam, H, W, 3) float32."""
+    H, W = img_hw
+    n_cams = lidar2img.shape[0]
+    imgs = np.zeros((n_cams, H, W, 3), np.float32)
+    ph = np.concatenate(
+        [points[:, :3], np.ones((len(points), 1), np.float32)], -1)
+    for c in range(n_cams):
+        proj = ph @ lidar2img[c].T
+        z = proj[:, 2]
+        keep = z > 0.5
+        u = (proj[keep, 0] / z[keep]).astype(np.int32)
+        v = (proj[keep, 1] / z[keep]).astype(np.int32)
+        inb = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        u, v = u[inb], v[inb]
+        w = 1.0 / np.clip(z[keep][inb], 1.0, None)
+        for ch in range(3):
+            np.add.at(imgs[c, :, :, ch], (v, u), w)
+    return np.clip(imgs, 0, 1)
+
+
 def make_batch(rng: np.random.RandomState, batch_size: int = 2,
                n_points: int = 30000, n_boxes: int = 12, max_gts: int = 32,
                num_classes: int = 10,
                pc_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
-               point_dim: int = 5, mode: str = "uniform"):
-    """Batch of LiDAR scenes: points (B, N, D), points_mask (B, N), and
-    padded ground truth gt_boxes (B, G, 9), gt_labels, gt_valid."""
+               point_dim: int = 5, with_images: bool = False,
+               n_cams: int = 6, img_hw=(448, 800), mode: str = "uniform"):
+    """Batch of scenes: points (B, N, D), points_mask (B, N), and padded
+    ground truth gt_boxes (B, G, 9), gt_labels, gt_valid; ``with_images``
+    adds each scene's camera rig and rendered images: imgs (B, Ncam, H, W,
+    3), lidar2img (B, Ncam, 4, 4) and identity img_aug (B, Ncam, 4, 4) and
+    bev_aug (B, 4, 4)."""
     pts, masks, gts, gls, gvs = [], [], [], [], []
+    imgs, l2is = [], []
     for _ in range(batch_size):
         p, b, l = make_scene(rng, n_points, n_boxes, num_classes, pc_range,
                              point_dim, mode)
@@ -141,10 +201,22 @@ def make_batch(rng: np.random.RandomState, batch_size: int = 2,
         gts.append(gb)
         gls.append(gl)
         gvs.append(gv)
-    return {
+        if with_images:
+            l2i = make_cameras(rng, n_cams, img_hw)
+            imgs.append(render_images(p, l2i, img_hw))
+            l2is.append(l2i)
+    out = {
         "points": np.stack(pts),
         "points_mask": np.stack(masks),
         "gt_boxes": np.stack(gts),
         "gt_labels": np.stack(gls),
         "gt_valid": np.stack(gvs),
     }
+    if with_images:
+        out["imgs"] = np.stack(imgs)
+        out["lidar2img"] = np.stack(l2is)
+        out["img_aug"] = np.array(np.broadcast_to(
+            np.eye(4, dtype=np.float32), (batch_size, n_cams, 4, 4)))
+        out["bev_aug"] = np.array(np.broadcast_to(
+            np.eye(4, dtype=np.float32), (batch_size, 4, 4)))
+    return out

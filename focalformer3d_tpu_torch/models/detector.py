@@ -1,29 +1,39 @@
-"""FocalFormer3D detector, LiDAR only.
+"""FocalFormer3D detector: LiDAR, camera and LiDAR + camera.
 
 Port of ``focalformer3d_tpu/models/detector.py`` (``preprocess_points``,
-``FocalFormer3D``, ``get_bboxes``): voxelization with the mean VFE (hard or
-dynamic, both parameter-free) ->
-SparseEncoder -> SECOND -> SECONDFPN -> FocalEncoder -> FocalDecoder ->
-boxes. Submodules carry the reference checkpoint's top-level names
-(``pts_middle_encoder``, ``pts_backbone``, ``pts_neck``, ``imgpts_neck``,
-``pts_bbox_head``). The module's ``training`` flag is the JAX ``train``
-argument: in eval the sparse encoder's dense boundary is
-``sparse_dense_from_eval`` and batch norm uses its running statistics; in
-training the boundary is ``sparse_dense_from``, batch norm uses batch
-statistics and updates the running ones, and the head adds its denoising
-GT groups and dropouts (``training/train_step.py`` drives it).
+``FocalFormer3D``, ``get_bboxes``): [image branch: ResNet + FPN, level 0
+-> the LSS camera BEV in the neck] + [point branch: voxelization with the
+mean VFE (hard or dynamic, both parameter-free) -> SparseEncoder -> SECOND
+-> SECONDFPN] -> FocalEncoder fusion neck -> FocalDecoder -> boxes.
+Submodules carry the reference checkpoint's top-level names
+(``pts_middle_encoder``, ``pts_backbone``, ``pts_neck``, ``img_backbone``,
+``img_neck``, ``imgpts_neck``, ``pts_bbox_head``). The module's
+``training`` flag is the JAX ``train`` argument: in eval the sparse
+encoder's dense boundary is ``sparse_dense_from_eval`` and batch norm uses
+its running statistics; in training the boundary is ``sparse_dense_from``,
+batch norm uses batch statistics and updates the running ones, and the
+head adds its denoising GT groups and dropouts (``training/train_step.py``
+drives it). The image branch and the LSS compute in float32 whatever
+``compute_dtype`` says, as the JAX modules do (they take no dtype).
 
-Branch freezing, as the JAX detector does it (``detector.py:239-273``):
-with ``freeze_pts`` the point branch (``pts_middle_encoder``,
-``pts_backbone``, ``pts_neck``) stays in eval mode when the model trains,
-so its batch norm uses and keeps its running statistics and the encoder
-takes the eval dense boundary, and it runs without autograd, so its
-backward launches no kernel (JAX cuts the gradient at the FPN output). The
-camera branch that ``freeze_img`` and ``freeze_camlss`` cover is not
-ported. Which parameters a flag freezes is decided here, by
-``trainable_mask``: the model marks them ``requires_grad=False`` when it is
-built, as the reference does, and the optimizer (``training/optim``) takes
-only the parameters that require a gradient.
+Camera inputs (``img_data``): ``imgs`` (B, Ncam, H, W, 3), ``lidar2img``
+(B, Ncam, 4, 4) and, optionally, the recorded augmentations ``img_aug``
+(B, Ncam, 4, 4) and ``bev_aug`` (B, 4, 4); cam2lidar is
+``torch.linalg.inv(lidar2img)``. With ``input_pts=False`` (the camera-only
+``DeformFormer3D_C_R50``) there is no voxelization and no point branch,
+and the camera BEV feeds the head (``models/focal_encoder.py``).
+
+Branch freezing, as the JAX detector does it (``detector.py:174-273``):
+a frozen branch stays in eval mode when the model trains, so its batch
+norm uses and keeps its running statistics, and it runs without autograd,
+so its backward launches no kernel (JAX cuts the gradient at its output).
+``freeze_pts`` covers ``pts_middle_encoder``, ``pts_backbone`` and
+``pts_neck`` (the encoder then takes the eval dense boundary);
+``freeze_img`` the image backbone and FPN; ``freeze_camlss`` the LSS
+(``imgpts_neck.cam_lss``). Which parameters a flag freezes is decided
+here, by ``trainable_mask``: the model marks them ``requires_grad=False``
+when it is built, as the reference does, and the optimizer
+(``training/optim``) takes only the parameters that require a gradient.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from ..configs import DetectorConfig
 from ..ops import voxelize as vox
 from . import focal_decoder as fd
 from .focal_encoder import FocalEncoder
+from .resnet import FPN, ResNet
 from .second import SECOND, SECONDFPN
 from .sparse_encoder import SparseEncoder
 
@@ -100,41 +111,51 @@ def _sparse_out_z(cfg: DetectorConfig) -> int:
 class FocalFormer3D(nn.Module):
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
-        if cfg.input_img or not cfg.input_pts:
-            raise NotImplementedError("the camera branch is not ported")
         self.cfg = cfg
-        self.pts_middle_encoder = SparseEncoder(
-            in_channels=cfg.point_dim,
-            sparse_shape=cfg.sparse_shape,
-            output_channels=cfg.sparse_out_channels,
-            encoder_channels=cfg.encoder_channels,
-            down_paddings=cfg.down_paddings,
-            capacities=cfg.capacities,
-            out_capacity=cfg.out_capacity,
-            engine=cfg.sparse_engine,
-            dense_from=cfg.sparse_dense_from_eval,
-            train_dense_from=cfg.sparse_dense_from,
-        )
-        self.pts_backbone = SECOND(
-            cfg.sparse_out_channels * _sparse_out_z(cfg),
-            cfg.second_channels, cfg.second_layers,
-        )
-        self.pts_neck = SECONDFPN(cfg.second_channels, cfg.fpn_channels)
+        if cfg.input_pts:
+            self.pts_middle_encoder = SparseEncoder(
+                in_channels=cfg.point_dim,
+                sparse_shape=cfg.sparse_shape,
+                output_channels=cfg.sparse_out_channels,
+                encoder_channels=cfg.encoder_channels,
+                down_paddings=cfg.down_paddings,
+                capacities=cfg.capacities,
+                out_capacity=cfg.out_capacity,
+                engine=cfg.sparse_engine,
+                dense_from=cfg.sparse_dense_from_eval,
+                train_dense_from=cfg.sparse_dense_from,
+            )
+            self.pts_backbone = SECOND(
+                cfg.sparse_out_channels * _sparse_out_z(cfg),
+                cfg.second_channels, cfg.second_layers,
+            )
+            self.pts_neck = SECONDFPN(cfg.second_channels, cfg.fpn_channels)
+        if cfg.input_img:
+            self.img_backbone = ResNet(cfg.img_backbone_depth)
+            self.img_neck = FPN(self.img_backbone.out_channels, 256,
+                                cfg.img_fpn_outs)
         self.imgpts_neck = FocalEncoder(
             sum(cfg.fpn_channels), cfg.hidden, cfg.neck_layers, cfg.iterbev,
-            cfg.extra_feat,
+            cfg.extra_feat, cfg.input_img, cfg.input_pts,
+            cfg.cam_proj if cfg.input_img else "", cfg.lss, cfg.bev_shape,
+            cfg.freeze_camlss,
         )
         self.pts_bbox_head = fd.FocalDecoder(cfg.decoder)
         keep = trainable_mask(cfg, [n for n, _ in self.named_parameters()])
         for n, p in self.named_parameters():
             p.requires_grad_(keep[n])
 
-    def frozen_branches(self):
+    def frozen_branches(self) -> List[nn.Module]:
         """The submodules that the config's freeze flags keep in eval mode
         and out of autograd."""
-        if not self.cfg.freeze_pts:
-            return []
-        return [self.pts_middle_encoder, self.pts_backbone, self.pts_neck]
+        cfg, out = self.cfg, []
+        if cfg.input_img and cfg.freeze_img:
+            out += [self.img_backbone, self.img_neck]
+        if cfg.input_img and cfg.freeze_camlss:
+            out += [self.imgpts_neck.cam_lss]
+        if cfg.input_pts and cfg.freeze_pts:
+            out += [self.pts_middle_encoder, self.pts_backbone, self.pts_neck]
+        return out
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -142,30 +163,61 @@ class FocalFormer3D(nn.Module):
             m.eval()
         return self
 
-    def forward(self, voxel_data: Dict[str, torch.Tensor],
+    def image_features(self, img_data: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """ResNet + FPN level 0 of every camera, float32, and the camera
+        geometry: the neck's camera arrays."""
+        imgs = img_data["imgs"]
+        B, N = imgs.shape[:2]
+        frozen = (torch.no_grad() if self.cfg.freeze_img
+                  else contextlib.nullcontext())
+        with frozen:
+            feats = self.img_backbone(imgs.flatten(0, 1).float())
+            lvl0 = self.img_neck(feats, num_levels=1)[0]
+        lidar2img = img_data["lidar2img"].float()
+        inv = torch.linalg.inv(lidar2img)
+        return {"img_feats": lvl0.unflatten(0, (B, N)),
+                "lidar2img": lidar2img,
+                "cam2lidar_rot": inv[..., :3, :3],
+                "cam2lidar_trans": inv[..., :3, 3],
+                "img_aug": img_data.get("img_aug"),
+                "bev_aug": img_data.get("bev_aug")}
+
+    def forward(self, voxel_data: Optional[Dict[str, torch.Tensor]],
                 gt_boxes: Optional[torch.Tensor] = None,
                 gt_labels: Optional[torch.Tensor] = None,
                 gt_valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                mark: Optional[Callable[[str], None]] = None
+                mark: Optional[Callable[[str], None]] = None,
+                img_data: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
-        """voxel_data from ``preprocess_points``; in training the padded GT
-        (boxes (B, G, 9), labels, validity) for the head's denoising groups
-        and the generator of its dropouts and noise. ``mark(stage)``, if
-        given, is called as each stage ends: the encoder's (see
-        ``SparseEncoder.forward``), then "SECOND + neck", "FocalEncoder" and
+        """voxel_data from ``preprocess_points`` (None without the point
+        branch); ``img_data`` the camera inputs (None without the image
+        branch); in training the padded GT (boxes (B, G, 9), labels,
+        validity) for the head's denoising groups and the generator of its
+        dropouts and noise. ``mark(stage)``, if given, is called as each
+        stage ends: "image backbone + FPN", the encoder's (see
+        ``SparseEncoder.forward``), "SECOND + neck", the LSS's ("LSS lift",
+        "LSS splat", "BevEncode"), "FocalEncoder" (the fusion layers) and
         "decoder". Returns the head's dict."""
         mark = mark or (lambda _: None)
-        dt = self.cfg.tdtype
-        frozen = (torch.no_grad() if self.cfg.freeze_pts
-                  else contextlib.nullcontext())
-        with frozen:
-            bev = self.pts_middle_encoder(voxel_data["features"],
-                                          voxel_data["coords"],
-                                          voxel_data["voxel_mask"], mark)
-            fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
-        mark("SECOND + neck")
-        pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt)
+        cfg = self.cfg
+        dt = cfg.tdtype
+        neck_img = None
+        if cfg.input_img and img_data is not None:
+            neck_img = self.image_features(img_data)
+            mark("image backbone + FPN")
+        fpn = None
+        if cfg.input_pts:
+            frozen = (torch.no_grad() if cfg.freeze_pts
+                      else contextlib.nullcontext())
+            with frozen:
+                bev = self.pts_middle_encoder(voxel_data["features"],
+                                              voxel_data["coords"],
+                                              voxel_data["voxel_mask"], mark)
+                fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
+            mark("SECOND + neck")
+        pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt, neck_img, mark)
         mark("FocalEncoder")
         out = self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
                                  gt_labels, gt_valid, generator)

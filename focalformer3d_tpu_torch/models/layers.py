@@ -1,11 +1,12 @@
 """Shared building blocks, NHWC at every forward.
 
 Port of ``focalformer3d_tpu/models/layers.py`` (``ConvBN``,
-``MaskedBatchNorm``, ``InvertedResidual``, ``MLP``, ``PredictionFFN``,
-``sine_embed_2d``). Submodules carry the reference checkpoint's names (mmcv
-ConvModule ``.conv``/``.bn``, torchvision ``InvertedResidual.conv.N``, DINO
-``MLP.layers.N``, TransFusion FFN ``{head}.0.conv``/``{head}.0.bn``/
-``{head}.1``), so a reference-format state dict loads with ``strict=True``.
+``MaskedBatchNorm``, ``BasicBlock2d``, ``InvertedResidual``, ``MLP``,
+``PredictionFFN``, ``sine_embed_2d``). Submodules carry the reference
+checkpoint's names (mmcv ConvModule ``.conv``/``.bn``, torchvision
+``InvertedResidual.conv.N``, DINO ``MLP.layers.N``, TransFusion FFN
+``{head}.0.conv``/``{head}.0.bn``/``{head}.1``), so a reference-format
+state dict loads with ``strict=True``.
 
 Every forward takes and returns channels-last tensors, as the JAX modules
 do; the convs run on NCHW views of them. Compute runs in the ``dtype``
@@ -112,6 +113,26 @@ class ConvBN(nn.Module):
                         dtype=dtype)
         y = apply_bn(y, self.bn)
         return F.relu(y) if self.act else y
+
+
+class BasicBlock2d(nn.Module):
+    """torchvision ``resnet.BasicBlock`` (two 3x3 conv + BN, identity
+    skip; ``conv1``/``bn1``/``conv2``/``bn2``), the camera BEV's
+    ``iterimg`` block. Batch norm decay 0.9, as the JAX ``ConvBN``."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c, c, 3, 1, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(c)
+        self.conv2 = nn.Conv2d(c, c, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(c)
+
+    def forward(self, x, dtype=None):
+        y = conv2d_nhwc(x, self.conv1.weight, None, 1, 1, dtype=dtype)
+        y = F.relu(apply_bn(y, self.bn1))
+        y = conv2d_nhwc(y, self.conv2.weight, None, 1, 1, dtype=dtype)
+        y = apply_bn(y, self.bn2)
+        return F.relu(y + x)
 
 
 # flax's BatchNorm decay 0.99 as torch's momentum (InvertedResidual,

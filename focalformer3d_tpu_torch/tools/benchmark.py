@@ -19,13 +19,22 @@ the numbers of one call compare. Per engine:
   synchronise at the end), the engines in turn and then in reverse;
 - ms/scan at batch ``--big-batch`` (4; 0 skips it) beside ``--batch-size``.
 
-One JSON line with these numbers, the engines, the dtype and the card's
-name and power limit (as ``nvidia-smi`` gives them) is printed right after
-the timing, before any diagnostic. Then, per engine, the stage split of
-one scan by CUDA events (voxelize, index build, sparse convs, dense tail,
-SECOND + neck, FocalEncoder, decoder, get_bboxes; the model's forward
-marks its stages) and each level's active voxels against its capacity,
-with the voxels a capacity dropped (an overflow is flagged).
+A camera config (``FocalFormer3D_LC``, ``DeformFormer3D_C_R50``) takes
+each scan with its six synthetic cameras rendered at the config's image
+size (``data/synthetic.make_batch(with_images=True)``, as the JAX
+benchmark builds them); the camera-only config has no point branch, so it
+runs once, under the engine name "none".
+
+One JSON line with these numbers, the engines, the dtype, the peak device
+memory of the timed scans and the card's name and power limit (as
+``nvidia-smi`` gives them) is printed right after the timing, before any
+diagnostic. Then, per engine, the stage split of one scan by CUDA events
+(voxelize, index build, sparse convs, dense tail, SECOND + neck,
+FocalEncoder, decoder, get_bboxes; a camera config adds image backbone +
+FPN, LSS lift, LSS splat and BevEncode, and its FocalEncoder is the fusion
+layers alone; the model's forward marks its stages) and each level's
+active voxels against its capacity, with the voxels a capacity dropped (an
+overflow is flagged).
 
 ``--train`` times the training step instead (``training/train_step``,
 float32 as the config says and as the train CLI computes it, TF32 off,
@@ -33,7 +42,8 @@ engine ``cuda`` on a card): ms/step over ``--samples`` steps (at least 3)
 with the first step apart, its split into
 voxelize / forward / loss / backward / optimizer by the step's ``mark``,
 and, where the config freezes a branch, the same with the freeze off. Its
-JSON line comes right after that timing; then SECOND's first conv2d at
+JSON line comes right after that timing; then (for a config with the point
+branch) SECOND's first conv2d at
 its training shape, float32, forward and backward (``aten``'s
 ``convolution_backward``, dx and dW), each timed by CUDA-graph replay
 (``tools/_common.time_ms``) in six variants: (a) the model's
@@ -69,6 +79,12 @@ from .train import resolve_device
 CARD_ENGINES = "cuda,cuda_mxu,cuda_zrun"
 STAGES = ("voxelize", "index build", "sparse convs", "dense tail",
           "SECOND + neck", "FocalEncoder", "decoder", "get_bboxes")
+# a camera config's stages: the image branch before the point branch, the
+# LSS inside the neck before its fusion layers ("FocalEncoder")
+CAMERA_STAGES = ("voxelize", "image backbone + FPN", "index build",
+                 "sparse convs", "dense tail", "SECOND + neck", "LSS lift",
+                 "LSS splat", "BevEncode", "FocalEncoder", "decoder",
+                 "get_bboxes")
 
 
 def parse_args(argv=None):
@@ -134,67 +150,84 @@ def _inference(args, device, card):
     from ..models.detector import FocalFormer3D, preprocess_points
     from ..utils.ref_keys import make_fake_state_dict
 
-    engines = [e for e in args.engines.split(",") if e]
     cfg = with_compute_dtype(get_config(args.config)["model"], args.dtype)
+    # a camera-only config has no point branch, so no engine to choose
+    engines = ([e for e in args.engines.split(",") if e] if cfg.input_pts
+               else ["none"])
     model = FocalFormer3D(cfg).eval()
     model.load_state_dict(make_fake_state_dict(model, seed=0), strict=True)
     model = model.to(device)
-    enc = model.pts_middle_encoder
+    enc = model.pts_middle_encoder if cfg.input_pts else None
     rng = np.random.RandomState(0)
 
     def scans(batch_size):
         b = synthetic.make_batch(
             rng, batch_size=batch_size, n_points=args.n_points, n_boxes=24,
             max_gts=32, num_classes=cfg.decoder.num_classes,
-            pc_range=cfg.voxel.point_cloud_range, mode="radial")
-        return (torch.from_numpy(b["points"]).to(device),
-                torch.from_numpy(b["points_mask"]).to(device))
+            pc_range=cfg.voxel.point_cloud_range, mode="radial",
+            with_images=cfg.input_img, img_hw=cfg.lss.img_scale)
+        keys = ("points", "points_mask") + (
+            ("imgs", "lidar2img", "img_aug", "bev_aug") if cfg.input_img
+            else ())
+        return {k: torch.from_numpy(b[k]).to(device) for k in keys}
 
-    def infer(engine, pts, mask):
-        enc.engine = engine
-        vox = preprocess_points(cfg, pts, mask)
-        return model.get_bboxes(model(vox), 200)
+    def inputs(engine, scan):
+        if enc is not None:
+            enc.engine = engine
+        vox = (preprocess_points(cfg, scan["points"], scan["points_mask"])
+               if cfg.input_pts else None)
+        img = ({k: scan[k] for k in ("imgs", "lidar2img", "img_aug",
+                                     "bev_aug")} if cfg.input_img else None)
+        return vox, img
 
-    def sync_ms(engine, pts, mask):
+    def infer(engine, scan):
+        vox, img = inputs(engine, scan)
+        return model.get_bboxes(model(vox, img_data=img), 200)
+
+    def sync_ms(engine, scan):
         with T(engine, record=False) as t:
-            dec = t.sync(infer(engine, pts, mask))
+            dec = t.sync(infer(engine, scan))
         if not all(bool(torch.isfinite(dec[k]).all())
                    for k in ("bboxes", "scores")):
             raise RuntimeError(f"{engine}: non-finite boxes or scores")
         return t.ms
 
-    pts, mask = scans(args.batch_size)
+    scan = scans(args.batch_size)
     for engine in engines:
         for _ in range(max(args.warmup, 1)):
-            sync_ms(engine, pts, mask)
+            sync_ms(engine, scan)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     per_scan = {e: [] for e in engines}
     for _ in range(args.samples):  # engines in turn, scan by scan
         for engine in engines:
-            per_scan[engine].append(sync_ms(engine, pts, mask)
-                                    / args.batch_size)
+            per_scan[engine].append(sync_ms(engine, scan) / args.batch_size)
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else None)
     pipelined = {e: [] for e in engines}
     for order in (engines, engines[::-1]):
         for engine in order:
             with T(engine, record=False) as t:
                 for _ in range(args.samples):
-                    dec = infer(engine, pts, mask)
+                    dec = infer(engine, scan)
                 t.sync(dec)
             pipelined[engine].append(t.ms / (args.samples * args.batch_size))
     big = {}
     if args.big_batch:
-        pts_b, mask_b = scans(args.big_batch)
+        scan_b = scans(args.big_batch)
         for engine in engines:
-            sync_ms(engine, pts_b, mask_b)
+            sync_ms(engine, scan_b)
         big = {e: [] for e in engines}
         for _ in range(max(args.samples // args.big_batch, 3)):
             for engine in engines:
-                big[engine].append(sync_ms(engine, pts_b, mask_b)
-                                   / args.big_batch)
+                big[engine].append(sync_ms(engine, scan_b) / args.big_batch)
 
     result = {"benchmark": "inference", "config": args.config,
               "dtype": args.dtype, "n_points": args.n_points,
               "batch_size": args.batch_size, "samples": args.samples,
-              "device": card, "engines": {}}
+              "cameras": (int(scan["imgs"].shape[1]) if cfg.input_img
+                          else 0),
+              "peak_memory_gib": peak, "device": card, "engines": {}}
     for engine in engines:
         row = {"ms_per_scan": summary(per_scan[engine]),
                "ms_per_scan_pipelined": statistics.mean(pipelined[engine]),
@@ -205,25 +238,28 @@ def _inference(args, device, card):
     print(json.dumps(result), flush=True)
 
     # ---- diagnostics, after the JSON line ----
-    drop0 = voxelizer_drop(cfg, pts, mask)
+    stages = CAMERA_STAGES if cfg.input_img else STAGES
     clock_name = "CUDA events" if device.type == "cuda" else "host clock"
     n_stage = len(cfg.encoder_channels)
     for engine in engines:
-        enc.engine = engine
         splits = []
         for _ in range(3):
-            clock = StageClock(device, STAGES)
+            clock = StageClock(device, stages)
             clock.start()
-            vox = preprocess_points(cfg, pts, mask)
+            vox, img = inputs(engine, scan)
             clock.mark("voxelize")
-            out = model(vox, mark=clock.mark)
+            out = model(vox, mark=clock.mark, img_data=img)
             model.get_bboxes(out, 200)
             clock.mark("get_bboxes")
             splits.append(clock.split())
-        split = {s: statistics.median(x[s] for x in splits) for s in STAGES}
+        split = {s: statistics.median(x[s] for x in splits) for s in stages}
         print(f"stage split {engine} ({clock_name}, median of 3 scans, ms): "
-              + ", ".join(f"{s} {split[s]:.3f}" for s in STAGES)
+              + ", ".join(f"{s} {split[s]:.3f}" for s in stages)
               + f"; total {sum(split.values()):.3f}", flush=True)
+        if enc is None:
+            continue
+        pts, mask = scan["points"], scan["points_mask"]
+        drop0 = voxelizer_drop(cfg, pts, mask)
         levels = []
         vox = preprocess_points(cfg, pts, mask)
         enc(vox["features"], vox["coords"], vox["voxel_mask"], levels=levels)
@@ -292,7 +328,8 @@ def _train(args, device, card):
         np.random.RandomState(0), batch_size=args.batch_size,
         n_points=args.n_points, n_boxes=24, max_gts=32,
         num_classes=cfg.decoder.num_classes,
-        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+        pc_range=cfg.voxel.point_cloud_range, mode="radial",
+        with_images=cfg.input_img, img_hw=cfg.lss.img_scale)
     batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     result = {"benchmark": "train", "config": args.config,
               "dtype": cfg.compute_dtype, "n_points": args.n_points,
@@ -310,7 +347,8 @@ def _train(args, device, card):
     print(json.dumps(result), flush=True)
 
     # ---- diagnostics, after the JSON line ----
-    conv2d_variants(cfg, batch, device)
+    if cfg.input_pts:
+        conv2d_variants(cfg, batch, device)
     return result
 
 

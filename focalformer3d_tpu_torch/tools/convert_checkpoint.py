@@ -12,12 +12,15 @@ train CLI's ``--load-from`` read:
     python -m focalformer3d_tpu_torch.tools.convert_checkpoint \\
         FocalFormer3D_L ref.pth work_dirs/ff3d_l_ref [--require-full]
 
-A key the ``.pth`` lacks, or has with another shape, is written as zeros
-(as the JAX tool leaves a flax leaf it cannot fill at zero), and a key
-the inventory lacks is dropped; the summary counts both. Buffers that
-carry no learned state (batch-norm counters, the head's ``bev_pos``) are
-not required. ``--require-full`` exits with an error, writing nothing, if
-a key is missing, extra or of another shape.
+A key the ``.pth`` lacks, or has with another shape, is written as zeros (as
+the JAX tool leaves a flax leaf it cannot fill at zero), and a key the
+inventory lacks is dropped; the summary counts both. A key of a branch the
+reference builds and the config's model does not (the point branch of the
+camera-only ``DeformFormer3D_C_R50``, ``utils/jax_keys.absent``) is skipped, as
+the JAX tool skips it. Buffers that carry no learned state (batch-norm
+counters, the head's ``bev_pos``, the LSS ``frustum``) are not required.
+``--require-full`` exits with an error, writing nothing, if a key is missing,
+extra or of another shape.
 """
 from __future__ import annotations
 
@@ -34,13 +37,15 @@ import torch
 class Report:
     """The keys of one conversion: taken from the ``.pth``; required and
     missing; present with another shape (key, its shape, the inventory's);
-    in the ``.pth`` but not in the inventory; not required and missing."""
+    in the ``.pth`` but not in the inventory; not required and missing;
+    of a branch the model does not build."""
 
     loaded: List[str]
     missing: List[str]
     mismatched: List[Tuple[str, tuple, tuple]]
     unexpected: List[str]
     defaulted: List[str]
+    skipped: List[str] = dataclasses.field(default_factory=list)
 
     @property
     def full(self) -> bool:
@@ -54,7 +59,8 @@ class Report:
         lines = [f"loaded {len(self.loaded)} tensors; {len(self.missing)} "
                  f"missing, {len(self.mismatched)} of another shape, "
                  f"{len(self.unexpected)} not in the inventory, "
-                 f"{len(self.defaulted)} unlearned buffers defaulted"]
+                 f"{len(self.defaulted)} unlearned buffers defaulted, "
+                 f"{len(self.skipped)} skipped (module absent)"]
         for name, keys in (("missing", self.missing),
                            ("another shape", self.mismatched),
                            ("not in the inventory", self.unexpected)):
@@ -78,7 +84,7 @@ def convert(config: str, pth: str, out_dir: str,
     from ..configs import get_config
     from ..models.detector import FocalFormer3D
     from ..training.checkpoint import STATE_FILE
-    from ..utils.jax_keys import IGNORED
+    from ..utils.jax_keys import IGNORED, absent
     from ..utils.ref_keys import reference_key_order
 
     cfg = get_config(config)["model"]
@@ -86,7 +92,9 @@ def convert(config: str, pth: str, out_dir: str,
         model = FocalFormer3D(cfg)
     own = model.state_dict()
     src = load_reference_state(pth)
-    report = Report([], [], [], sorted(set(src) - set(own)), [])
+    extra = sorted(set(src) - set(own))
+    report = Report([], [], [], [k for k in extra if not absent(cfg, k)], [],
+                    [k for k in extra if absent(cfg, k)])
     out = {}
     for k in reference_key_order(model):
         want = tuple(own[k].shape)

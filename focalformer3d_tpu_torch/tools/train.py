@@ -11,6 +11,13 @@ Fading, per-epoch checkpoints and auto-resume, on one card:
     python -m focalformer3d_tpu_torch.tools.train FocalFormer3D_L \\
         --synthetic --iters-per-epoch 20 --epochs 2 --work-dir /tmp/smoke
 
+A camera config's synthetic stream carries six cameras per scene, rendered
+at the config's image size (``data/synthetic.make_batch(with_images=True)``,
+as the JAX CLI draws it); ``--load-img-from`` loads the image branch
+(``img_backbone``, ``img_neck``, ``imgpts_neck.cam_lss``) of another
+checkpoint. A camera config on a nuScenes directory raises: the camera
+data layer is ROADMAP.md Queue 1 item 8c.
+
 The dataset branch is JAX's nuScenes branch: the GT-paste sampler where
 ``nuscenes_dbinfos_train.pkl`` exists in ``--data-root``, the train
 pipeline, CBGS resampling unless ``--no-cbgs``, one ``rng_np.permutation``
@@ -194,7 +201,8 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                     n_boxes=min(16, cfg.decoder.max_gts // 4),
                     max_gts=cfg.decoder.max_gts // 4,
                     num_classes=cfg.decoder.num_classes,
-                    pc_range=cfg.voxel.point_cloud_range)
+                    pc_range=cfg.voxel.point_cloud_range,
+                    with_images=cfg.input_img, img_hw=cfg.lss.img_scale)
     else:
         batch_iter, steps_per_epoch, ds = nuscenes_batches(
             args, cfg_all, batch_size, rng_np)

@@ -7,7 +7,11 @@ the head's denoising GT groups and dropouts), the Hungarian-matched
 ``detection_loss``, the backward (on engine ``cuda``: K1 on the transposed
 rulebooks for dx and the dW kernel on the sparse levels), and the clipped,
 scheduled AdamW update of ``training/optim.py``), ``make_eval_step`` and the
-branch-freeze masks.
+branch-freeze masks. A camera config's batch also carries ``imgs``,
+``lidar2img``, ``img_aug`` and ``bev_aug`` (``_img_data_from_batch``); with
+``use_grid_mask`` the step masks the images with ``models/grid_mask``,
+drawn from the step's generator; without the point branch there is no
+voxelization.
 
 Branch freezing follows the reference's ``requires_grad=False`` +
 ``.eval()`` on the img / cam_lss / pts branches (detectors/
@@ -28,6 +32,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..configs import DetectorConfig
+from ..models import grid_mask as gm
 from ..models.detector import (FocalFormer3D, preprocess_points,
                                trainable_mask)
 from .losses import LossConfig, detection_loss
@@ -36,6 +41,26 @@ from .optim import ClipAdamW, OptState
 __all__ = ["PHASES", "make_eval_step", "make_train_step", "trainable_mask"]
 
 PHASES = ("voxelize", "forward", "loss", "backward", "optimizer")
+_IMG_KEYS = ("imgs", "lidar2img", "img_aug", "bev_aug")
+
+
+def _img_data_from_batch(batch: Dict[str, torch.Tensor]
+                         ) -> Optional[Dict[str, torch.Tensor]]:
+    if "imgs" not in batch:
+        return None
+    return {k: batch[k] for k in _IMG_KEYS if k in batch}
+
+
+def _inputs(cfg: DetectorConfig, batch: Dict[str, torch.Tensor],
+            train: bool):
+    """(voxel data or None, camera data or None) of a batch."""
+    vox = None
+    if cfg.input_pts:
+        with torch.no_grad():
+            vox = preprocess_points(cfg, batch["points"],
+                                    batch["points_mask"], train=train)
+    img_data = _img_data_from_batch(batch) if cfg.input_img else None
+    return vox, img_data
 
 
 def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
@@ -45,11 +70,12 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
     ``model`` is a ``FocalFormer3D`` of ``cfg``; ``opt_state`` (``tx.init``
     of its parameters or named parameters, which keeps those that require
     a gradient) names the parameters it updates: a frozen one among them
-    raises. Both are updated in place. ``batch`` holds points (B, N, 5), points_mask (B, N), gt_boxes
-    (B, G, 9), gt_labels (B, G) int32 and gt_valid (B, G) on the model's
-    device; ``generator`` (on that device) draws the dropouts and the
-    GT-group noise. ``mark(name)``, if given, is called after each phase of
-    ``PHASES``. Metrics are the loss terms of ``detection_loss``
+    raises. Both are updated in place. ``batch`` holds points (B, N, 5),
+    points_mask (B, N), gt_boxes (B, G, 9), gt_labels (B, G) int32 and
+    gt_valid (B, G) on the model's device (and, for a camera config, the
+    camera arrays of ``_img_data_from_batch``); ``generator`` (on that
+    device) draws the dropouts, the GT-group noise and the grid mask.
+    ``mark(name)``, if given, is called after each phase of ``PHASES``. Metrics are the loss terms of ``detection_loss``
     (detached), ``grad_norm`` (the global norm of the updated parameters'
     gradients before clipping; the JAX step's metric also counts frozen
     leaves' gradients) and ``assign_iterations``."""
@@ -61,9 +87,10 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
                    ) -> Dict[str, torch.Tensor]:
         mark = mark or (lambda _: None)
         model.train()
-        with torch.no_grad():
-            vox = preprocess_points(cfg, batch["points"],
-                                    batch["points_mask"], train=True)
+        vox, img_data = _inputs(cfg, batch, True)
+        if img_data is not None and cfg.use_grid_mask:
+            img_data = dict(img_data)
+            img_data["imgs"] = gm.grid_mask(generator, img_data["imgs"])
         mark("voxelize")
         params = opt_state.params(model)
         if not all(p.requires_grad for p in params):
@@ -72,7 +99,7 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
                              "with tx.init of this model's parameters")
         with torch.enable_grad():  # whatever the caller's grad mode
             out = model(vox, batch["gt_boxes"], batch["gt_labels"],
-                        batch["gt_valid"], generator)
+                        batch["gt_valid"], generator, img_data=img_data)
             mark("forward")
             loss, metrics = detection_loss(cfg.decoder, lcfg, out,
                                            batch["gt_boxes"],
@@ -101,14 +128,14 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
 
 def make_eval_step(cfg: DetectorConfig, max_out: int = 200):
     """Returns ``eval_step(model, batch) -> boxes``: the inference
-    voxelization, the forward in eval mode and ``get_bboxes``, without
-    autograd."""
+    voxelization, the forward in eval mode (with the batch's camera arrays
+    for a camera config) and ``get_bboxes``, without autograd."""
 
     @torch.no_grad()
     def eval_step(model: FocalFormer3D, batch: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
         model.eval()
-        vox = preprocess_points(cfg, batch["points"], batch["points_mask"])
-        return model.get_bboxes(model(vox), max_out)
+        vox, img_data = _inputs(cfg, batch, False)
+        return model.get_bboxes(model(vox, img_data=img_data), max_out)
 
     return eval_step

@@ -6,7 +6,8 @@ converted release) loads with ``load_state_dict(..., strict=True)`` as it
 is; spconv weights keep their (kz, ky, kx, I, O) layout and are reshaped to
 (K, I, O) at call time.
 
-``from_jax_variables`` goes the other way round from the JAX package's
+``from_jax_variables`` (and ``from_flax``, for any set of reference keys,
+such as one submodule's) goes the other way round from the JAX package's
 ``convert_tree``: it inverts ``build_mapping`` and its ``t2f_*`` layout
 transforms (the port's copy in ``utils/jax_keys.py``). Every transform is a
 pure rearrangement (transpose, flip, reshape, slice), so instead of writing
@@ -21,7 +22,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from .jax_keys import build_mapping, reference_state_shapes
+from .jax_keys import absent, build_mapping, reference_state_shapes
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -35,13 +36,13 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
     return out
 
 
-def from_jax_variables(variables: Mapping[str, Any],
-                       cfg) -> Dict[str, torch.Tensor]:
-    """Flax variables of the JAX package's ``FocalFormer3D``
-    (``{"params": ..., "batch_stats": ...}`` as numpy arrays) -> the port's
-    state dict for the same ``cfg``. Buffers that carry no learned state
-    (``num_batches_tracked``, ``bev_pos``) are returned as zeros."""
-    shapes = reference_state_shapes(cfg)
+def from_flax(variables: Mapping[str, Any],
+              shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, torch.Tensor]:
+    """Flax variables (``{"params": ..., "batch_stats": ...}``) -> the
+    tensors of the reference keys ``shapes`` ({key: shape}), through
+    ``build_mapping``. A key with no mapping (an unlearned buffer) is
+    returned as zeros; a mapped key whose elements the variables do not
+    all cover raises."""
     mapping = build_mapping(shapes)
     flat = _flatten(variables)
     sd = {}
@@ -66,3 +67,16 @@ def from_jax_variables(variables: Mapping[str, Any],
             raise KeyError(f"flax variables do not cover {key} {shape}")
         sd[key] = torch.from_numpy(w.reshape(shape))
     return sd
+
+
+def from_jax_variables(variables: Mapping[str, Any],
+                       cfg) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX package's ``FocalFormer3D``
+    (``{"params": ..., "batch_stats": ...}`` as numpy arrays) -> the port's
+    state dict for the same ``cfg``. Buffers that carry no learned state
+    (``num_batches_tracked``, ``bev_pos``, the LSS ``frustum``) are
+    returned as zeros; keys of a branch the model does not build
+    (``jax_keys.absent``) are left out."""
+    return from_flax(variables, {
+        k: v for k, v in reference_state_shapes(cfg).items()
+        if not absent(cfg, k)})

@@ -1,14 +1,16 @@
 """The reference checkpoint's keys and their places in the JAX package's
-flax variables, for the LiDAR-only configs the port runs.
+flax variables, for the configs the port runs.
 
 The port's own copy of ``focalformer3d_tpu.utils.ref_keys
 .reference_state_shapes`` and of ``focalformer3d_tpu.utils.convert
 .build_mapping`` with its ``t2f_*`` layout transforms, cut to the branches
-of a LiDAR-only FocalFormer3D with the ``bevfusionmb2`` neck (the image
-backbone, LSS, I2P, local-attention and HardVFE branches come with the
-slices that port them). ``tests/test_torch_imports.py`` holds both against
-the JAX package's functions for ``Tiny_L`` and ``FocalFormer3D_L``: the same
-keys, shapes, flax paths and transforms.
+the port has: the point branch with the HardSimpleVFE, the ResNet-50 + FPN
+image branch, the LSS camera BEV, the ``bevfusionmb2`` and ``bevfusion``
+necks with their camera blocks, and the head (the I2P and HardVFE
+branches come with the slices that port them, ROADMAP.md Queue 1 items 8b
+and 10b). ``tests/test_torch_imports.py`` holds both against the JAX
+package's functions for every registered config: the same keys, shapes,
+flax paths and transforms.
 """
 from __future__ import annotations
 
@@ -29,12 +31,14 @@ IGNORED = (
 )
 
 
-def _check_lidar_only(cfg) -> None:
-    if cfg.input_img or cfg.vfe_type == "HardVFE" \
-            or cfg.iterbev != "bevfusionmb2":
+def _check_ported(cfg) -> None:
+    if (cfg.input_img and cfg.cam_proj != "lss") \
+            or cfg.vfe_type == "HardVFE" \
+            or cfg.iterbev not in ("bevfusionmb2", "bevfusion"):
         raise NotImplementedError(
-            "only LiDAR-only configs with the HardSimpleVFE and the "
-            "bevfusionmb2 neck are ported")
+            "the weight bridge covers the HardSimpleVFE, the LSS camera "
+            "projection and the bevfusionmb2 and bevfusion necks; I2P and "
+            "HardVFE are ROADMAP.md Queue 1 items 8b and 10b")
 
 
 # ---------------------------------------------------------------------------
@@ -78,16 +82,24 @@ def _heatmap_head_shapes(d, prefix, hidden, num_classes) -> None:
 
 
 def reference_state_shapes(cfg) -> Dict[str, Shape]:
-    """cfg: a LiDAR-only DetectorConfig. Returns {torch_key: shape} in the
-    reference checkpoint's order."""
-    _check_lidar_only(cfg)
+    """cfg: a DetectorConfig the port runs. Returns {torch_key: shape} in
+    the reference checkpoint's order."""
+    _check_ported(cfg)
     d: Dict[str, Shape] = {}
-    dec = cfg.decoder
-    h = dec.hidden
-    ncls = dec.num_classes
+    # the reference builds the point branch of a camera-only config too,
+    # so its checkpoint carries those keys; the model has no such modules
+    # (``absent``)
+    _point_branch_shapes(d, cfg)
+    if cfg.input_img:
+        _image_branch_shapes(d, cfg)
+    _neck_shapes(d, cfg)
+    _head_shapes(d, cfg)
+    return d
+
+
+def _point_branch_shapes(d, cfg) -> None:
     enc = cfg.encoder_channels
     cin = 5
-
     # pts_middle_encoder (SparseEncoder, basicblock)
     base = enc[0][0]
     d["pts_middle_encoder.conv_input.0.weight"] = (3, 3, 3, cin, base)
@@ -131,18 +143,85 @@ def reference_state_shapes(cfg) -> Dict[str, Shape]:
             d[f"pts_neck.deblocks.{i}.0.weight"] = (cin_i, out, 2, 2)
         _bn_shapes(d, f"pts_neck.deblocks.{i}.1", out)
 
-    # FocalEncoder fusion neck (bevfusionmb2)
-    d["imgpts_neck.shared_conv_pts.weight"] = (h, sum(cfg.fpn_channels), 3, 3)
-    d["imgpts_neck.shared_conv_pts.bias"] = (h,)
+
+
+def _image_branch_shapes(d, cfg) -> None:
+    """mmdet ResNet-50 (the reference keys exist for depth 50 only) and
+    FPN (lateral and output convs with bias)."""
+    d["img_backbone.conv1.weight"] = (64, 3, 7, 7)
+    _bn_shapes(d, "img_backbone.bn1", 64)
+    stage_blocks = {50: (3, 4, 6, 3)}[cfg.img_backbone_depth]
+    rc = 64
+    for s, nb in enumerate(stage_blocks):
+        w = 64 * (2 ** s)
+        for i in range(nb):
+            p = f"img_backbone.layer{s + 1}.{i}"
+            ci = rc if i == 0 else 4 * w
+            d[f"{p}.conv1.weight"] = (w, ci, 1, 1)
+            _bn_shapes(d, f"{p}.bn1", w)
+            d[f"{p}.conv2.weight"] = (w, w, 3, 3)
+            _bn_shapes(d, f"{p}.bn2", w)
+            d[f"{p}.conv3.weight"] = (4 * w, w, 1, 1)
+            _bn_shapes(d, f"{p}.bn3", 4 * w)
+            if i == 0:
+                d[f"{p}.downsample.0.weight"] = (4 * w, ci, 1, 1)
+                _bn_shapes(d, f"{p}.downsample.1", 4 * w)
+        rc = 4 * w
+    for i, ci in enumerate((256, 512, 1024, 2048)):
+        d[f"img_neck.lateral_convs.{i}.conv.weight"] = (256, ci, 1, 1)
+        d[f"img_neck.lateral_convs.{i}.conv.bias"] = (256,)
+        d[f"img_neck.fpn_convs.{i}.conv.weight"] = (256, 256, 3, 3)
+        d[f"img_neck.fpn_convs.{i}.conv.bias"] = (256,)
+
+
+def _neck_shapes(d, cfg) -> None:
+    """FocalEncoder: shared_conv_pts, the LSS, the fusion blocks
+    (bevfusionmb2 or bevfusion, with the camera BEV's iterimg_conv) and
+    extra_output."""
+    h = cfg.decoder.hidden
+    if cfg.input_pts:
+        d["imgpts_neck.shared_conv_pts.weight"] = (
+            h, sum(cfg.fpn_channels), 3, 3)
+        d["imgpts_neck.shared_conv_pts.bias"] = (h,)
+    if cfg.input_img:
+        lss = cfg.lss
+        d["imgpts_neck.cam_lss.frustum"] = (lss.depth_bins, *lss.feat_hw, 3)
+        d["imgpts_neck.cam_lss.camencode.depthnet.weight"] = (
+            lss.depth_bins + lss.cam_channels, lss.input_channels, 1, 1)
+        d["imgpts_neck.cam_lss.camencode.depthnet.bias"] = (
+            lss.depth_bins + lss.cam_channels,)
+        cz = lss.cam_channels * lss.nx[2]
+        chans = [(cz, cz), (cz, 512), (512, 512), (512, lss.out_channels)]
+        for k, (ci, co) in enumerate(chans):
+            d[f"imgpts_neck.cam_lss.bevencode.{3 * k}.weight"] = (
+                co, ci, 3, 3)
+            _bn_shapes(d, f"imgpts_neck.cam_lss.bevencode.{3 * k + 1}", co)
     for i in range(cfg.neck_layers):
         p = f"imgpts_neck.fusion_blocks.{i}"
-        _inverted_residual_shapes(d, f"{p}.P_IML", h, h, 2)
-        _inverted_residual_shapes(d, f"{p}.P_out_proj", 2 * h, h, 1)
-        _inverted_residual_shapes(d, f"{p}.P_integration", 2 * h, h, 1)
+        if cfg.iterbev == "bevfusionmb2":
+            _inverted_residual_shapes(d, f"{p}.P_IML", h, h, 2)
+            _inverted_residual_shapes(d, f"{p}.P_out_proj", 2 * h, h, 1)
+            _inverted_residual_shapes(d, f"{p}.P_integration", 2 * h, h, 1)
+        else:
+            for j in range(2):
+                _convmodule_shapes(d, f"{p}.P_IML.query_project.{j}", h, h, 1)
+                _convmodule_shapes(d, f"{p}.P_IML.key_project.{j}", h, h, 1)
+            _convmodule_shapes(d, f"{p}.P_IML.value_project", h, h, 1)
+            _convmodule_shapes(d, f"{p}.P_out_proj", 2 * h, h, 1)
+            _convmodule_shapes(d, f"{p}.P_integration", 2 * h, h, 1)
+        if cfg.input_img:  # iterimg_conv = Sequential(resnet.BasicBlock)
+            d[f"{p}.iterimg_conv.0.conv1.weight"] = (h, h, 3, 3)
+            _bn_shapes(d, f"{p}.iterimg_conv.0.bn1", h)
+            d[f"{p}.iterimg_conv.0.conv2.weight"] = (h, h, 3, 3)
+            _bn_shapes(d, f"{p}.iterimg_conv.0.bn2", h)
     if cfg.extra_feat:
         _convmodule_shapes(d, "imgpts_neck.extra_output", h, h, 3)
 
-    # FocalDecoder head
+
+def _head_shapes(d, cfg) -> None:
+    dec = cfg.decoder
+    h = dec.hidden
+    ncls = dec.num_classes
     hb = "pts_bbox_head"
     _heatmap_head_shapes(d, f"{hb}.heatmap_head", h, ncls)
     n_stages = dec.multistage_heatmap + (1 if dec.reuse_first_heatmap else 0)
@@ -200,7 +279,6 @@ def reference_state_shapes(cfg) -> Dict[str, Shape]:
             _bn_shapes(d, f"{hb}.roi_mlp.{4 * layer + 1}", out)
             pre = out
     d[f"{hb}.bev_pos"] = (1, 32400, 2)
-    return d
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +318,16 @@ def _split3_t(a):
 # ---------------------------------------------------------------------------
 # key -> flax path mapping
 # ---------------------------------------------------------------------------
+
+POINT_BRANCH = ("pts_middle_encoder.", "pts_backbone.", "pts_neck.")
+
+
+def absent(cfg, key: str) -> bool:
+    """True for a key of a branch the config's model does not build: the
+    point branch of a camera-only config (JAX's ``convert_tree`` skips
+    these as ``skipped_absent``)."""
+    return not cfg.input_pts and key.startswith(POINT_BRANCH)
+
 
 def is_ignored(key: str) -> bool:
     return any(re.fullmatch(p, key) for p in IGNORED)
@@ -372,8 +460,54 @@ def _encoder_target(m, tk) -> bool:
     return False
 
 
+def _image_target(m, tk) -> bool:
+    """img_backbone (ResNet) and img_neck (FPN) keys."""
+    g = re.fullmatch(r"img_backbone\.conv1\.weight", tk)
+    if g:
+        m[tk] = [("params", ("img_backbone", "conv1", "kernel"), t2f_conv)]
+        return True
+    g = re.fullmatch(r"img_backbone\.bn1\.(weight|bias|running_mean|"
+                     r"running_var)", tk)
+    if g:
+        _set_bn(m, tk, ("img_backbone", "bn1", "BatchNorm_0"), g.group(1))
+        return True
+    g = re.fullmatch(r"img_backbone\.layer(\d)\.(\d+)\.conv(\d)\.weight", tk)
+    if g:
+        s, i, n = g.groups()
+        m[tk] = [("params", ("img_backbone", f"layer{s}_{i}", f"conv{n}",
+                             "kernel"), t2f_conv)]
+        return True
+    g = re.fullmatch(r"img_backbone\.layer(\d)\.(\d+)\.bn(\d)\.(weight|bias|"
+                     r"running_mean|running_var)", tk)
+    if g:
+        s, i, n, leaf = g.groups()
+        _set_bn(m, tk, ("img_backbone", f"layer{s}_{i}", f"bn{n}",
+                        "BatchNorm_0"), leaf)
+        return True
+    g = re.fullmatch(r"img_backbone\.layer(\d)\.(\d+)\.downsample\.(\d)\."
+                     r"(weight|bias|running_mean|running_var)", tk)
+    if g:
+        s, i, j, leaf = g.group(1), g.group(2), int(g.group(3)), g.group(4)
+        base = ("img_backbone", f"layer{s}_{i}")
+        if j == 0 and leaf == "weight":
+            m[tk] = [("params", base + ("ds_conv", "kernel"), t2f_conv)]
+        else:
+            _set_bn(m, tk, base + ("ds_bn", "BatchNorm_0"), leaf)
+        return True
+    g = re.fullmatch(r"img_neck\.(lateral_convs|fpn_convs)\.(\d)\.conv\."
+                     r"(weight|bias)", tk)
+    if g:
+        kind, i, leaf = g.groups()
+        name = f"lateral{i}" if kind == "lateral_convs" else f"fpn_conv{i}"
+        m[tk] = [("params", ("img_neck", name, _kb(leaf)),
+                  t2f_conv if leaf == "weight" else None)]
+        return True
+    return False
+
+
 def _neck_target(m, tk, shapes) -> bool:
-    """imgpts_neck keys of the bevfusionmb2 neck."""
+    """imgpts_neck keys: shared_conv_pts, extra_output, the LSS and the
+    fusion blocks of either neck."""
     g = re.fullmatch(r"imgpts_neck\.shared_conv_pts\.(weight|bias)", tk)
     if g:
         leaf = g.group(1)
@@ -383,16 +517,58 @@ def _neck_target(m, tk, shapes) -> bool:
     if _convbn(m, tk, "imgpts_neck.extra_output",
                ("imgpts_neck", "extra_output")):
         return True
-    g = re.match(r"imgpts_neck\.fusion_blocks\.(\d)\.(.+)", tk)
+    g = re.fullmatch(
+        r"imgpts_neck\.cam_lss\.camencode\.depthnet\.(weight|bias)", tk)
     if g:
-        i, rest = g.group(1), g.group(2)
-        for mod in ("P_IML", "P_out_proj", "P_integration"):
-            if rest.startswith(f"{mod}.conv."):
-                _inverted_residual(
-                    m, tk, f"imgpts_neck.fusion_blocks.{i}.{mod}",
-                    ("imgpts_neck", f"fusion{i}", mod), len(shapes[tk]))
+        leaf = g.group(1)
+        m[tk] = [("params", ("imgpts_neck", "cam_lss", "camencode",
+                             "depthnet", _kb(leaf)),
+                  t2f_conv if leaf == "weight" else None)]
         return True
-    return False
+    g = re.fullmatch(r"imgpts_neck\.cam_lss\.bevencode\.(\d+)\.(weight|bias|"
+                     r"running_mean|running_var)", tk)
+    if g:
+        conv_idx, rem = divmod(int(g.group(1)), 3)
+        leaf = g.group(2)
+        base = ("imgpts_neck", "cam_lss", "bevencode")
+        if rem == 0 and leaf == "weight":
+            m[tk] = [("params", base + (f"conv{conv_idx}", "kernel"),
+                      t2f_conv)]
+        elif rem == 1:
+            _set_bn(m, tk, base + (f"bn{conv_idx}",), leaf)
+        return True
+    g = re.match(r"imgpts_neck\.fusion_blocks\.(\d)\.(.+)", tk)
+    if not g:
+        return False
+    i, rest = g.group(1), g.group(2)
+    fb = ("imgpts_neck", f"fusion{i}")
+    tb = f"imgpts_neck.fusion_blocks.{i}"
+    for mod in ("P_IML", "P_out_proj", "P_integration"):
+        if rest.startswith(f"{mod}.conv.") and _inverted_residual(
+                m, tk, f"{tb}.{mod}", fb + (mod,), len(shapes[tk])):
+            return True  # bevfusionmb2
+    g2 = re.fullmatch(r"P_IML\.(query|key)_project\.(\d)\..+", rest)
+    if g2:  # bevfusion LocalContextBlock projections
+        name = ("q_proj" if g2.group(1) == "query" else "k_proj") \
+            + g2.group(2)
+        _convbn(m, tk, f"{tb}.P_IML.{g2.group(1)}_project.{g2.group(2)}",
+                fb + ("P_IML", name))
+        return True
+    if _convbn(m, tk, f"{tb}.P_IML.value_project", fb + ("P_IML", "v_proj")):
+        return True
+    for mod in ("P_out_proj", "P_integration"):  # bevfusion ConvBN
+        if _convbn(m, tk, f"{tb}.{mod}", fb + (mod,)):
+            return True
+    g2 = re.fullmatch(r"iterimg_conv\.0\.(conv|bn)(\d)\.(weight|bias|"
+                      r"running_mean|running_var)", rest)
+    if g2:  # Sequential(resnet.BasicBlock) -> BasicBlock2d's two ConvBN
+        kind, n, leaf = g2.group(1), int(g2.group(2)) - 1, g2.group(3)
+        base = fb + ("iterimg", f"ConvBN_{n}")
+        if kind == "conv" and leaf == "weight":
+            m[tk] = [("params", base + ("Conv_0", "kernel"), t2f_conv)]
+        else:
+            _set_bn(m, tk, base + ("BatchNorm_0",), leaf)
+    return True
 
 
 def _head_target(m, tk) -> bool:
@@ -502,11 +678,12 @@ def _head_target(m, tk) -> bool:
 
 def build_mapping(shapes: Dict[str, Shape]) -> Dict[str, List[Target]]:
     """{torch_key: [(collection, flax_path, transform), ...]} for
-    {torch_key: shape} of a LiDAR-only model. Multi-target entries are the
-    in-projection split (q/k/v) and the SECONDFPN conv-or-deconv choice."""
+    {torch_key: shape} of a model the port runs. Multi-target entries are
+    the in-projection split (q/k/v) and the SECONDFPN conv-or-deconv
+    choice."""
     m: Dict[str, List[Target]] = {}
     for tk in shapes:
         if not is_ignored(tk):
-            (_encoder_target(m, tk) or _neck_target(m, tk, shapes)
-             or _head_target(m, tk))
+            (_encoder_target(m, tk) or _image_target(m, tk)
+             or _neck_target(m, tk, shapes) or _head_target(m, tk))
     return m

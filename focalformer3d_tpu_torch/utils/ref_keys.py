@@ -8,6 +8,7 @@ order, so both functions give equal arrays for one config and seed.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List
 
 import numpy as np
@@ -18,14 +19,26 @@ from torch import nn
 _PER_ROUND = ("decoder", "pos_embed_learned", "prediction_heads")
 
 
+# module lists that the reference lists element by element, interleaved:
+# (regex with the parent, the list's index and the rest; the lists in order)
+_INTERLEAVED = (
+    (re.compile(r"(img_neck)\.(lateral_convs|fpn_convs)\.(\d+)\..*"),
+     ("lateral_convs", "fpn_convs")),
+    (re.compile(r"(.*\.P_IML)\.(query_project|key_project)\.(\d+)\..*"),
+     ("query_project", "key_project")),
+)
+
+
 def reference_key_order(model: nn.Module) -> List[str]:
     """The model's state-dict keys in the reference listing's order.
 
-    That is the model's own order with two changes: the head's per-round
+    That is the model's own order with three changes: the head's per-round
     modules come round by round (decoder.r, pos_embed_learned.r,
-    prediction_heads.r) where torch lists each ModuleList whole, and the
-    head's ``bev_pos`` buffer comes last where torch lists a module's own
-    buffers before its children's."""
+    prediction_heads.r) where torch lists each ModuleList whole; FPN's
+    lateral and output convs, and a local-attention block's query and key
+    projections, come element by element (lateral_convs.i, fpn_convs.i);
+    and the head's ``bev_pos`` buffer comes last where torch lists a
+    module's own buffers before its children's."""
     keys = list(model.state_dict())
 
     def per_round(k):
@@ -33,6 +46,12 @@ def reference_key_order(model: nn.Module) -> List[str]:
         return p[0] == "pts_bbox_head" and p[1] in _PER_ROUND
 
     first = next((i for i, k in enumerate(keys) if per_round(k)), 0)
+    group_start: Dict[str, int] = {}
+    for i, k in enumerate(keys):
+        for pat, _ in _INTERLEAVED:
+            g = pat.fullmatch(k)
+            if g:
+                group_start.setdefault(g.group(1), i)
 
     def rank(ik):
         i, k = ik
@@ -41,6 +60,11 @@ def reference_key_order(model: nn.Module) -> List[str]:
         if per_round(k):
             p = k.split(".")
             return (first, int(p[2]), _PER_ROUND.index(p[1]), i)
+        for pat, lists in _INTERLEAVED:
+            g = pat.fullmatch(k)
+            if g:
+                return (group_start[g.group(1)], int(g.group(3)),
+                        lists.index(g.group(2)), i)
         return (i, 0, 0, 0)
 
     return [k for _, k in sorted(enumerate(keys), key=rank)]

@@ -30,7 +30,11 @@ the card against the same run on the CPU's plain engine (1e-2); last,
 features within 2 * 2**-23 * sum|x| per voxel), a DeformFormer3D_L scan
 per engine with FocalFormer3D_L's launch counts, the TTA merge on the card
 against the CPU (masks, labels and scores exactly, boxes 1e-5), and the
-train and benchmark CLIs on DeformFormer3D_L.
+train and benchmark CLIs on DeformFormer3D_L. The camera path closes it:
+the tiny LC model on ``cuda`` against the CPU's plain engine (the LSS BEV
+1e-4, the heads 1e-2), FocalFormer3D_LC's launches per scan on each
+engine equal to FocalFormer3D_L's on the same scan, and
+DeformFormer3D_C_R50 launching no kernel.
 """
 import dataclasses
 
@@ -1293,3 +1297,109 @@ def test_deformformer3d_cli_entry_points_on_card(tmp_path, dev):
         .all()
     benchmark.main(["DeformFormer3D_L", "--engines", "cuda", "--samples",
                     "2", "--warmup", "1", "--big-batch", "0"])
+
+
+# ---------------------------------------------------------------------------
+# the camera path (FocalFormer3D_LC, DeformFormer3D_C_R50)
+# ---------------------------------------------------------------------------
+
+def _camera_batch(cfg, seed, n_points, device="cpu"):
+    b = synthetic.make_batch(
+        np.random.RandomState(seed), batch_size=1, n_points=n_points,
+        n_boxes=6, max_gts=8, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial",
+        with_images=True, img_hw=cfg.lss.img_scale)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _camera_run(cfg, model, batch):
+    vox = (tdet.preprocess_points(cfg, batch["points"], batch["points_mask"])
+           if cfg.input_pts else None)
+    img = {k: batch[k] for k in ("imgs", "lidar2img", "img_aug", "bev_aug")}
+    with torch.no_grad():
+        return model(vox, img_data=img)
+
+
+def test_tiny_lc_on_card_matches_cpu_plain(dev):
+    """The tiny LC model (``tests/test_torch_camera_cli.py``, float32) on
+    engine ``cuda`` against the same weights on the CPU's plain engine:
+    the LSS camera BEV within 1e-4 (float32 throughout; ``index_add_`` in
+    atomic order), the head outputs within 1e-2 of scale (K1's bf16
+    operands, as the Tiny_L slice)."""
+    from test_torch_camera_cli import _tiny_lc
+
+    cfg = _tiny_lc()["model"]
+    cpu_cfg = dataclasses.replace(cfg, sparse_engine="plain")
+    ref_m = tdet.FocalFormer3D(cpu_cfg).eval()
+    ref_m.load_state_dict(make_fake_state_dict(ref_m, 0), strict=True)
+    m = tdet.FocalFormer3D(dataclasses.replace(cfg, sparse_engine="cuda"))
+    m.load_state_dict(ref_m.state_dict(), strict=True)
+    m = m.eval().to(dev)
+    bevs = {}
+    for name, mod in (("cpu", ref_m), ("card", m)):
+        mod.imgpts_neck.cam_lss.register_forward_hook(
+            lambda _m, a, out, name=name: bevs.update({name: out[0]}))
+    batch = _camera_batch(cfg, 0, 3000)
+    ref = _camera_run(cpu_cfg, ref_m, batch)
+    got = _camera_run(m.cfg, m, {k: v.to(dev) for k, v in batch.items()})
+    err = float((bevs["card"].cpu() - bevs["cpu"]).abs().max()
+                / bevs["cpu"].abs().max())
+    assert err <= 1e-4, err
+    for k in ("center", "height", "dim", "rot", "vel", "heatmap",
+              "dense_heatmap"):
+        r = ref[k].float()
+        e = float((got[k].float().cpu() - r).abs().max()
+                  / r.abs().max().clamp(min=1e-3))
+        assert e <= 1e-2, (k, e)
+
+
+@pytest.mark.parametrize("engine", ["cuda", "cuda_mxu", "cuda_zrun"])
+def test_lc_launches_equal_the_lidar_models(dev, engine):
+    """FocalFormer3D_LC at full width (bf16, one radial 200k-point scan and
+    its six 448 x 800 cameras) launches per scan exactly what
+    FocalFormer3D_L launches on the same scan: its point branch."""
+    from focalformer3d_tpu_torch.configs import with_compute_dtype
+
+    counts = {}
+    for name in ("FocalFormer3D_L", "FocalFormer3D_LC"):
+        cfg = with_compute_dtype(dataclasses.replace(
+            get_config(name)["model"], sparse_engine=engine), "bfloat16")
+        m = tdet.FocalFormer3D(cfg).eval()
+        m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+        m = m.to(dev)
+        batch = _camera_batch(cfg, 0, 200000, dev)
+        for k in (k1, k2, k3):
+            k.reset_launch_count()
+        out = _camera_run(cfg, m, batch)
+        counts[name] = (k1.launch_count(), k2.launch_count(),
+                        k3.launch_count())
+        dec = m.get_bboxes(out, 200)
+        assert torch.isfinite(dec["bboxes"]).all()
+        assert int(dec["mask"].sum()) == 200
+        del m, out
+        torch.cuda.empty_cache()
+    assert counts["FocalFormer3D_LC"] == counts["FocalFormer3D_L"]
+    assert sum(counts["FocalFormer3D_L"]) > 0
+
+
+def test_camera_only_launches_no_kernel(dev):
+    """DeformFormer3D_C_R50 at full width on the card: no K1, K2 or K3
+    launch; finite boxes; the outputs depend on the images."""
+    from focalformer3d_tpu_torch.configs import with_compute_dtype
+
+    cfg = with_compute_dtype(get_config("DeformFormer3D_C_R50")["model"],
+                             "bfloat16")
+    m = tdet.FocalFormer3D(cfg).eval()
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev)
+    batch = _camera_batch(cfg, 1, 30000, dev)
+    for k in (k1, k2, k3):
+        k.reset_launch_count()
+    out = _camera_run(cfg, m, batch)
+    dark = _camera_run(cfg, m, dict(batch, imgs=torch.zeros_like(
+        batch["imgs"])))
+    assert (k1.launch_count(), k2.launch_count(), k3.launch_count()) == \
+        (0, 0, 0)
+    dec = m.get_bboxes(out, 200)
+    assert torch.isfinite(dec["bboxes"]).all()
+    assert not torch.equal(out["dense_heatmap"], dark["dense_heatmap"])

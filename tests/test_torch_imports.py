@@ -5,9 +5,9 @@
 functions included) and fails on any import of ``jax``, ``jaxlib``,
 ``flax``, ``optax``, ``orbax`` or ``focalformer3d_tpu``. The port's copy
 of the reference checkpoint's key inventory and key mapping
-(``utils/jax_keys.py``) is held here against the JAX package's originals:
-the same keys, shapes and flax paths, and transforms that rearrange an
-index array the same way.
+(``utils/jax_keys.py``) is held here against the JAX package's originals,
+for the LiDAR and the camera configs: the same keys, shapes and flax
+paths, and transforms that rearrange an index array the same way.
 """
 import ast
 import pathlib
@@ -82,8 +82,18 @@ def test_walk_covers_the_tta_and_checkpoint_modules():
         assert pkg + mod in files, mod
 
 
+def test_walk_covers_the_camera_modules():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("ops/scatter.py", "ops/local_attn.py", "models/resnet.py",
+                "models/lss.py", "models/grid_mask.py",
+                "models/focal_encoder.py", "utils/jax_keys.py"):
+        assert pkg + mod in files, mod
+
+
 @pytest.mark.parametrize("name", ["Tiny_L", "FocalFormer3D_L",
-                                  "DeformFormer3D_L"])
+                                  "DeformFormer3D_L", "FocalFormer3D_LC",
+                                  "DeformFormer3D_C_R50"])
 def test_jax_keys_match_the_jax_package(name):
     jcfg = jax_get_config(name)["model"]
     tcfg = tconfigs.get_config(name)["model"]
