@@ -145,7 +145,7 @@ Phases (any failure raises and exits non-zero):
    pass (host clock: one copy of the suppression matrix, then numpy) and
    the whole merge.
 
-13. camera (last; after phase 12): FocalFormer3D_LC at full width
+13. camera (after phase 12): FocalFormer3D_LC at full width
    (ResNet-50 + FPN, 6 cameras at 448 x 800, LSS with 41 depth bins on the
    112 x 200 feature map into 13 x 64 = 832 channels on the 180 x 180 BEV,
    two ``bevfusion`` fusion layers; bf16 compute where the config computes
@@ -171,10 +171,39 @@ Phases (any failure raises and exits non-zero):
    DeformFormer3D_C_R50 one step, then FocalFormer3D_LC 2 steps
    ``--load-img-from`` that checkpoint (the loaded image branch bit for
    bit, K1 forward 22).
+14. training engines (after phase 13): on the batch of phase 7 (two radial
+   scans, float32, TF32 off), every conv of ``cuda_mxu`` (the meta chain's
+   K2 rulebooks and their transposes, every level and conv_out, so K1
+   forward, dx and dW at L3's 128 -> 128 and conv_out's 3 taps too) and
+   of ``cuda_zrun`` (``zrun_conv_train``: K3 forward, K1's dx and dW on
+   the rulebook its codes encode, up to the dense boundary L3) against
+   autograd through ``apply_conv_bf16_plain``: forward, dx and dW within
+   1e-3 of scale; on ``cuda_mxu`` each kernel alone timed by CUDA-graph
+   replay per geometry. Then FocalFormer3D_L at full width: one warm step
+   on ``cuda``, then one step on each of ``cuda``, ``cuda_mxu`` and
+   ``cuda_zrun`` in turns from the warm step's weights and optimizer
+   state: finite losses, the K1 forward / dx / dW, K2 and K3 launches of
+   ``TRAIN_ENGINE_LAUNCHES`` exactly, ms a step with its split by CUDA
+   events, peak memory.
+15. LC_Proj (last): FocalFormer3D_LC_Proj at full width (LC with I2P in
+   place of the LSS: ``shared_conv_img`` and a 10 x 180 x 180 grid of
+   points projected into the six cameras; bf16 where the config computes
+   in its dtype, the image branch and I2P in float32; random weights from
+   seed 0) answers phase 4's three scans with their cameras on each
+   engine: finite boxes, 200 kept, phase 4's (K1, K2, K3) launches per
+   sample exactly; ms a sample, the stage split with the ``I2P`` span, peak
+   memory. Sample 0's I2P block on the card against the same module on
+   the CPU in float32 on the same inputs, within ``I2P_TOL`` (1e-4) of
+   scale (the line counts the validity flags the card sets otherwise).
+   Two float32 frozen training steps at batch 2 on ``cuda``: K1 forward
+   11 a step, no dx or dW, the image and point branches bit-identical,
+   ``shared_conv_img`` and I2P moved, ms a step, peak memory.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
-phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's),
+phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's,
+``train_mxu`` and ``train_zrun`` phase 14's step on that engine,
+``camera_proj`` phase 15's),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -254,6 +283,9 @@ MERGE_TOL = 1e-5
 MERGE_MARGIN = 1e-5
 MODEL_KERNELS = ("sparse_conv", "sparse_conv_dx", "sparse_conv_wgrad",
                  "plan_rules", "sparse_conv_zrun")
+# the ``kernels`` row each count of ``train_step.kernel_launches`` is
+LAUNCH_ROWS = dict(zip(("forward", "dx", "wgrad", "plan", "zrun"),
+                       MODEL_KERNELS))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # dense, published; "bf16 split": an f32 operand split into two bf16
 # parts, two bf16 products per multiply-add (the dW kernel)
@@ -1198,12 +1230,9 @@ def _run_cli(main, argv):
 
 
 def _model_path_launches():
-    k1, k2, k3 = _wrappers()
-    return {"sparse_conv": k1.launch_count("forward"),
-            "sparse_conv_dx": k1.launch_count("dx"),
-            "sparse_conv_wgrad": k1.launch_count("wgrad"),
-            "plan_rules": k2.launch_count(),
-            "sparse_conv_zrun": k3.launch_count()}
+    from focalformer3d_tpu_torch.training.train_step import kernel_launches
+
+    return {LAUNCH_ROWS[k]: n for k, n in kernel_launches().items()}
 
 
 def _phase_train_cli(work, card):
@@ -1323,9 +1352,11 @@ def phase_entry_points(cfg, batch, device, card):
     torch.cuda.empty_cache()
     _, rec = _run_cli(benchmark.main, [
         "FocalFormer3D_L", "--train", "--samples", "2", "--batch-size",
-        str(TRAIN_BATCH)])
-    if rec is None or not math.isfinite(rec["ms_per_step"]["median"]):
-        raise RuntimeError("benchmark --train: no JSON line")
+        str(TRAIN_BATCH), "--engines", ",".join(ENGINES)])
+    if rec is None or list(rec["engines"]) != list(ENGINES) or not all(
+            math.isfinite(r["ms_per_step"]["median"])
+            for r in rec["engines"].values()):
+        raise RuntimeError(f"benchmark --train: no JSON line for {ENGINES}")
     torch.cuda.empty_cache()
     launches = _model_path_launches()
     if not all(launches.values()):
@@ -1836,10 +1867,6 @@ def phase_tta(card, device, root, checkpoint, tmp):
 
 # phase 13: the camera path, FocalFormer3D_LC and DeformFormer3D_C_R50 on
 # phase 4's scans with six rendered 448 x 800 cameras each
-CAMERA_STAGES = ("voxelize", "image backbone + FPN", "index build",
-                 "sparse convs", "dense tail", "SECOND + neck", "LSS lift",
-                 "LSS splat", "BevEncode", "FocalEncoder", "decoder",
-                 "get_bboxes")
 LSS_TOL = 1e-4  # the card's LSS BEV against the CPU's, of its scale
 CAMERA_TRAIN_STEPS = 2
 CAMERA_CLI_STEPS = 2
@@ -1880,8 +1907,10 @@ def _camera_slice(cfg, model, engine, scans, name, kept_exact):
     finite boxes, 200 kept (1-200 without ``kept_exact``). Returns the
     (K1, K2, K3) launches, counted from zero just before the first sample
     and read just after the last, and the outputs of the first."""
+    from focalformer3d_tpu_torch.tools.benchmark import stages_of
     from focalformer3d_tpu_torch.utils.profiler import StageClock
 
+    stages = stages_of(cfg)
     if cfg.input_pts:
         model.pts_middle_encoder.engine = engine
     kernels = _wrappers()
@@ -1891,7 +1920,7 @@ def _camera_slice(cfg, model, engine, scans, name, kept_exact):
         k.reset_launch_count()
     wall, splits, first = [], [], None
     for scan in scans:
-        clock = StageClock(scan["points"].device, CAMERA_STAGES)
+        clock = StageClock(scan["points"].device, stages)
         t0 = time.perf_counter()
         clock.start()
         vox, img = _camera_inputs(cfg, scan)
@@ -1914,7 +1943,7 @@ def _camera_slice(cfg, model, engine, scans, name, kept_exact):
     launches = tuple(k.launch_count() for k in kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
     split = {st: statistics.median(x[st] for x in splits)
-             for st in CAMERA_STAGES}
+             for st in stages}
     print(f"camera {name} {engine}: ms/sample " + ", ".join(
         f"{t:.1f}" for t in wall) + f" (median {statistics.median(wall):.1f}"
         "); stage split (CUDA events, median, ms): " + ", ".join(
@@ -1962,18 +1991,21 @@ def _check_lss_on_cpu(model, scan, card):
           flush=True)
 
 
-def _camera_train_step(card, device):
-    """``CAMERA_TRAIN_STEPS`` float32 FocalFormer3D_LC steps at batch 2 on
-    ``cuda`` with its freeze flags, then one more under the profiler: K1
-    forward only, the frozen branches bit-identical, the fusion layers and
-    head moved; each timed step's ms and split by CUDA events, the
-    profiled step's largest kernels. Returns the K1 forward launches."""
+def _camera_train_step(card, device, name="FocalFormer3D_LC", must_move=(),
+                       profile=True):
+    """``CAMERA_TRAIN_STEPS`` float32 steps of the camera config ``name``
+    at batch 2 on ``cuda`` with its freeze flags, then (with ``profile``)
+    one more under the profiler: K1 forward only, the frozen branches
+    bit-identical, the fusion layers and head moved, and every parameter
+    under a prefix of ``must_move``; each timed step's ms and split by CUDA
+    events, peak memory, the profiled step's largest kernels. Returns the
+    K1 forward launches."""
     from focalformer3d_tpu_torch.configs import get_config
     from focalformer3d_tpu_torch.training import optim, train_step
     from focalformer3d_tpu_torch.utils.profiler import StageClock
 
     k1, _, _ = _wrappers()
-    all_cfg = get_config("FocalFormer3D_LC")
+    all_cfg = get_config(name)
     cfg = dataclasses.replace(all_cfg["model"], sparse_engine="cuda")
     scans = _camera_scans(cfg, device, (TRAIN_SEED,), TRAIN_BATCH)
     model = _model(cfg, device).train()
@@ -1999,26 +2031,30 @@ def _camera_train_step(card, device):
         if not all(math.isfinite(v) for v in vals.values()):
             raise RuntimeError(f"LC train step: {vals}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    with torch.enable_grad():
-        _profile_step(lambda: step(model, opt_state, scans[0], gen),
-                      "camera train profile")
+    if profile:
+        with torch.enable_grad():
+            _profile_step(lambda: step(model, opt_state, scans[0], gen),
+                          "camera train profile")
     launches = {k: k1.launch_count(k) for k in ("forward", "dx", "wgrad")}
-    want = {"forward": (CAMERA_TRAIN_STEPS + 1)
+    want = {"forward": (CAMERA_TRAIN_STEPS + profile)
             * LAUNCHES_PER_SCAN["cuda"][0], "dx": 0, "wgrad": 0}
     if launches != want:
-        raise RuntimeError(f"LC train step: K1 launches {launches}, "
+        raise RuntimeError(f"{name} train step: K1 launches {launches}, "
                            f"expected {want}")
     after = model.state_dict()
     frozen = [k for k in after if k.startswith(FROZEN_LC)]
     changed = [k for k in frozen if not torch.equal(after[k], before[k])]
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    still = [k for k in trainable if k.startswith(tuple(must_move))
+             and torch.equal(after[k], before[k])]
     moved = [k for k in trainable if not torch.equal(after[k], before[k])]
-    if changed or len(moved) < len(trainable) // 2:
-        raise RuntimeError(f"LC train step: frozen tensors changed "
+    if changed or still or len(moved) < len(trainable) // 2:
+        raise RuntimeError(f"{name} train step: frozen tensors changed "
                            f"{changed[:5]}; {len(moved)} of "
-                           f"{len(trainable)} trainable moved")
-    print(f"camera train steps ({card}; FocalFormer3D_LC float32, batch "
-          f"{TRAIN_BATCH}, cuda, freeze_img/camlss/pts, a fresh model): "
+                           f"{len(trainable)} trainable moved; unmoved "
+                           f"{still[:5]}")
+    print(f"camera train steps ({card}; {name} float32, batch "
+          f"{TRAIN_BATCH}, cuda, its freeze flags, a fresh model): "
           + "; ".join(f"step {i + 1} {ms:.1f} ms, split (CUDA events, ms) "
                       + ", ".join(f"{p} {t:.1f}" for p, t in split.items())
                       for i, (ms, split) in enumerate(rows))
@@ -2140,6 +2176,261 @@ def phase_camera(card, device):
     return total
 
 
+# phase 14: training on the three kernel engines, from the same weights
+# K1 forward / dx / dW, K2 and K3 launches of one FocalFormer3D_L step
+# (batch 2) per engine, as ``train_step.kernel_launches`` counts them
+TRAIN_ENGINE_LAUNCHES = {
+    "cuda": {"forward": 16, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 0},
+    "cuda_mxu": {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8, "zrun": 0},
+    "cuda_zrun": {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 16},
+}
+
+
+def _train_conv_checks(cfg, batch, device, engine):
+    """Every conv of one training batch on ``engine`` (``cuda_mxu``: the
+    meta chain, every level and conv_out; ``cuda_zrun``: the z-run codes up
+    to the training dense boundary): the engine's differentiable conv
+    (``sparse_conv_train`` on K2's rulebooks and their transposes, or
+    ``zrun_conv_train``) on random features, weights and cotangent against
+    autograd through ``apply_conv_bf16_plain`` on the rulebook it reads:
+    forward, dx and dW within ``KERNEL_TOL`` of scale. On ``cuda_mxu`` each
+    kernel alone is timed too (CUDA-graph replay), dW with its chunk.
+    Returns the largest relative error of each."""
+    from focalformer3d_tpu_torch.models.detector import preprocess_points
+    from focalformer3d_tpu_torch.models.sparse_encoder import (
+        backward_index, conv_index)
+    from focalformer3d_tpu_torch.tools import _common
+
+    k1, _, k3 = _wrappers()
+    vox = preprocess_points(cfg, batch["points"], batch["points_mask"],
+                            train=True)
+    B = vox["coords"].shape[0]
+    mxu = engine == "cuda_mxu"
+    n = len(cfg.encoder_channels) if mxu else cfg.sparse_dense_from
+    geoms = _walk(cfg, vox, mxu, n, batch=B)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    worst = dict.fromkeys(("forward", "dx", "wgrad"), 0.0)
+    for name, g, c, cout, _n in _convs(cfg, geoms):
+        _, src, dst, ks, st, pad = geoms[g]
+        index = conv_index(src, dst, ks, st, pad, engine)
+        rules, rules_t = backward_index(index, src.capacity, engine,
+                                        st != 1)
+        K = rules.shape[1]
+        x = torch.where(src.valid[..., None], torch.randn(
+            B, src.capacity, c, device=device, generator=gen), 0.0)
+        w = (torch.randn(K, c, cout, device=device, generator=gen)
+             * (2.0 / (K * c)) ** 0.5)
+        cot = torch.where(dst.valid[..., None], torch.randn(
+            B, dst.capacity, cout, device=device, generator=gen), 0.0)
+        need_dx = name != "conv_input"
+        res = {}
+        for tag in ("kernel", "plain"):
+            xx = x.clone().requires_grad_(need_dx)
+            ww = w.clone().requires_grad_(True)
+            with torch.enable_grad():
+                if tag == "plain":
+                    y = k1.apply_conv_bf16_plain(xx, rules, ww, dst.valid)
+                elif mxu:
+                    y = k1.sparse_conv_train(xx, rules, rules_t, ww,
+                                             dst.valid)
+                else:
+                    y = k3.zrun_conv_train(xx, index, rules, rules_t, ww,
+                                           dst.valid)
+                y.backward(cot)
+            res[tag] = {"forward": y.detach(), "dx": xx.grad,
+                        "wgrad": ww.grad}
+        torch.cuda.synchronize()
+        rels = []
+        for kind in ("forward", "dx", "wgrad"):
+            if kind == "dx" and not need_dx:
+                continue
+            got, ref = res["kernel"][kind], res["plain"][kind]
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            if not rel <= KERNEL_TOL:
+                raise RuntimeError(f"{engine} train {name} {kind}: rel err "
+                                   f"{rel:.3g} > {KERNEL_TOL}")
+            worst[kind] = max(worst[kind], rel)
+            rels.append(f"{kind} {rel:.3g}")
+        note = ""
+        if mxu:  # each kernel alone, at the widths training gives it
+            xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            t = {"forward": _common.time_ms(device, lambda: k1.sparse_conv(
+                xb, rules, wb, dst.valid))[0],
+                 "wgrad": _common.time_ms(device, lambda: k1.conv_wgrad(
+                     xb, cot, rules))[0]}
+            if need_dx:
+                t["dx"] = _common.time_ms(device, lambda: k1.conv_dx(
+                    cot, rules_t, wb))[0]
+            chunk = k1.wgrad_chunk(*(next(n for n in k1.COUTS if n >= w)
+                                     for w in (c, cout)))
+            note = ("; kernel ms " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in t.items())
+                    + f" (dW chunk {chunk} hits)")
+        print(f"train {engine} {name}: C {c} -> {cout}, K {K}, V_in "
+              f"{src.capacity} -> V_out {dst.capacity} (B {B}, "
+              f"{int(dst.valid.sum())} active); kernel vs plain rel "
+              + ", ".join(rels) + note, flush=True)
+    return worst
+
+
+def phase_train_engines(card, cfg, batch, device):
+    """FocalFormer3D_L (float32, batch 2, two radial scans) on each kernel
+    engine from the same weights: first each engine's convs against their
+    plain versions, then one warm step on ``cuda`` and one step on each of
+    ``ENGINES`` in turns, each from the warm step's weights and optimizer
+    state: finite losses, the launches of ``TRAIN_ENGINE_LAUNCHES``
+    exactly (counted from zero just before the step, read just after), ms
+    and split by CUDA events, peak memory. Returns each engine's
+    launches."""
+    import copy
+
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.training import optim, train_step
+    from focalformer3d_tpu_torch.utils.profiler import StageClock
+
+    t_phase = time.perf_counter()
+    for engine in ("cuda_mxu", "cuda_zrun"):
+        worst = _train_conv_checks(cfg, batch, device, engine)
+        print(f"train {engine}: every conv within {KERNEL_TOL} of its plain "
+              "version (worst rel " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in worst.items()) + ")",
+              flush=True)
+    torch.cuda.empty_cache()
+    model = _model(cfg, device).train()
+    tx = optim.make_optimizer(total_steps=100)
+    opt_state = tx.init(model.named_parameters())
+    step = train_step.make_train_step(
+        cfg, get_config("FocalFormer3D_L")["loss"], tx)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    model.pts_middle_encoder.engine = "cuda"
+    step(model, opt_state, batch, gen)  # warm
+    weights = copy.deepcopy(model.state_dict())
+    opt0 = copy.deepcopy(opt_state)
+    out, rows = {}, []
+    for engine in ENGINES:
+        model.load_state_dict(weights)
+        state = copy.deepcopy(opt0)
+        model.pts_middle_encoder.engine = engine
+        gen.manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock = StageClock(device, train_step.PHASES)
+        train_step.reset_kernel_launches()
+        t0 = time.perf_counter()
+        clock.start()
+        metrics = step(model, state, batch, gen, clock.mark)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = train_step.kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        vals = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in vals.items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"train {engine}: non-finite {bad}")
+        if launches != TRAIN_ENGINE_LAUNCHES[engine]:
+            raise RuntimeError(f"train {engine}: launches {launches}, "
+                               f"expected {TRAIN_ENGINE_LAUNCHES[engine]}")
+        out[engine] = launches
+        rows.append(f"{engine} {ms:.1f} ms (" + ", ".join(
+            f"{p} {t:.1f}" for p, t in clock.split().items())
+            + f"), peak {peak:.2f} GiB, loss {vals['loss']:.5g}, "
+            f"launches {launches}")
+    model.pts_middle_encoder.engine = cfg.sparse_engine
+    print(f"train engines ({card}; FocalFormer3D_L float32, batch "
+          f"{TRAIN_BATCH}, one step each from the same weights after a warm "
+          "step on cuda; split by CUDA events, ms): " + "; ".join(rows),
+          flush=True)
+    print(f"train engines: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del model, opt_state, opt0, weights
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 15: FocalFormer3D_LC_Proj on phase 4's scans with their cameras
+I2P_TOL = 1e-4  # the card's I2P output against the CPU's, of its scale
+PROJ_TRAINED = ("imgpts_neck.shared_conv_img.",
+                "imgpts_neck.fusion_blocks.0.I2P_block.")
+
+
+def _check_i2p_on_cpu(model, scan, card):
+    """Sample 0's I2P block on the card against the same module on the CPU
+    in float32, on the inputs the card's forward gave it: within
+    ``I2P_TOL`` of scale; the line counts the (camera, point) validity
+    flags that differ (a point an ulp from an image border or z = eps)."""
+    import copy
+
+    from focalformer3d_tpu_torch.models import i2p as ti2p
+
+    block = model.imgpts_neck.fusion_blocks[0].I2P_block
+    seen = {}
+    hook = block.register_forward_hook(
+        lambda mod, args, out: seen.update(args=args, out=out))
+    vox, img = _camera_inputs(model.cfg, scan)
+    with torch.no_grad():
+        model(vox, img_data=img)
+    hook.remove()
+    cpu = copy.deepcopy(block).cpu().float()
+    args = [a.cpu() if torch.is_tensor(a) else a for a in seen["args"]]
+    with torch.no_grad():
+        ref = cpu(*args)
+    got = seen["out"].cpu()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    lidar = args[0]
+    B, H, W, _ = lidar.shape
+    grid = ti2p.bev_grid((block.max_points_height, H, W), block.pc_range)
+    flips, points = 0, 0
+    for b in range(B):
+        masks = [ti2p.project_points_to_cams(
+            grid.to(dev), *(None if a is None else a[b].to(dev)
+                            for a in args[2:5]), block.input_shape)[1].cpu()
+            for dev in (torch.device("cpu"), seen["out"].device)]
+        flips += int((masks[0] != masks[1]).sum())
+        points += masks[0].numel()
+    print(f"camera I2P sample 0 ({card}): card vs float32 CPU rel {err:.3g}"
+          f" (limit {I2P_TOL}) on {tuple(got.shape)}; {points} (camera, "
+          f"grid point) pairs, {flips} validity flags differ", flush=True)
+    if not err <= I2P_TOL:
+        raise RuntimeError(f"I2P card vs CPU rel {err:.3g} > {I2P_TOL}")
+
+
+def phase_camera_proj(card, device):
+    """FocalFormer3D_LC_Proj (bf16, random weights from seed 0) on phase
+    4's scans with their cameras on each engine, its I2P against the CPU,
+    and two frozen training steps at batch 2. Returns the model-path
+    kernels' launches, each run's counted from zero just before it and read
+    just after it, summed."""
+    from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+    name = "FocalFormer3D_LC_Proj"
+    cfg = with_compute_dtype(dataclasses.replace(
+        get_config(name)["model"], sparse_engine="cuda"), "bfloat16")
+    scans = _camera_scans(cfg, device)
+    model = _model(cfg, device)
+    for engine in ENGINES:
+        launches, _ = _camera_slice(cfg, model, engine, scans, name, True)
+        want = tuple(n * len(scans) for n in LAUNCHES_PER_SCAN[engine])
+        if launches != want:
+            raise RuntimeError(f"{name} {engine}: (K1, K2, K3) {launches}, "
+                               f"expected {want} (phase 4's)")
+        for row, n in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                          launches):
+            total[row] += n
+    model.pts_middle_encoder.engine = "cuda"
+    _check_i2p_on_cpu(model, scans[0], card)
+    del model, scans
+    torch.cuda.empty_cache()
+    total["sparse_conv"] += _camera_train_step(card, device, name,
+                                               PROJ_TRAINED, profile=False)
+    print(f"camera proj ({card}): {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}", flush=True)
+    return total
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -2192,6 +2483,10 @@ def main():
         tta = phase_tta(card, device, root, checkpoint, tmp)
     torch.cuda.empty_cache()
     camera = phase_camera(card, device)
+    torch.cuda.empty_cache()
+    engines = phase_train_engines(card, tcfg, _train_batch(tcfg, device),
+                                  device)
+    camera_proj = phase_camera_proj(card, device)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -2213,6 +2508,11 @@ def main():
         by["variants"] = variants[name]
         by["tta"] = tta[name]
         by["camera"] = camera[name]
+        for engine, path in (("cuda_mxu", "train_mxu"),
+                             ("cuda_zrun", "train_zrun")):
+            by[path] = sum(n for k, n in engines[engine].items()
+                           if LAUNCH_ROWS[k] == name)
+        by["camera_proj"] = camera_proj[name]
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

@@ -4,10 +4,11 @@ Counterparts of ``focalformer3d_tpu.ops.voxelize.VoxelConfig``,
 ``models.detector.DetectorConfig`` / ``with_compute_dtype``,
 ``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig``,
 ``core.box_coder.BBoxCoderConfig`` and ``configs.focalformer3d_l
-.TrainRecipe``. Field names, defaults and the six named configs
+.TrainRecipe``. Field names, defaults and the seven named configs
 (``FocalFormer3D_L``, ``Tiny_L``, ``DeformFormer3D_L``,
-``DeformFormer3D_L_dynamic``, and the camera configs ``FocalFormer3D_LC``
-and ``DeformFormer3D_C_R50``: model, loss, training recipe, class names,
+``DeformFormer3D_L_dynamic``, and the camera configs ``FocalFormer3D_LC``,
+``FocalFormer3D_LC_Proj`` and ``DeformFormer3D_C_R50``: model, loss,
+training recipe, class names,
 dataset and, for the camera configs, the image size) are identical, so
 ``focalformer3d_tpu.utils.ref_keys.reference_state_shapes(cfg)`` accepts a
 config of either package. Only the dtype properties differ: they return
@@ -435,6 +436,18 @@ def _focalformer3d_lc():
     return cfg
 
 
+def _focalformer3d_lc_proj():
+    """FocalFormer3D_LC_Proj (JAX ``configs/variants.py``
+    ``focalformer3d_lc_proj``): FocalFormer3D_LC with the camera fused by
+    I2P projection (``models/i2p.py``: grid-sampled multi-view features and
+    a per-cell attention, in the first fusion layer) instead of the LSS."""
+    cfg = _focalformer3d_lc()
+    cfg["model"] = dataclasses.replace(
+        cfg["model"], cam_proj="i2p", iter_bev_cam=True,
+        max_points_height=10, freeze_camlss=False)
+    return cfg
+
+
 def _deformformer3d_c_r50():
     """DeformFormer3D_C_R50 (JAX ``configs/deformformer3d_c_r50.py``):
     camera only (no point branch), ResNet-50 + FPN at 448 x 800, the LSS
@@ -472,7 +485,18 @@ _REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l,
              "DeformFormer3D_L": _deformformer3d_l,
              "DeformFormer3D_L_dynamic": _deformformer3d_l_dynamic,
              "FocalFormer3D_LC": _focalformer3d_lc,
+             "FocalFormer3D_LC_Proj": _focalformer3d_lc_proj,
              "DeformFormer3D_C_R50": _deformformer3d_c_r50}
+
+
+# the JAX package's configs that the port does not run yet, with the
+# ROADMAP.md item that ports each
+_UNPORTED = {
+    "FocalFormer3D_LC_TTA": "Queue 1 item 8c (the camera data layer)",
+    **{n: "Queue 1 item 10b (Waymo)" for n in (
+        "FocalFormer3D_Waymo_L", "Tiny_Waymo_L", "FocalFormer3D_Waymo15_L",
+        "DeformFormer3D_Waymo_L", "DeformFormer3D_Waymo15_L")},
+}
 
 
 def get_config(name: str):
@@ -480,12 +504,13 @@ def get_config(name: str):
     "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes"}`` (and
     ``"img_scale"`` for a camera config), as the JAX
     ``configs.get_config`` returns it. The configs of ROADMAP.md Queue 1
-    items 8b (``FocalFormer3D_LC_Proj``), 8c (``FocalFormer3D_LC_TTA``)
-    and 10b (Waymo) are not registered."""
+    items 8c (``FocalFormer3D_LC_TTA``) and 10b (Waymo) are not
+    registered."""
     if name not in _REGISTRY:
-        raise KeyError(
-            f"config {name!r} is not ported; available: {sorted(_REGISTRY)}"
-        )
+        item = (f" (ROADMAP.md, {_UNPORTED[name]})" if name in _UNPORTED
+                else "")
+        raise KeyError(f"config {name!r} is not ported{item}; available: "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 

@@ -19,9 +19,12 @@ drives it). The image branch and the LSS compute in float32 whatever
 Camera inputs (``img_data``): ``imgs`` (B, Ncam, H, W, 3), ``lidar2img``
 (B, Ncam, 4, 4) and, optionally, the recorded augmentations ``img_aug``
 (B, Ncam, 4, 4) and ``bev_aug`` (B, 4, 4); cam2lidar is
-``torch.linalg.inv(lidar2img)``. With ``input_pts=False`` (the camera-only
-``DeformFormer3D_C_R50``) there is no voxelization and no point branch,
-and the camera BEV feeds the head (``models/focal_encoder.py``).
+``torch.linalg.inv(lidar2img)``. The neck gets FPN level 0 of every camera
+with these arrays (``image_features``): the LSS reads cam2lidar, I2P
+(``cam_proj="i2p"``, FocalFormer3D_LC_Proj) ``lidar2img``. With
+``input_pts=False`` (the camera-only ``DeformFormer3D_C_R50``) there is no
+voxelization and no point branch, and the camera BEV feeds the head
+(``models/focal_encoder.py``).
 
 Branch freezing, as the JAX detector does it (``detector.py:174-273``):
 a frozen branch stays in eval mode when the model trains, so its batch
@@ -138,7 +141,7 @@ class FocalFormer3D(nn.Module):
             sum(cfg.fpn_channels), cfg.hidden, cfg.neck_layers, cfg.iterbev,
             cfg.extra_feat, cfg.input_img, cfg.input_pts,
             cfg.cam_proj if cfg.input_img else "", cfg.lss, cfg.bev_shape,
-            cfg.freeze_camlss,
+            cfg.freeze_camlss, cfg.iter_bev_cam, cfg.max_points_height,
         )
         self.pts_bbox_head = fd.FocalDecoder(cfg.decoder)
         keep = trainable_mask(cfg, [n for n, _ in self.named_parameters()])
@@ -198,8 +201,10 @@ class FocalFormer3D(nn.Module):
         dropouts and noise. ``mark(stage)``, if given, is called as each
         stage ends: "image backbone + FPN", the encoder's (see
         ``SparseEncoder.forward``), "SECOND + neck", the LSS's ("LSS lift",
-        "LSS splat", "BevEncode"), "FocalEncoder" (the fusion layers) and
-        "decoder". Returns the head's dict."""
+        "LSS splat", "BevEncode"; or, with ``cam_proj="i2p"``, "I2P" after
+        the first fusion layer's projection, ``shared_conv_img`` included),
+        "FocalEncoder" (the fusion layers) and "decoder". The generator
+        also draws I2P's dropout. Returns the head's dict."""
         mark = mark or (lambda _: None)
         cfg = self.cfg
         dt = cfg.tdtype
@@ -217,7 +222,8 @@ class FocalFormer3D(nn.Module):
                                               voxel_data["voxel_mask"], mark)
                 fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
             mark("SECOND + neck")
-        pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt, neck_img, mark)
+        pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt, neck_img, mark,
+                                                      generator)
         mark("FocalEncoder")
         out = self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
                                  gt_labels, gt_valid, generator)

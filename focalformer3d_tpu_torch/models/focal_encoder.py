@@ -18,8 +18,13 @@ Camera: ``cam_proj="lss"`` lifts the FPN level-0 features with
 ``LiftSplatShoot`` (``cam_lss``) into the camera BEV, which each layer
 reads as its image-to-BEV feature and updates with ``iterimg_conv`` (a
 torchvision BasicBlock). ``freeze_camlss`` runs the LSS without autograd
-(the detector keeps it in eval mode). ``cam_proj="i2p"`` is ROADMAP.md
-Queue 1 item 8b and raises.
+(the detector keeps it in eval mode). ``cam_proj="i2p"``
+(FocalFormer3D_LC_Proj): ``shared_conv_img``, a 3x3 conv, projects every
+camera's FPN level 0 from 256 channels to the hidden width, and the first
+fusion layer's ``I2P_block`` (every layer's without ``iter_bev_cam``)
+projects it onto the LiDAR BEV (``models/i2p.py``); its output is the
+camera BEV that layer reads, and later layers read and update it with
+``iterimg_conv`` as they do the LSS BEV.
 
 Camera-only (``input_pts=False``): with no fusion layer the camera BEV
 feeds the head directly, as the reference's ``focal_encoder.py:196-209``
@@ -39,11 +44,22 @@ from torch import nn
 
 from ..configs import LSSConfig
 from ..ops.local_attn import local_attention
+from .i2p import I2P
 from .layers import BasicBlock2d, ConvBN, InvertedResidual, conv2d_nhwc
 from .lss import LiftSplatShoot
 
-I2P = ("cam_proj 'i2p' (I2P, FocalFormer3D_LC_Proj) is not ported yet "
-       "(ROADMAP.md, Queue 1 item 8b)")
+
+def _without_cudnn():
+    """ATen's own convolution for ``shared_conv_img``: on its float32 input
+    (six 112 x 200 x 256 maps, TF32 off) cuDNN picks an algorithm that
+    took 236-332 ms and 17.2 GiB of workspace a sample on an NVIDIA H100
+    80GB HBM3 in every layout tried (NHWC view, contiguous NCHW, a
+    channels_last weight); ATen's took 3.1 ms and 0.45 GiB, within 2.2e-6
+    of it (PERF.md, open question 1). The other cuDNN flags stay as the
+    caller set them."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=False, benchmark=b.benchmark,
+                   deterministic=b.deterministic, allow_tf32=b.allow_tf32)
 
 
 class LocalContextBlock(nn.Module):
@@ -68,8 +84,10 @@ class LocalContextBlock(nn.Module):
 
 class FocalEncoderLayer(nn.Module):
     def __init__(self, hidden: int, iterbev: str = "bevfusionmb2",
-                 with_img: bool = False):
+                 with_img: bool = False, i2p: Optional[dict] = None):
         super().__init__()
+        # ``I2P(hidden, **i2p)`` where the layer projects the cameras itself
+        self.I2P_block = I2P(hidden, **i2p) if i2p is not None else None
         if iterbev == "bevfusionmb2":
             self.P_IML = InvertedResidual(hidden, hidden, 2)
             self.P_out_proj = InvertedResidual(2 * hidden, hidden, 1)
@@ -85,12 +103,25 @@ class FocalEncoderLayer(nn.Module):
                              if with_img else None)
 
     def forward(self, img_feat: Optional[torch.Tensor],
-                lidar_feat: torch.Tensor, dtype=None, last: bool = False
+                lidar_feat: torch.Tensor, dtype=None, last: bool = False,
+                img_data: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                mark: Optional[Callable[[str], None]] = None
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(camera BEV or None, LiDAR BEV) -> (updated camera BEV or None,
         new LiDAR BEV). ``last``: the layer's camera update feeds nothing
         after it, so it runs only in training (its batch norm statistics
-        move there, as in JAX)."""
+        move there, as in JAX). With an ``I2P_block`` the camera input is
+        the cameras' projected features (B, Ncam, fH, fW, C), which it
+        turns into the camera BEV with ``img_data``'s ``lidar2img``,
+        ``img_aug`` and ``bev_aug`` (its dropout drawn from ``generator``)
+        before ``mark("I2P")``."""
+        if self.I2P_block is not None:
+            img_feat = self.I2P_block(
+                lidar_feat, img_feat, img_data["lidar2img"],
+                img_data.get("img_aug"), img_data.get("bev_aug"), generator)
+            if mark is not None:
+                mark("I2P")
         i2p_feat = lidar_feat if img_feat is None else img_feat
         if self.iterbev == "bevfusionmb2":
             p2p = self.P_IML(lidar_feat, dtype)
@@ -111,11 +142,10 @@ class FocalEncoder(nn.Module):
                  input_img: bool = False, input_pts: bool = True,
                  cam_proj: str = "", lss: Optional[LSSConfig] = None,
                  bev_shape: Tuple[int, int] = (180, 180),
-                 freeze_camlss: bool = False):
+                 freeze_camlss: bool = False, iter_bev_cam: bool = True,
+                 max_points_height: int = 10):
         super().__init__()
-        if input_img and cam_proj == "i2p":
-            raise NotImplementedError(I2P)
-        if input_img and cam_proj != "lss":
+        if input_img and cam_proj not in ("lss", "i2p"):
             raise ValueError(f"cam_proj {cam_proj!r}")
         if not (input_img or input_pts):
             raise ValueError("a model needs the points or the images")
@@ -125,24 +155,42 @@ class FocalEncoder(nn.Module):
         self.freeze_camlss = freeze_camlss
         self.shared_conv_pts = (nn.Conv2d(pts_in, hidden, 3, padding=1)
                                 if input_pts else None)
-        self.cam_lss = LiftSplatShoot(lss) if input_img else None
+        project = input_img and cam_proj == "i2p"
+        self.cam_lss = (LiftSplatShoot(lss) if input_img and not project
+                        else None)
+        self.shared_conv_img = (nn.Conv2d(lss.input_channels, hidden, 3,
+                                          padding=1) if project else None)
+        i2p = (dict(max_points_height=max_points_height,
+                    pc_range=lss.pc_range, input_shape=lss.img_scale)
+               if project else None)
         self.fusion_blocks = nn.ModuleList(
-            FocalEncoderLayer(hidden, iterbev, input_img)
-            for _ in range(num_layers))
+            FocalEncoderLayer(hidden, iterbev, input_img,
+                              i2p if not iter_bev_cam or i == 0 else None)
+            for i in range(num_layers))
         self.extra_output = (ConvBN(hidden, hidden, 3, act=False)
                              if extra_feat else None)
 
     def forward(self, pts_feats: Optional[torch.Tensor],
                 dtype: Optional[torch.dtype] = None,
                 img_data: Optional[Dict[str, torch.Tensor]] = None,
-                mark: Optional[Callable[[str], None]] = None
+                mark: Optional[Callable[[str], None]] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """pts_feats (B, H, W, C) SECOND-FPN BEV (None without points),
         ``img_data`` the camera arrays (None without images: ``img_feats``,
-        ``cam2lidar_rot``, ``cam2lidar_trans``, optional ``img_aug`` and
-        ``bev_aug``) -> (pts_feat_conv, stage feats [+ extra]). The LSS
-        runs without autograd under ``freeze_camlss``."""
+        ``cam2lidar_rot`` and ``cam2lidar_trans`` for the LSS,
+        ``lidar2img`` for I2P, optional ``img_aug`` and ``bev_aug``) ->
+        (pts_feat_conv, stage feats [+ extra]). The LSS runs without
+        autograd under ``freeze_camlss``; I2P's dropout draws from
+        ``generator``."""
         img_feat = None
+        if self.shared_conv_img is not None and img_data is not None:
+            f = img_data["img_feats"]  # (B, Ncam, fH, fW, 256), float32
+            with _without_cudnn():
+                img_feat = conv2d_nhwc(
+                    f.flatten(0, 1), self.shared_conv_img.weight,
+                    self.shared_conv_img.bias, 1, 1).unflatten(
+                        0, f.shape[:2])
         if self.cam_lss is not None and img_data is not None:
             frozen = (torch.no_grad() if self.freeze_camlss
                       else contextlib.nullcontext())
@@ -163,7 +211,8 @@ class FocalEncoder(nn.Module):
         stage_feats = []
         n = len(self.fusion_blocks)
         for i, layer in enumerate(self.fusion_blocks):
-            img_feat, x = layer(img_feat, x, dtype, last=i == n - 1)
+            img_feat, x = layer(img_feat, x, dtype, i == n - 1, img_data,
+                                generator, mark)
             stage_feats.append(x)
         if not stage_feats:
             stage_feats = [x]

@@ -21,10 +21,23 @@ function. The module's ``training`` flag picks the mode, as the JAX
 - training: boundary ``train_dense_from`` (``sparse_dense_from``), conv
   without bias, then ``MaskedBatchNorm`` with batch statistics over the
   active sites (``layers.apply_bn``); the dense tail runs in float32. On
-  ``cuda`` each sparse conv is the differentiable
-  ``sparse_conv_cuda.sparse_conv_train`` (K1 forward, K1 on the transposed
-  rulebook for dx, the dW kernel), on ``plain`` autograd through the
-  float32 gather + matmul. ``cuda_mxu`` and ``cuda_zrun`` run eval only.
+  ``plain`` autograd runs through the float32 gather + matmul; on the
+  kernel engines each sparse conv is differentiable on the kernels, as
+  the JAX ``pallas`` engines' custom VJPs are:
+
+  - ``cuda`` and ``cuda_mxu``: ``sparse_conv_cuda.sparse_conv_train`` (K1
+    forward, K1 on the transposed rulebook for dx, the dW kernel on the
+    rulebook). ``cuda_mxu``'s rulebooks are K2's; a strided conv's
+    transpose is ``sparse_conv.transpose_rules`` of K2's rulebook (JAX
+    decodes it and transposes, ``sparse_encoder.py:513-526``); a
+    submanifold rulebook is its own transpose.
+  - ``cuda_zrun``: ``sparse_conv_zrun_cuda.zrun_conv_train`` (K3 forward;
+    K1's dx and dW on ``zrun_rules`` of the codes, built once per level
+    beside them, and its transpose).
+
+  ``cuda`` and ``cuda_zrun`` keep the training dense boundary;
+  ``cuda_mxu`` is all-sparse in training too (JAX ``_mxu_forward``), so it
+  runs K1 forward, dx and dW at L3 and conv_out as well.
 
 Engines (the JAX engine each mirrors in parentheses):
 
@@ -67,8 +80,8 @@ from ..ops import sparse_conv as sc
 from ..ops.plan_builder_cuda import plan_rules
 from ..ops.sparse_conv_cuda import (apply_conv_plain, sparse_conv,
                                     sparse_conv_train)
-from ..ops.sparse_conv_zrun import build_zplan
-from ..ops.sparse_conv_zrun_cuda import zrun_conv
+from ..ops.sparse_conv_zrun import build_zplan, zrun_rules
+from ..ops.sparse_conv_zrun_cuda import zrun_conv, zrun_conv_train
 from .layers import apply_bn, bn_affine
 
 ENGINES = ("auto", "plain", "cuda", "cuda_mxu", "cuda_zrun")
@@ -184,9 +197,19 @@ class Level:
                      coords=torch.stack([o[0] for o in outs]))
 
 
-def _transposed(rules: torch.Tensor, in_capacity: int) -> torch.Tensor:
-    """The transposed rulebooks (B, K, V_in) a strided conv's dx reads."""
-    return torch.stack([sc.transpose_rules(r, in_capacity) for r in rules])
+def backward_index(index: torch.Tensor, in_capacity: int, engine: str,
+                   strided: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What a training conv's backward reads on a kernel engine: the
+    rulebook (B, K, V_out) of its dW, the rulebook ``index`` itself or, on
+    ``cuda_zrun``, the one its codes encode (``zrun_rules``), and the
+    transposed rulebook (B, K, V_in) of its dx, that rulebook where the
+    conv is submanifold (its own transpose), else ``transpose_rules``."""
+    rules = zrun_rules(index, in_capacity) if engine == "cuda_zrun" \
+        else index
+    if not strided:
+        return rules, rules
+    return rules, torch.stack([sc.transpose_rules(r, in_capacity)
+                               for r in rules])
 
 
 def conv_index(src: Level, dst: Level, ks, stride, pad, engine: str):
@@ -254,16 +277,12 @@ class SparseEncoder(nn.Module):
         engine = self.engine
         if engine == "auto":
             engine = "cuda" if device.type == "cuda" else "plain"
-        if self.training and engine not in ("plain", "cuda"):
-            raise NotImplementedError(
-                f"training on engine {engine!r} is not ported; use 'cuda' "
-                "or 'plain'")
         return engine
 
-    def _sparse_conv(self, x, index, wmod, bn, valid, engine, index_t=None):
+    def _sparse_conv(self, x, index, wmod, bn, valid, engine, bwd=None):
         """One sparse conv + BN: folded at eval; at training conv, batch
-        norm over the active sites, re-mask. ``index_t`` is the transposed
-        rulebook the ``cuda`` engine's dx reads."""
+        norm over the active sites, re-mask. ``bwd`` is what a kernel
+        engine's backward reads (``backward_index``)."""
         if not self.training:
             w, b = wmod.folded(bn)
             if engine == "plain":
@@ -274,16 +293,18 @@ class SparseEncoder(nn.Module):
         w = wmod.weight.reshape(-1, *wmod.weight.shape[-2:])
         if engine == "plain":
             y = apply_conv_plain(x, index, w, valid, None, x.dtype)
+        elif engine == "cuda_zrun":
+            y = zrun_conv_train(x, index, *bwd, w, valid)
         else:
-            y = sparse_conv_train(x, index, index_t, w, valid)
+            y = sparse_conv_train(x, index, bwd[1], w, valid)
         return torch.where(valid[..., None], apply_bn(y, bn, valid), 0.0)
 
-    def _basic(self, blk, x, index, valid, engine):
+    def _basic(self, blk, x, index, valid, engine, bwd):
         m = valid[..., None]
         y = F.relu(self._sparse_conv(x, index, blk.conv1, blk.bn1, valid,
-                                     engine, index))
+                                     engine, bwd))
         y = self._sparse_conv(y, index, blk.conv2, blk.bn2, valid, engine,
-                              index)
+                              bwd)
         return torch.where(m, F.relu(y + x), 0.0)
 
     def forward(self, features, coords, valid,
@@ -302,34 +323,42 @@ class SparseEncoder(nn.Module):
         meta_chain = engine == "cuda_mxu"
         dense_from = (self.train_dense_from if self.training
                       else self.dense_from)
-        want_t = self.training and engine == "cuda"
+        want_bwd = self.training and engine != "plain"
+
+        def index_of(src, dst, ks, stride, pad):
+            """The conv's index and what its backward reads."""
+            index = conv_index(src, dst, ks, stride, pad, engine)
+            bwd = (backward_index(index, src.capacity, engine, stride != 1)
+                   if want_bwd else None)
+            return index, bwd
+
         n_stage = len(self.encoder_channels)
         B = features.shape[0]
         x = torch.where(valid[..., None], features, 0.0)
         lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
         record(lvl)
-        index = conv_index(lvl, lvl, 3, 1, 1, engine)
+        index, bwd = index_of(lvl, lvl, 3, 1, 1)
         mark("index build")
         x = F.relu(self._sparse_conv(x, index, self.conv_input[0],
                                      self.conv_input[1], lvl.valid, engine,
-                                     index))
+                                     bwd))
         for i, blocks in enumerate(self.encoder_channels):
             stage = self._stage(i)
             last = i == n_stage - 1
             n_basic = len(blocks) - 1 if not last else len(blocks)
             for j in range(n_basic):
-                x = self._basic(stage[j], x, index, lvl.valid, engine)
+                x = self._basic(stage[j], x, index, lvl.valid, engine, bwd)
             if last:
                 break
             mark("sparse convs")
             pad = self.down_paddings[i]
             out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
             record(out)
-            index = conv_index(lvl, out, 3, 2, pad, engine)
+            index, bwd = index_of(lvl, out, 3, 2, pad)
             mark("index build")
             x = F.relu(self._sparse_conv(
                 x, index, stage[-1][0], stage[-1][1], out.valid, engine,
-                _transposed(index, lvl.capacity) if want_t else None))
+                bwd))
             lvl = out
             mark("sparse convs")
             if not meta_chain and i + 1 == dense_from:
@@ -345,18 +374,18 @@ class SparseEncoder(nn.Module):
                 bev = self._dense_tail(dense, mask, i + 1, engine)
                 mark("dense tail")
                 return bev
-            index = conv_index(lvl, lvl, 3, 1, 1, engine)
+            index, bwd = index_of(lvl, lvl, 3, 1, 1)
             mark("index build")
 
         mark("sparse convs")
         ks_out, st_out = (3, 1, 1), (2, 1, 1)
         out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
         record(out)
-        index = conv_index(lvl, out, ks_out, st_out, 0, engine)
+        index, bwd = index_of(lvl, out, ks_out, st_out, 0)
         mark("index build")
         x = F.relu(self._sparse_conv(
             x, index, self.conv_out[0], self.conv_out[1], out.valid, engine,
-            _transposed(index, lvl.capacity) if want_t else None))
+            bwd))
         sites = out.sites()
         dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
                                          out.shape) for b in range(B)])

@@ -14,6 +14,14 @@ parts, each with a version the CPU runs: ``pack_zrun_weights`` (W as the
 kernel's shared-memory image; ``unpack_zrun_weights`` inverts it),
 ``zrun_hit_shares`` (``hit_shares`` over codes) and ``route_for`` (K1's
 choice per width). The kernel is compiled at first use by ``cuda_build``.
+
+``zrun_conv_train`` is the differentiable conv of the ``cuda_zrun``
+training path, the JAX custom VJP ``sparse_conv_zrun._zconv_core``: K3
+forward on the bf16-rounded operands, and K1's backward
+(``sparse_conv_cuda._SparseConvFn``'s) on the rulebook the codes encode
+(``sparse_conv_zrun.zrun_rules``, taps dz-major as K3's weights, so dW
+comes back in their layout): dx is K1 on its transpose, dW the dW kernel
+on it.
 """
 from __future__ import annotations
 
@@ -162,3 +170,40 @@ def zrun_conv(features: torch.Tensor, codes: torch.Tensor,
     ), "sparse_conv_zrun")
     _launches.add("zrun")
     return out if C_out == c_out else out[..., :c_out].contiguous()
+
+
+class _ZrunConvFn(torch.autograd.Function):
+    """The JAX custom VJP of K3 (``sparse_conv_zrun.py:558-582``): K3
+    forward, K1's dx and dW (``_SparseConvFn.backward``)."""
+
+    @staticmethod
+    def forward(ctx, features, weights, bias, codes, rules, rules_t,
+                out_valid):
+        xb = features.to(torch.bfloat16).contiguous()
+        wb = weights.to(torch.bfloat16).contiguous()
+        out = zrun_conv(xb, codes, wb, out_valid, bias)
+        ctx.save_for_backward(xb, wb, rules, rules_t, out_valid)
+        ctx.dtypes = (features.dtype, weights.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*k1._SparseConvFn.backward(ctx, grad)[:3], None, None, None,
+                None)
+
+
+def zrun_conv_train(features: torch.Tensor, codes: torch.Tensor,
+                    rules: torch.Tensor, rules_t: torch.Tensor,
+                    weights: torch.Tensor, out_valid: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable z-run sparse conv on the kernels: features (B, V_in,
+    C) and weights (3R, C, Cout), dz-major, in any float dtype (cast to
+    bf16 inside); codes (B, R, V_out) from ``build_zplan``; ``rules`` (B,
+    3R, V_out) the rulebook they encode (``zrun_rules(codes, V_in)``) and
+    ``rules_t`` (B, 3R, V_in) its ``sparse_conv.transpose_rules`` (a
+    submanifold rulebook is its own), as
+    ``sparse_encoder.backward_index`` builds them; out_valid (B, V_out);
+    bias f32 (Cout,) or None. Returns f32 (B, V_out, Cout). Its plain
+    version is ``sparse_conv_cuda.apply_conv_bf16_plain`` on ``rules``."""
+    return _ZrunConvFn.apply(features, weights, bias, codes, rules, rules_t,
+                             out_valid)

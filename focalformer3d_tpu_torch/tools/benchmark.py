@@ -19,7 +19,8 @@ the numbers of one call compare. Per engine:
   synchronise at the end), the engines in turn and then in reverse;
 - ms/scan at batch ``--big-batch`` (4; 0 skips it) beside ``--batch-size``.
 
-A camera config (``FocalFormer3D_LC``, ``DeformFormer3D_C_R50``) takes
+A camera config (``FocalFormer3D_LC``, ``FocalFormer3D_LC_Proj``,
+``DeformFormer3D_C_R50``) takes
 each scan with its six synthetic cameras rendered at the config's image
 size (``data/synthetic.make_batch(with_images=True)``, as the JAX
 benchmark builds them); the camera-only config has no point branch, so it
@@ -31,18 +32,22 @@ memory of the timed scans and the card's name and power limit (as
 diagnostic. Then, per engine, the stage split of one scan by CUDA events
 (voxelize, index build, sparse convs, dense tail, SECOND + neck,
 FocalEncoder, decoder, get_bboxes; a camera config adds image backbone +
-FPN, LSS lift, LSS splat and BevEncode, and its FocalEncoder is the fusion
-layers alone; the model's forward marks its stages) and each level's
+FPN and LSS lift, LSS splat and BevEncode, or with I2P the stage I2P
+(``shared_conv_img`` and the projection), and its FocalEncoder is the
+fusion layers alone; the model's forward marks its stages) and each level's
 active voxels against its capacity, with the voxels a capacity dropped (an
 overflow is flagged).
 
 ``--train`` times the training step instead (``training/train_step``,
-float32 as the config says and as the train CLI computes it, TF32 off,
-engine ``cuda`` on a card): ms/step over ``--samples`` steps (at least 3)
-with the first step apart, its split into
+float32 as the config says and as the train CLI computes it, TF32 off) on
+each engine of ``--engines``, each on its own model from the same weights,
+the engines in turns step by step in one process: per engine ms/step over
+``--samples`` steps (at least 3) with the first step apart, its split into
 voxelize / forward / loss / backward / optimizer by the step's ``mark``,
-and, where the config freezes a branch, the same with the freeze off. Its
-JSON line comes right after that timing; then (for a config with the point
+peak memory and the kernel launches of a step, and, where the config
+freezes a branch, the same with the freeze off. Its JSON line (one, with a
+row per engine under ``engines``) comes right after that timing; then (for
+a config with the point
 branch) SECOND's first conv2d at
 its training shape, float32, forward and backward (``aten``'s
 ``convolution_backward``, dx and dW), each timed by CUDA-graph replay
@@ -85,6 +90,19 @@ CAMERA_STAGES = ("voxelize", "image backbone + FPN", "index build",
                  "sparse convs", "dense tail", "SECOND + neck", "LSS lift",
                  "LSS splat", "BevEncode", "FocalEncoder", "decoder",
                  "get_bboxes")
+
+
+def stages_of(cfg):
+    """The stage names a config's forward marks, in the order it marks
+    them: with I2P (``cam_proj="i2p"``) in place of the LSS, "I2P"
+    (``shared_conv_img`` and the first fusion layer's projection) before
+    the fusion layers."""
+    if not cfg.input_img:
+        return STAGES
+    if cfg.cam_proj != "i2p":
+        return CAMERA_STAGES
+    i = CAMERA_STAGES.index("FocalEncoder")
+    return CAMERA_STAGES[:6] + ("I2P",) + CAMERA_STAGES[i:]
 
 
 def parse_args(argv=None):
@@ -238,7 +256,7 @@ def _inference(args, device, card):
     print(json.dumps(result), flush=True)
 
     # ---- diagnostics, after the JSON line ----
-    stages = CAMERA_STAGES if cfg.input_img else STAGES
+    stages = stages_of(cfg)
     clock_name = "CUDA events" if device.type == "cuda" else "host clock"
     n_stage = len(cfg.encoder_channels)
     for engine in engines:
@@ -280,41 +298,75 @@ def _inference(args, device, card):
     return result
 
 
-def _train_step_times(args, device, cfg, lcfg, batch, tag):
+def _train_step_times(args, device, cfg, lcfg, batch, engines, tag):
+    """``1 + max(3, --samples)`` steps on each engine, the engines in turns
+    step by step, each on its own model from the seed-0 weights. Per
+    engine: the first step apart, then the median and spread, the split
+    by phase, the peak device memory of its steps and its kernel launches
+    per step (``train_step.kernel_launches``)."""
     from ..models.detector import FocalFormer3D
     from ..training import optim
-    from ..training.train_step import PHASES, make_train_step
+    from ..training.train_step import PHASES, kernel_launches, \
+        make_train_step
     from ..utils.ref_keys import make_fake_state_dict
 
     tx = optim.make_optimizer(total_steps=1000)
-    model = FocalFormer3D(cfg)
-    model.load_state_dict(make_fake_state_dict(model, seed=0), strict=True)
-    model = model.to(device)
-    opt_state = tx.init(model.named_parameters())
-    step = make_train_step(cfg, lcfg, tx)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(1)
-    wall, splits = [], []
+    runs = {}
+    for engine in engines:
+        ecfg = (dataclasses.replace(cfg, sparse_engine=engine)
+                if cfg.input_pts else cfg)
+        model = FocalFormer3D(ecfg)
+        model.load_state_dict(make_fake_state_dict(model, seed=0),
+                              strict=True)
+        model = model.to(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        runs[engine] = (model, tx.init(model.named_parameters()),
+                        make_train_step(ecfg, lcfg, tx), gen)
+    wall = {e: [] for e in engines}
+    splits = {e: [] for e in engines}
+    peak = dict.fromkeys(engines, 0)
+    launches, loss = {e: [] for e in engines}, {}
     for _ in range(1 + max(3, args.samples)):
-        clock = StageClock(device, PHASES)
-        with T("train step", record=False) as t:
-            clock.start()
-            metrics = t.sync(step(model, opt_state, batch, gen, clock.mark))
-        wall.append(t.ms)
-        splits.append(clock.split())
-        if not np.isfinite(float(metrics["loss"])):
-            raise RuntimeError(f"{tag}: non-finite loss")
-    rest = splits[1:]
-    out = {"ms_per_step_first": wall[0], "ms_per_step": summary(wall[1:]),
-           "split_ms": {p: statistics.median(s[p] for s in rest)
-                        for p in PHASES},
-           "split_ms_first": {p: splits[0][p] for p in PHASES},
-           "loss": float(metrics["loss"])}
-    print(f"{tag}: ms/step first {wall[0]:.1f}, then median "
-          f"{out['ms_per_step']['median']:.1f} (p90 "
-          f"{out['ms_per_step']['p90']:.1f}); split median ms "
-          + ", ".join(f"{p} {t:.1f}" for p, t in out["split_ms"].items()),
-          flush=True)
+        for engine in engines:
+            model, opt_state, step, gen = runs[engine]
+            clock = StageClock(device, PHASES)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            before = kernel_launches()  # the caller's counts run on
+            with T("train step", record=False) as t:
+                clock.start()
+                metrics = t.sync(step(model, opt_state, batch, gen,
+                                      clock.mark))
+            launches[engine].append({k: n - before[k] for k, n in
+                                     kernel_launches().items()})
+            if device.type == "cuda":
+                peak[engine] = max(peak[engine],
+                                   torch.cuda.max_memory_allocated(device))
+            wall[engine].append(t.ms)
+            splits[engine].append(clock.split())
+            if not np.isfinite(float(metrics["loss"])):
+                raise RuntimeError(f"{tag} {engine}: non-finite loss")
+            loss[engine] = float(metrics["loss"])
+    out = {}
+    for engine in engines:
+        rest = splits[engine][1:]
+        w = wall[engine]
+        row = {"ms_per_step_first": w[0], "ms_per_step": summary(w[1:]),
+               "split_ms": {p: statistics.median(s[p] for s in rest)
+                            for p in PHASES},
+               "split_ms_first": {p: splits[engine][0][p] for p in PHASES},
+               "loss": loss[engine],
+               "peak_memory_gib": (peak[engine] / 2**30
+                                   if device.type == "cuda" else None),
+               "launches_per_step": launches[engine][-1]}
+        out[engine] = row
+        print(f"{tag} {engine}: ms/step first {w[0]:.1f}, then median "
+              f"{row['ms_per_step']['median']:.1f} (p90 "
+              f"{row['ms_per_step']['p90']:.1f}); split median ms "
+              + ", ".join(f"{p} {t:.1f}" for p, t in row["split_ms"].items())
+              + f"; peak memory {row['peak_memory_gib'] or 0:.2f} GiB; "
+              f"launches per step {row['launches_per_step']}", flush=True)
     return out
 
 
@@ -324,6 +376,8 @@ def _train(args, device, card):
 
     cfg_all = get_config(args.config)
     cfg, lcfg = cfg_all["model"], cfg_all["loss"]
+    engines = ([e for e in args.engines.split(",") if e] if cfg.input_pts
+               else ["none"])
     b = synthetic.make_batch(
         np.random.RandomState(0), batch_size=args.batch_size,
         n_points=args.n_points, n_boxes=24, max_gts=32,
@@ -333,17 +387,17 @@ def _train(args, device, card):
     batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     result = {"benchmark": "train", "config": args.config,
               "dtype": cfg.compute_dtype, "n_points": args.n_points,
-              "batch_size": args.batch_size,
-              "engine": "cuda" if device.type == "cuda" else "plain",
-              "device": card}
-    result.update(_train_step_times(args, device, cfg, lcfg, batch,
-                                    f"train step [{args.config}]"))
+              "batch_size": args.batch_size, "samples": args.samples,
+              "device": card,
+              "engines": _train_step_times(args, device, cfg, lcfg, batch,
+                                           engines,
+                                           f"train step [{args.config}]")}
     if cfg.freeze_img or cfg.freeze_camlss or cfg.freeze_pts:
         cfg_nf = dataclasses.replace(cfg, freeze_img=False,
                                      freeze_camlss=False, freeze_pts=False)
-        nf = _train_step_times(args, device, cfg_nf, lcfg, batch,
-                               "train step [freeze disabled]")
-        result["freeze_disabled"] = nf
+        result["freeze_disabled"] = _train_step_times(
+            args, device, cfg_nf, lcfg, batch, engines,
+            "train step [freeze disabled]")
     print(json.dumps(result), flush=True)
 
     # ---- diagnostics, after the JSON line ----

@@ -4,14 +4,29 @@ Port of ``focalformer3d_tpu/training/train_step.py``: ``make_train_step``
 (the training voxelization ``preprocess_points(train=True)``, the forward
 in training mode (batch statistics, running averages updated as flax does,
 the head's denoising GT groups and dropouts), the Hungarian-matched
-``detection_loss``, the backward (on engine ``cuda``: K1 on the transposed
-rulebooks for dx and the dW kernel on the sparse levels), and the clipped,
-scheduled AdamW update of ``training/optim.py``), ``make_eval_step`` and the
-branch-freeze masks. A camera config's batch also carries ``imgs``,
-``lidar2img``, ``img_aug`` and ``bev_aug`` (``_img_data_from_batch``); with
-``use_grid_mask`` the step masks the images with ``models/grid_mask``,
-drawn from the step's generator; without the point branch there is no
-voxelization.
+``detection_loss``, the backward, and the clipped, scheduled AdamW update
+of ``training/optim.py``), ``make_eval_step`` and the branch-freeze masks.
+
+The sparse encoder's engine decides which kernels a step launches
+(``models/sparse_encoder.py``; ``kernel_launches`` counts them). Per
+FocalFormer3D_L step (21 sparse convs: conv_input, per level L0-L2 four
+submanifold convs and the strided one, L3's four and conv_out; conv_input's
+voxel features need no dx), in the keys of ``kernel_launches``:
+
+- ``cuda`` (dense from L3): K1 ``forward`` 16, ``dx`` 15 (K1 on the
+  transposed rulebooks), ``wgrad`` 16 (the dW kernel);
+- ``cuda_zrun`` (dense from L3): ``zrun`` 16 (K3), ``dx`` 15 and ``wgrad``
+  16 on the rulebooks its codes encode;
+- ``cuda_mxu`` (all-sparse): ``plan`` 8 (K2, one per conv geometry of the
+  batch), K1 ``forward`` 21, ``dx`` 20, ``wgrad`` 21;
+- a frozen point branch (``freeze_pts``) runs at eval: one eval scan's
+  forward launches (``forward`` 11 on ``cuda``), no ``dx``, no ``wgrad``;
+- ``plain``: none.
+
+A camera config's batch also carries ``imgs``, ``lidar2img``, ``img_aug``
+and ``bev_aug`` (``_img_data_from_batch``); with ``use_grid_mask`` the
+step masks the images with ``models/grid_mask``, drawn from the step's
+generator; without the point branch there is no voxelization.
 
 Branch freezing follows the reference's ``requires_grad=False`` +
 ``.eval()`` on the img / cam_lss / pts branches (detectors/
@@ -35,13 +50,32 @@ from ..configs import DetectorConfig
 from ..models import grid_mask as gm
 from ..models.detector import (FocalFormer3D, preprocess_points,
                                trainable_mask)
+from ..ops import plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda
 from .losses import LossConfig, detection_loss
 from .optim import ClipAdamW, OptState
 
-__all__ = ["PHASES", "make_eval_step", "make_train_step", "trainable_mask"]
+__all__ = ["PHASES", "kernel_launches", "make_eval_step", "make_train_step",
+           "reset_kernel_launches", "trainable_mask"]
 
 PHASES = ("voxelize", "forward", "loss", "backward", "optimizer")
 _IMG_KEYS = ("imgs", "lidar2img", "img_aug", "bev_aug")
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of the model-path kernels since ``reset_kernel_launches``:
+    K1 ``forward``, ``dx`` and ``wgrad`` (``ops/sparse_conv_cuda``), K2
+    ``plan`` (``ops/plan_builder_cuda``) and K3 ``zrun``
+    (``ops/sparse_conv_zrun_cuda``)."""
+    out = {k: sparse_conv_cuda.launch_count(k)
+           for k in ("forward", "dx", "wgrad")}
+    out["plan"] = plan_builder_cuda.launch_count()
+    out["zrun"] = sparse_conv_zrun_cuda.launch_count()
+    return out
+
+
+def reset_kernel_launches() -> None:
+    for mod in (plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda):
+        mod.reset_launch_count()
 
 
 def _img_data_from_batch(batch: Dict[str, torch.Tensor]

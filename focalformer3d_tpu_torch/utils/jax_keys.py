@@ -5,12 +5,12 @@ The port's own copy of ``focalformer3d_tpu.utils.ref_keys
 .reference_state_shapes`` and of ``focalformer3d_tpu.utils.convert
 .build_mapping`` with its ``t2f_*`` layout transforms, cut to the branches
 the port has: the point branch with the HardSimpleVFE, the ResNet-50 + FPN
-image branch, the LSS camera BEV, the ``bevfusionmb2`` and ``bevfusion``
-necks with their camera blocks, and the head (the I2P and HardVFE
-branches come with the slices that port them, ROADMAP.md Queue 1 items 8b
-and 10b). ``tests/test_torch_imports.py`` holds both against the JAX
-package's functions for every registered config: the same keys, shapes,
-flax paths and transforms.
+image branch, the LSS camera BEV or I2P (``shared_conv_img`` and the
+``I2P_block``), the ``bevfusionmb2`` and ``bevfusion`` necks with their
+camera blocks, and the head (the HardVFE branch comes with the slice that
+ports it, ROADMAP.md Queue 1 item 10b). ``tests/test_torch_imports.py``
+holds both against the JAX package's functions for every registered
+config: the same keys, shapes, flax paths and transforms.
 """
 from __future__ import annotations
 
@@ -32,13 +32,13 @@ IGNORED = (
 
 
 def _check_ported(cfg) -> None:
-    if (cfg.input_img and cfg.cam_proj != "lss") \
+    if (cfg.input_img and cfg.cam_proj not in ("lss", "i2p")) \
             or cfg.vfe_type == "HardVFE" \
             or cfg.iterbev not in ("bevfusionmb2", "bevfusion"):
         raise NotImplementedError(
-            "the weight bridge covers the HardSimpleVFE, the LSS camera "
-            "projection and the bevfusionmb2 and bevfusion necks; I2P and "
-            "HardVFE are ROADMAP.md Queue 1 items 8b and 10b")
+            "the weight bridge covers the HardSimpleVFE, the LSS and I2P "
+            "camera projections and the bevfusionmb2 and bevfusion necks; "
+            "HardVFE is ROADMAP.md Queue 1 item 10b")
 
 
 # ---------------------------------------------------------------------------
@@ -175,15 +175,16 @@ def _image_branch_shapes(d, cfg) -> None:
 
 
 def _neck_shapes(d, cfg) -> None:
-    """FocalEncoder: shared_conv_pts, the LSS, the fusion blocks
-    (bevfusionmb2 or bevfusion, with the camera BEV's iterimg_conv) and
+    """FocalEncoder: shared_conv_pts, the LSS or shared_conv_img, the fusion
+    blocks (I2P's learnedAlign where a layer projects the cameras,
+    bevfusionmb2 or bevfusion, the camera BEV's iterimg_conv) and
     extra_output."""
     h = cfg.decoder.hidden
     if cfg.input_pts:
         d["imgpts_neck.shared_conv_pts.weight"] = (
             h, sum(cfg.fpn_channels), 3, 3)
         d["imgpts_neck.shared_conv_pts.bias"] = (h,)
-    if cfg.input_img:
+    if cfg.input_img and cfg.cam_proj == "lss":
         lss = cfg.lss
         d["imgpts_neck.cam_lss.frustum"] = (lss.depth_bins, *lss.feat_hw, 3)
         d["imgpts_neck.cam_lss.camencode.depthnet.weight"] = (
@@ -196,8 +197,20 @@ def _neck_shapes(d, cfg) -> None:
             d[f"imgpts_neck.cam_lss.bevencode.{3 * k}.weight"] = (
                 co, ci, 3, 3)
             _bn_shapes(d, f"imgpts_neck.cam_lss.bevencode.{3 * k + 1}", co)
+    i2p = cfg.input_img and cfg.cam_proj == "i2p"
+    if i2p:  # 3x3 conv of FPN level 0 (256 channels) to the hidden width
+        d["imgpts_neck.shared_conv_img.weight"] = (h, 256, 3, 3)
+        d["imgpts_neck.shared_conv_img.bias"] = (h,)
     for i in range(cfg.neck_layers):
         p = f"imgpts_neck.fusion_blocks.{i}"
+        if i2p and (not cfg.iter_bev_cam or i == 0):
+            # one-head attention: {q,k,v}_proj_weight, a fused in_proj_bias
+            la = f"{p}.I2P_block.learnedAlign"
+            for n in ("q", "k", "v"):
+                d[f"{la}.{n}_proj_weight"] = (h, h)
+            d[f"{la}.in_proj_bias"] = (3 * h,)
+            d[f"{la}.out_proj.weight"] = (h, h)
+            d[f"{la}.out_proj.bias"] = (h,)
         if cfg.iterbev == "bevfusionmb2":
             _inverted_residual_shapes(d, f"{p}.P_IML", h, h, 2)
             _inverted_residual_shapes(d, f"{p}.P_out_proj", 2 * h, h, 1)
@@ -505,13 +518,39 @@ def _image_target(m, tk) -> bool:
     return False
 
 
-def _neck_target(m, tk, shapes) -> bool:
-    """imgpts_neck keys: shared_conv_pts, extra_output, the LSS and the
-    fusion blocks of either neck."""
-    g = re.fullmatch(r"imgpts_neck\.shared_conv_pts\.(weight|bias)", tk)
+def _i2p_target(m, tk, fb, rest) -> bool:
+    """A fusion block's I2P keys: the reference's one-head attention
+    stores {q,k,v}_proj_weight and one fused in_proj_bias (thirds q, k, v);
+    flax has four Dense layers (``models/i2p.py``)."""
+    g = re.fullmatch(r"I2P_block\.learnedAlign\.(q|k|v)_proj_weight", rest)
+    if g:
+        m[tk] = [("params", fb + ("I2P_block", f"{g.group(1)}_proj",
+                                  "kernel"), t2f_linear)]
+        return True
+    if rest == "I2P_block.learnedAlign.in_proj_bias":
+        m[tk] = [("params", fb + ("I2P_block", f"{n}_proj", "bias"),
+                  lambda b, a=a: b[a * (b.shape[0] // 3):
+                                   (a + 1) * (b.shape[0] // 3)])
+                 for a, n in enumerate(("q", "k", "v"))]
+        return True
+    g = re.fullmatch(r"I2P_block\.learnedAlign\.out_proj\.(weight|bias)",
+                     rest)
     if g:
         leaf = g.group(1)
-        m[tk] = [("params", ("imgpts_neck", "shared_conv_pts", _kb(leaf)),
+        m[tk] = [("params", fb + ("I2P_block", "out_proj", _kb(leaf)),
+                  t2f_linear if leaf == "weight" else None)]
+        return True
+    return False
+
+
+def _neck_target(m, tk, shapes) -> bool:
+    """imgpts_neck keys: shared_conv_pts / shared_conv_img, extra_output,
+    the LSS and the fusion blocks of either neck (with I2P's)."""
+    g = re.fullmatch(r"imgpts_neck\.(shared_conv_pts|shared_conv_img)\."
+                     r"(weight|bias)", tk)
+    if g:
+        name, leaf = g.group(1), g.group(2)
+        m[tk] = [("params", ("imgpts_neck", name, _kb(leaf)),
                   t2f_conv if leaf == "weight" else None)]
         return True
     if _convbn(m, tk, "imgpts_neck.extra_output",
@@ -559,6 +598,8 @@ def _neck_target(m, tk, shapes) -> bool:
     for mod in ("P_out_proj", "P_integration"):  # bevfusion ConvBN
         if _convbn(m, tk, f"{tb}.{mod}", fb + (mod,)):
             return True
+    if _i2p_target(m, tk, fb, rest):
+        return True
     g2 = re.fullmatch(r"iterimg_conv\.0\.(conv|bn)(\d)\.(weight|bias|"
                       r"running_mean|running_var)", rest)
     if g2:  # Sequential(resnet.BasicBlock) -> BasicBlock2d's two ConvBN

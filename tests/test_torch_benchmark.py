@@ -2,11 +2,13 @@
 hundred points): it prints exactly one JSON line, right after its timing
 and before its diagnostics, with the numbers of every engine asked for;
 then the stage split and the per-level occupancy of each engine (inference)
-or SECOND's first conv2d in its six variants (``--train``). Nothing is
-timed by a device here: the stage split reads the host clock and the
-conv2d variants are "not measured"."""
+or SECOND's first conv2d in its six variants (``--train``, which times
+each engine of ``--engines`` in turns and gives each a row of the line).
+Nothing is timed by a device here: the stage split reads the host clock
+and the conv2d variants are "not measured"."""
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,10 +60,17 @@ def test_train_json_line_and_conv2d_variants(capsys):
     assert len(found) == 1
     i, rec = found[0]
     assert rec["benchmark"] == "train" and rec["batch_size"] == 2
-    assert rec["ms_per_step"]["n"] == 3 and rec["ms_per_step_first"] > 0
-    assert sorted(rec["split_ms"]) == sorted(
-        ["voxelize", "forward", "loss", "backward", "optimizer"])
-    assert result["loss"] == rec["loss"]
+    assert rec == json.loads(json.dumps(result))
+    engines = benchmark.CARD_ENGINES.split(",")  # the default, in turns
+    assert list(rec["engines"]) == engines
+    for e, row in rec["engines"].items():
+        assert row["ms_per_step"]["n"] == 3 and row["ms_per_step_first"] > 0
+        assert sorted(row["split_ms"]) == sorted(
+            ["voxelize", "forward", "loss", "backward", "optimizer"])
+        assert np.isfinite(row["loss"]) and row["peak_memory_gib"] is None
+        assert set(row["launches_per_step"].values()) == {0}  # CPU
+        assert sum(x.startswith(f"train step [Tiny_L] {e}: ")
+                   for x in lines[:i]) == 1
     conv = [x for x in lines[i + 1:] if x.startswith("SECOND conv2d 0 ")]
     assert [x.split("[")[1].split("]")[0][0] for x in conv] == \
         list("abcdef")

@@ -5,15 +5,18 @@ ResNet-50 + FPN image branch on six 64 x 96 cameras, the LSS onto Tiny_L's
 8 x 8 BEV, two ``bevfusion`` fusion layers; the freeze flags and grid mask
 of ``FocalFormer3D_LC``) and its camera-only counterpart (no point branch,
 no fusion layer, as ``DeformFormer3D_C_R50``) are registered for the test
-under the names ``Tiny_LC`` and ``Tiny_C``:
+under the names ``Tiny_LC`` and ``Tiny_C``, and ``Tiny_LC_Proj``, LC with
+I2P in place of the LSS (as ``FocalFormer3D_LC_Proj``):
 
 - ``make_eval_step`` answers with finite boxes; ``make_train_step`` trains
   the camera-only model end to end (the image branch moves);
 - the benchmark CLI (``--device cpu``) prints its JSON line with the
-  camera count, then the stage split with the image and LSS stages, per
-  engine for LC and once (engine "none") for the camera-only config, and
-  ``--train`` times the frozen LC step beside the unfrozen one;
-- the train CLI on ``--synthetic`` trains LC on the camera stream, and
+  camera count, then the stage split with the image and LSS (or I2P)
+  stages, per engine for LC and LC_Proj and once (engine "none") for the
+  camera-only config, and ``--train`` times the frozen LC step beside the
+  unfrozen one on each engine asked for;
+- the train CLI on ``--synthetic`` trains LC and LC_Proj on the camera
+  stream, and
   ``--load-img-from`` a checkpoint of another run takes that run's image
   branch (``img_backbone``, ``img_neck``, ``imgpts_neck.cam_lss``) bit for
   bit and nothing else;
@@ -71,10 +74,19 @@ def _tiny_c():
     return cfg
 
 
+def _tiny_lc_proj():
+    cfg = _tiny_lc()
+    cfg["model"] = dataclasses.replace(cfg["model"], cam_proj="i2p",
+                                       max_points_height=3,
+                                       freeze_camlss=False)
+    return cfg
+
+
 @pytest.fixture
 def registered(monkeypatch):
     monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_LC", _tiny_lc)
     monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_C", _tiny_c)
+    monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_LC_Proj", _tiny_lc_proj)
 
 
 def _batch(cfg, seed=0, batch_size=2):
@@ -86,7 +98,8 @@ def _batch(cfg, seed=0, batch_size=2):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-@pytest.mark.parametrize("make", [_tiny_lc, _tiny_c], ids=["LC", "C"])
+@pytest.mark.parametrize("make", [_tiny_lc, _tiny_c, _tiny_lc_proj],
+                         ids=["LC", "C", "LC_Proj"])
 def test_eval_step_answers_with_images(make):
     cfg = make()["model"]
     model = FocalFormer3D(cfg)
@@ -135,7 +148,8 @@ def _json(out):
 
 
 @pytest.mark.parametrize("name,engines", [("Tiny_LC", "plain,cuda"),
-                                          ("Tiny_C", "plain")])
+                                          ("Tiny_C", "plain"),
+                                          ("Tiny_LC_Proj", "cuda_mxu")])
 def test_benchmark_inference_on_a_camera_config(registered, capsys, name,
                                                 engines):
     benchmark.main([name, "--device", "cpu", "--samples", "1",
@@ -143,26 +157,31 @@ def test_benchmark_inference_on_a_camera_config(registered, capsys, name,
                     "--engines", engines])
     lines, (i, rec) = _json(capsys.readouterr().out)
     assert rec["cameras"] == 6 and rec["peak_memory_gib"] is None
-    names = engines.split(",") if name == "Tiny_LC" else ["none"]
+    names = engines.split(",") if name != "Tiny_C" else ["none"]
     assert sorted(rec["engines"]) == sorted(names)
+    camera = ("I2P",) if name == "Tiny_LC_Proj" else (
+        "LSS lift", "LSS splat", "BevEncode")
     for e in names:
         split = [x for x in lines[i + 1:]
                  if x.startswith(f"stage split {e} ")]
         assert len(split) == 1
-        for stage in ("image backbone + FPN", "LSS lift", "LSS splat",
-                      "BevEncode", "FocalEncoder", "decoder"):
+        for stage in ("image backbone + FPN", "FocalEncoder",
+                      "decoder") + camera:
             assert stage in split[0], stage
-        assert float(split[0].split("BevEncode ")[1].split(",")[0]) > 0
+        assert ("LSS" in split[0]) == (name != "Tiny_LC_Proj")
+        assert float(split[0].split(f"{camera[-1]} ")[1].split(",")[0]) > 0
         occ = [x for x in lines if x.startswith(f"occupancy {e} ")]
-        assert len(occ) == (name == "Tiny_LC")
+        assert len(occ) == (name != "Tiny_C")
 
 
 def test_benchmark_train_on_lc(registered, capsys):
     benchmark.main(["Tiny_LC", "--device", "cpu", "--samples", "2",
-                    "--n-points", "400", "--train", "--batch-size", "2"])
+                    "--n-points", "400", "--train", "--batch-size", "2",
+                    "--engines", "cuda_zrun"])
     _, (_, rec) = _json(capsys.readouterr().out)
-    assert rec["benchmark"] == "train" and np.isfinite(rec["loss"])
-    assert rec["freeze_disabled"]["ms_per_step"]["n"] == 3
+    assert rec["benchmark"] == "train"
+    assert np.isfinite(rec["engines"]["cuda_zrun"]["loss"])
+    assert rec["freeze_disabled"]["cuda_zrun"]["ms_per_step"]["n"] == 3
 
 
 def test_train_cli_trains_lc_and_loads_an_image_branch(registered, tmp_path,
@@ -191,8 +210,29 @@ def test_train_cli_trains_lc_and_loads_an_image_branch(registered, tmp_path,
     assert src.model is not run.model
 
 
-def test_camera_config_on_a_dataset_raises(registered, tmp_path):
+def test_train_cli_trains_lc_proj(registered, tmp_path, capsys):
+    """LC_Proj on the synthetic camera stream: the frozen image and point
+    branches keep the seed's weights, I2P and ``shared_conv_img`` move."""
+    run = train_cli.main(["Tiny_LC_Proj", "--synthetic", "--device", "cpu",
+                          "--epochs", "1", "--iters-per-epoch", "2",
+                          "--batch-size", "1", "--log-interval", "1",
+                          "--no-tensorboard", "--seed", "3",
+                          "--work-dir", str(tmp_path)])
+    assert "loss=" in capsys.readouterr().out
+    fresh = FocalFormer3D(_tiny_lc_proj()["model"])
+    fresh.load_state_dict(make_fake_state_dict(fresh, seed=3), strict=True)
+    own, got = fresh.state_dict(), run.model.state_dict()
+    for prefix, moves in (("img_backbone.", False), ("pts_backbone.", False),
+                          ("imgpts_neck.shared_conv_img.", True),
+                          ("imgpts_neck.fusion_blocks.0.I2P_block.", True)):
+        keys = [k for k in own if k.startswith(prefix)]
+        assert keys and all(torch.equal(got[k].cpu(), own[k]) != moves
+                            for k in keys), prefix
+
+
+@pytest.mark.parametrize("name", ["Tiny_LC", "Tiny_LC_Proj"])
+def test_camera_config_on_a_dataset_raises(registered, tmp_path, name):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-        train_cli.main(["Tiny_LC", "--device", "cpu", "--data-root",
+        train_cli.main([name, "--device", "cpu", "--data-root",
                         str(tmp_path), "--epochs", "1",
                         "--work-dir", str(tmp_path / "w")])

@@ -211,15 +211,23 @@ def test_camera_keys_match_jax(name):
 
 
 def test_i2p_and_unported_camera_configs_raise():
+    """``cam_proj="i2p"`` is ported (``tests/test_torch_i2p.py``); the LC
+    TTA config still raises, naming the camera data layer's item (8c), and
+    a projection neither package has raises in both the model and the
+    weight bridge."""
     tm = dataclasses.replace(tconfigs.get_config("FocalFormer3D_LC")["model"],
                              cam_proj="i2p")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8b"):
-        tdet.FocalFormer3D(tm)
-    with pytest.raises(NotImplementedError, match="8b"):
+    with torch.device("meta"):
+        assert tdet.FocalFormer3D(tm).imgpts_neck.cam_lss is None
+    assert "imgpts_neck.shared_conv_img.weight" in \
         jax_keys.reference_state_shapes(tm)
-    for name in ("FocalFormer3D_LC_Proj", "FocalFormer3D_LC_TTA"):
-        with pytest.raises(KeyError, match="not ported"):
-            tconfigs.get_config(name)
+    with pytest.raises(KeyError, match="not ported.*Queue 1 item 8c"):
+        tconfigs.get_config("FocalFormer3D_LC_TTA")
+    bad = dataclasses.replace(tm, cam_proj="bev")
+    with pytest.raises(ValueError, match="cam_proj"):
+        tdet.FocalFormer3D(bad)
+    with pytest.raises(NotImplementedError, match="camera projections"):
+        jax_keys.reference_state_shapes(bad)
 
 
 def test_synthetic_camera_batch_bit_for_bit():
@@ -344,7 +352,7 @@ def _port_step(tm, sd, batch, engine="plain", noise=None, mask=None):
                     if isinstance(out, tuple) else out.requires_grad)}))
         for name, m in (("img_neck", model.img_neck),
                         ("cam_lss", model.imgpts_neck.cam_lss),
-                        ("pts_neck", model.pts_neck))]
+                        ("pts_neck", model.pts_neck)) if m is not None]
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     lcfg = tlosses.LossConfig(code_weights=(1.0,) * 8 + (0.2, 0.2))
     with pytest.MonkeyPatch.context() as mp:
@@ -420,7 +428,14 @@ def _jax_loss(jm, lcfg, model, params, batch_stats, batch, mask):
 
 @pytest.mark.slow
 def test_tiny_lc_frozen_train_step_matches_jax(request):
-    jm, tm = _lc_train_cfg()
+    frozen_step_vs_jax(request, *_lc_train_cfg())
+
+
+def frozen_step_vs_jax(request, jm, tm, jax_patches=(), moved=()):
+    """One frozen train step of both packages from one state dict (dropout
+    off, the same noise and grid mask), held as the module docstring says;
+    ``jax_patches`` are (module, name, value) set on the JAX side for the
+    step, and every parameter prefix in ``moved`` must move in the port."""
     jlcfg = jax_get_config("Tiny_L")["loss"]
     batch = _batch(1, 2)
     noise, mask = _noise(jm, batch), _mask(batch)
@@ -438,6 +453,8 @@ def test_tiny_lc_frozen_train_step_matches_jax(request):
 
     mp.setattr(jax.random, "uniform", fixed_uniform)
     mp.setattr(jts, "grid_mask", lambda key, imgs: imgs * mask[..., None])
+    for mod, name, value in jax_patches:
+        mp.setattr(mod, name, value)
     tx = joptim.make_optimizer(
         total_steps=10, trainable_mask=lambda p: jts.trainable_mask(jm, p))
     state = jts.TrainState(variables["params"], variables["batch_stats"],
@@ -465,6 +482,9 @@ def test_tiny_lc_frozen_train_step_matches_jax(request):
         assert abs(got - ref) <= LOSS_TOL * max(abs(ref), 1e-12), \
             (k, got, ref)
     after = _check_frozen(tmodel, before)
+    for prefix in moved:
+        assert any(not torch.equal(after[k], before[k]) for k in after
+                   if k.startswith(prefix)), prefix
 
     bs = new_state.batch_stats
     jg = _jax_state({"params": jgrads, "batch_stats": bs}, tm)

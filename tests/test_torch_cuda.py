@@ -34,7 +34,11 @@ train and benchmark CLIs on DeformFormer3D_L. The camera path closes it:
 the tiny LC model on ``cuda`` against the CPU's plain engine (the LSS BEV
 1e-4, the heads 1e-2), FocalFormer3D_LC's launches per scan on each
 engine equal to FocalFormer3D_L's on the same scan, and
-DeformFormer3D_C_R50 launching no kernel.
+DeformFormer3D_C_R50 launching no kernel. Training on the kernel engines
+ends it: dW at (128, 128) with 27 and 3 taps (``cuda_mxu``'s L3 and
+conv_out) against ``wgrad_plain``, ``zrun_conv_train`` against autograd
+through its plain version (1e-3), and one full-width FocalFormer3D_L step
+on ``cuda_mxu`` and on ``cuda_zrun`` with ``train_step``'s launch counts.
 """
 import dataclasses
 
@@ -45,6 +49,7 @@ import torch
 from focalformer3d_tpu_torch.configs import get_config
 from focalformer3d_tpu_torch.data import synthetic
 from focalformer3d_tpu_torch.models import detector as tdet
+from focalformer3d_tpu_torch.models.sparse_encoder import backward_index
 from focalformer3d_tpu_torch.ops import plan_builder as tpb
 from focalformer3d_tpu_torch.ops import plan_builder_cuda as k2
 from focalformer3d_tpu_torch.ops import sparse_conv as tsc
@@ -1403,3 +1408,124 @@ def test_camera_only_launches_no_kernel(dev):
     dec = m.get_bboxes(out, 200)
     assert torch.isfinite(dec["bboxes"]).all()
     assert not torch.equal(out["dense_heatmap"], dark["dense_heatmap"])
+
+
+# ---------------------------------------------------------------------------
+# training on the kernel engines: dW at L3 and conv_out widths, K3 with a
+# gradient, one full-width step per engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("geom", ["subm", "conv_out"])
+def test_wgrad_at_l3_and_conv_out_widths(dev, geom):
+    """dW at (128, 128), the widths ``cuda_mxu`` training gives it at L3
+    (K = 27) and conv_out (K = 3), on real rulebooks: within 1e-3 of
+    ``wgrad_plain``, two runs equal bit for bit, one launch each."""
+    coords, valid = _voxels(4)
+    rules, ov = _rules(coords.to(dev), valid.to(dev), geom)
+    K = rules.shape[0]
+    assert K == (27 if geom == "subm" else 3)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    x = torch.where(valid.to(dev)[:, None], torch.randn(
+        coords.shape[0], 128, device=dev, generator=g), 0.0)[None]
+    cot = torch.where(ov[:, None], torch.randn(
+        rules.shape[1], 128, device=dev, generator=g), 0.0)[None]
+    xb = x.bfloat16()
+    n0 = k1.launch_count("wgrad")
+    dw = k1.conv_wgrad(xb, cot, rules[None])
+    again = k1.conv_wgrad(xb, cot, rules[None])
+    torch.cuda.synchronize()
+    assert k1.launch_count("wgrad") == n0 + 2
+    assert dw.shape == (K, 128, 128)
+    assert _rel(dw, k1.wgrad_plain(xb, cot, rules[None])) <= 1e-3
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+@pytest.mark.parametrize("cin,cout", [(16, 16), (64, 128), (128, 128)])
+def test_zrun_conv_train_vs_plain(dev, geom, cin, cout):
+    """``zrun_conv_train`` (K3 forward, K1's dx and the dW kernel on the
+    rulebook the codes encode) against autograd through
+    ``apply_conv_bf16_plain`` on ``zrun_rules``: output, dx and dW within
+    1e-3 of scale; one K3, dx and dW launch each."""
+    coords, valid = _voxels(8)
+    coords, valid = coords.to(dev), valid.to(dev)
+    table = tsc.build_table_csr(coords, valid, SHAPE)
+    if GEOMS[geom] is None:
+        ks, st, pad = 3, 1, 1
+        oc, ov = coords, valid
+    else:
+        ks, st, pad = GEOMS[geom]
+        oc, ov = tsc.build_downsample(coords, valid, SHAPE, ks, st, pad,
+                                      4000)[:2]
+    codes = tzr.build_zplan(table, SHAPE, oc, ov, ks, st, pad)[None]
+    v_in = coords.shape[0]
+    rules, rules_t = backward_index(codes, v_in, "cuda_zrun", st != 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    x = torch.where(valid[:, None], torch.randn(v_in, cin, device=dev,
+                                                generator=g), 0.0)[None]
+    w = torch.randn(rules.shape[1], cin, cout, device=dev, generator=g) * 0.2
+    cot = torch.randn(1, ov.shape[0], cout, device=dev, generator=g)
+    res = {}
+    for tag in ("kernel", "plain"):
+        xx = x.clone().requires_grad_(True)
+        ww = w.clone().requires_grad_(True)
+        n0 = (k3.launch_count(), k1.launch_count("dx"),
+              k1.launch_count("wgrad"))
+        with torch.enable_grad():
+            if tag == "kernel":
+                y = k3.zrun_conv_train(xx, codes, rules, rules_t, ww,
+                                       ov[None])
+            else:
+                y = k1.apply_conv_bf16_plain(xx, rules, ww, ov[None])
+            y.backward(cot)
+        torch.cuda.synchronize()
+        n = (k3.launch_count() - n0[0], k1.launch_count("dx") - n0[1],
+             k1.launch_count("wgrad") - n0[2])
+        assert n == ((1, 1, 1) if tag == "kernel" else (0, 0, 0))
+        res[tag] = (y.detach(), xx.grad, ww.grad)
+    for name, got, ref in zip(("out", "dx", "dW"), res["kernel"],
+                              res["plain"]):
+        assert _rel(got, ref) <= 1e-3, name
+    assert torch.all(res["kernel"][1][0][~valid] == 0)
+
+
+@pytest.mark.parametrize("engine,launches", [
+    ("cuda_mxu", {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8,
+                  "zrun": 0}),
+    ("cuda_zrun", {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0,
+                   "zrun": 16}),
+])
+def test_full_width_train_step_per_engine(dev, engine, launches):
+    """One float32 FocalFormer3D_L training step at batch 2 on two radial
+    200k-point scans on each new engine: finite losses, every parameter
+    moved, and the launches of ``train_step``'s accounting exactly."""
+    from focalformer3d_tpu_torch.training import optim, train_step
+
+    all_cfg = get_config("FocalFormer3D_L")
+    cfg = dataclasses.replace(all_cfg["model"], sparse_engine=engine)
+    batch = synthetic.make_batch(
+        np.random.RandomState(10), batch_size=2, n_points=200000,
+        n_boxes=24, max_gts=32, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    m = tdet.FocalFormer3D(cfg)
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev)
+    before = {k: v.detach().clone() for k, v in m.named_parameters()}
+    tx = optim.make_optimizer(total_steps=10)
+    state = tx.init(m.named_parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    train_step.reset_kernel_launches()
+    met = train_step.make_train_step(cfg, all_cfg["loss"], tx)(m, state, b,
+                                                               gen)
+    torch.cuda.synchronize()
+    assert train_step.kernel_launches() == launches
+    assert all(np.isfinite(float(v)) for v in met.values())
+    still = [k for k, p in m.named_parameters()
+             if torch.equal(p.detach(), before[k])]
+    assert not still, still[:5]
+    del m, state, b
+    torch.cuda.empty_cache()

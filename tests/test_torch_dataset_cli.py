@@ -195,7 +195,8 @@ def test_print_config(capsys):
     print_config.main([])
     assert capsys.readouterr().out.strip() == (
         "available: DeformFormer3D_C_R50, DeformFormer3D_L, "
-        "DeformFormer3D_L_dynamic, FocalFormer3D_L, FocalFormer3D_LC, Tiny_L")
+        "DeformFormer3D_L_dynamic, FocalFormer3D_L, FocalFormer3D_LC, "
+        "FocalFormer3D_LC_Proj, Tiny_L")
     print_config.main(["Tiny_L"])
     out = capsys.readouterr().out
     assert "'model':" in out and "'sparse_shape': (25, 64, 64)" in out

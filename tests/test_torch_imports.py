@@ -86,13 +86,14 @@ def test_walk_covers_the_camera_modules():
     files = {str(f.relative_to(REPO)) for f in _port_files()}
     pkg = "focalformer3d_tpu_torch/"
     for mod in ("ops/scatter.py", "ops/local_attn.py", "models/resnet.py",
-                "models/lss.py", "models/grid_mask.py",
+                "models/lss.py", "models/grid_mask.py", "models/i2p.py",
                 "models/focal_encoder.py", "utils/jax_keys.py"):
         assert pkg + mod in files, mod
 
 
 @pytest.mark.parametrize("name", ["Tiny_L", "FocalFormer3D_L",
                                   "DeformFormer3D_L", "FocalFormer3D_LC",
+                                  "FocalFormer3D_LC_Proj",
                                   "DeformFormer3D_C_R50"])
 def test_jax_keys_match_the_jax_package(name):
     jcfg = jax_get_config(name)["model"]
