@@ -198,12 +198,27 @@ Phases (any failure raises and exits non-zero):
    Two float32 frozen training steps at batch 2 on ``cuda``: K1 forward
    11 a step, no dx or dW, the image and point branches bit-identical,
    ``shared_conv_img`` and I2P moved, ms a step, peak memory.
+16. camera dataset (last): a nuScenes-format directory of phase 10's size
+   (6 samples, a 30k-point key frame and 9 sweeps each) with six 1600 x
+   900 JPEG cameras a sample (``write_nuscenes(cameras=True)``, the port's
+   writer); the committed fixtures of ``tests/torch_images/`` through the
+   port's decoder, resize, crop, flip and rotate, each result's SHA-256
+   equal to Pillow's digest; ``get_sample`` with images under the train
+   pipeline (``ImageAug3D``) and the test pipeline, host ms a sample split
+   into the six decodes, the resampling and the rest (wall clock), and
+   ``collate``; the train CLI on FocalFormer3D_LC, 2 x 2 steps at batch 2
+   with the recipe's frozen branches (finite losses, K1 forward 11 a step
+   and nothing else, 60 decodes), s/it beside the loader's time a batch;
+   the test CLI on FocalFormer3D_LC over the 6 samples on ``cuda_mxu``
+   and with ``--tta`` on FocalFormer3D_LC_TTA over 2 samples on ``cuda``
+   (12 passes a sample): finite boxes, samples/s, phase 4's (K1, K2, K3)
+   launches per pass exactly, 6 decodes a sample.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
 phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's,
 ``train_mxu`` and ``train_zrun`` phase 14's step on that engine,
-``camera_proj`` phase 15's),
+``camera_proj`` phase 15's, ``camera_dataset`` phase 16's),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -387,7 +402,7 @@ def _quat_z(yaw):
 
 
 def write_nuscenes(root, *, seed, samples, points, sweeps, pc_range,
-                   classes, boxes=12):
+                   classes, boxes=12, cameras=False, img_hw=(900, 1600)):
     """Write a nuScenes-format directory (mmdet3d v0.17 infos) from the
     port's synthetic scenes: per sample a radial key frame of ``points``
     points (``data/synthetic.make_scene``) and ``sweeps`` sweeps, each
@@ -398,16 +413,27 @@ def write_nuscenes(root, *, seed, samples, points, sweeps, pc_range,
     the box), ``valid_flag``, ``timestamp`` (us), ``sweeps`` and the
     ``lidar2ego_*`` / ``ego2global_*`` calibration of a submission; one
     pickle is written as both ``nuscenes_infos_train.pkl`` and
-    ``nuscenes_infos_val.pkl``. Returns the train infos' path."""
+    ``nuscenes_infos_val.pkl``. With ``cameras`` each sample also gets six
+    cameras (``img_hw``, nuScenes' 900 x 1600 by default): a rig that sees
+    the scene (``synthetic.ring_camera_infos``, its own random stream, so
+    the points are those of ``cameras=False``), the key frame's splats over
+    a textured background (``synthetic.camera_frames``) written as
+    baseline 4:2:0 JPEGs of quality 90 by the port's writer, and ``cams``
+    entries as ``tools/create_data.py`` writes them (``data_path``,
+    ``sensor2lidar_rotation`` / ``_translation``, ``cam_intrinsic``).
+    Returns the train infos' path."""
     import pathlib
     import pickle
 
-    from focalformer3d_tpu_torch.data import synthetic
+    from focalformer3d_tpu_torch.data import image_io, synthetic
+    from focalformer3d_tpu_torch.data.nuscenes import (CAM_ORDER,
+                                                       lidar2img_matrices)
 
     root = pathlib.Path(root)
     (root / "samples").mkdir(parents=True, exist_ok=True)
     (root / "sweeps").mkdir(exist_ok=True)
     rng = np.random.RandomState(seed)
+    cam_rng = np.random.RandomState(seed + 7919)
     infos = []
     for i in range(samples):
         pts, gt, labels = synthetic.make_scene(
@@ -452,6 +478,17 @@ def write_nuscenes(root, *, seed, samples, points, sweeps, pc_range,
             "lidar2ego_translation": [0.94, 0.0, 1.84],
             "ego2global_rotation": _quat_z(0.3 + 0.05 * i),
             "ego2global_translation": [600.0 + 2.0 * i, 1600.0, 0.0]})
+        if cameras:
+            rig = synthetic.ring_camera_infos(cam_rng, len(CAM_ORDER), img_hw)
+            infos[-1]["cams"] = dict(zip(CAM_ORDER, rig))
+            frames = synthetic.camera_frames(
+                cam_rng, pts, lidar2img_matrices(infos[-1]), img_hw)
+            for name, cam in infos[-1]["cams"].items():
+                cam["data_path"] = str(root / "samples" / f"{name}_{i:04d}.jpg")
+            image_io.parallel_map(
+                lambda a: image_io.imwrite(a[0], a[1], quality=90),
+                [(c["data_path"], f) for c, f in
+                 zip(infos[-1]["cams"].values(), frames)])
     ann = root / "nuscenes_infos_train.pkl"
     for name in ("nuscenes_infos_train.pkl", "nuscenes_infos_val.pkl"):
         with open(root / name, "wb") as f:
@@ -2431,6 +2468,240 @@ def phase_camera_proj(card, device):
     return total
 
 
+# phase 16: the camera dataset, FocalFormer3D_LC on a written nuScenes
+# directory with six 900 x 1600 JPEG cameras a sample (phase 10's points)
+CAMDATA_SEED = 21
+CAMDATA_IMG_HW = (900, 1600)
+CAMDATA_TRAIN_STEPS = 4  # 2 epochs of 2
+CAMDATA_TTA_SAMPLES = 2
+CAMDATA_TEST_ENGINE = "cuda_mxu"
+CAMDATA_TTA_ENGINE = "cuda"
+FIXTURE_DIR = "tests/torch_images"
+
+
+def _check_image_fixtures(card):
+    """The committed fixtures through the port's decoder and geometry: the
+    SHA-256 of each result equals the digest Pillow gave
+    (``tests/test_torch_image_io.py`` wrote them)."""
+    import hashlib
+    import pathlib
+
+    from focalformer3d_tpu_torch.data import image_io
+
+    root = pathlib.Path(__file__).resolve().parent / FIXTURE_DIR
+    digests = json.loads((root / "digests.json").read_text())
+    n = 0
+    for name, rec in digests["files"].items():
+        img = image_io.imread(root / name)
+        got = {"decode": img}
+        chain = rec.get("chain")
+        if chain:
+            out = got["resize"] = image_io.resize(img, chain["resize"])
+            out = got["crop"] = image_io.crop(out, chain["crop"])
+            out = got["flip"] = image_io.flip_lr(out)
+            got["rotate"] = image_io.rotate(out, chain["rotate"])
+            got["scale"] = image_io.resize(img, chain["scale"])
+        for step, arr in got.items():
+            if hashlib.sha256(arr.tobytes()).hexdigest() != rec[step]:
+                raise RuntimeError(f"image fixture {name} {step}: the digest "
+                                   f"differs from {digests['made_with']}'s")
+            n += 1
+    print(f"camera dataset ({card}): {len(digests['files'])} fixture JPEGs, "
+          f"{n} digests (decode, resize, crop, flip, rotate, test-time "
+          f"resize) equal {digests['made_with']}'s", flush=True)
+
+
+def _camera_host_ms(cfg_all, root, mode):
+    """Host ms per sample of ``get_sample`` with images under the train
+    (``mode`` "train": ``ImageAug3D``) or test pipeline, over every sample,
+    with its wall-clock split: the six decodes (side by side), the image
+    transforms on them, the rest (points, the point stages, normalise,
+    pad) as the difference; and ``collate`` at batch 2."""
+    from focalformer3d_tpu_torch.data import image_io
+    from focalformer3d_tpu_torch.data import nuscenes as nusc
+    from focalformer3d_tpu_torch.data import pipelines as pl
+
+    cfg, classes = cfg_all["model"], cfg_all["class_names"]
+    hw = cfg.lss.img_scale
+    pipe = (pl.train_pipeline(cfg.voxel.point_cloud_range, classes,
+                              with_images=True, img_scale=hw)
+            if mode == "train" else
+            pl.test_pipeline(cfg.voxel.point_cloud_range, with_images=True,
+                             img_scale=hw))
+    ds = nusc.NuScenesDataset(f"{root}/nuscenes_infos_train.pkl",
+                              classes=classes, pipeline=pipe,
+                              with_images=True, test_mode=mode == "test")
+    img_stage = pipe[-3]
+    rng = np.random.RandomState(0)
+    rows = {"get_sample": [], "decode": [], "resample": [], "rest": [],
+            "collate": []}
+    image_io.reset_call_count()
+    for i in range(0, len(ds) - 1, 2):
+        samples = []
+        for j in (i, i + 1):
+            paths = [ds.infos[j]["cams"][c]["data_path"]
+                     for c in nusc.CAM_ORDER]
+            t0 = time.perf_counter()
+            imgs = image_io.parallel_map(image_io.imread, paths)
+            t1 = time.perf_counter()
+            img_stage({"imgs": [a.astype(np.float32) for a in imgs]},
+                      np.random.RandomState(j))
+            t2 = time.perf_counter()
+            samples.append(ds.get_sample(j, rng))
+            t3 = time.perf_counter()
+            rows["decode"].append((t1 - t0) * 1e3)
+            rows["resample"].append((t2 - t1) * 1e3)
+            rows["get_sample"].append((t3 - t2) * 1e3)
+            rows["rest"].append((t3 - t2 - (t2 - t0)) * 1e3)
+        t0 = time.perf_counter()
+        nusc.collate(samples, classes, max_points=300000,
+                     max_gts=cfg.decoder.max_gts // 4)
+        rows["collate"].append((time.perf_counter() - t0) * 1e3 / 2)
+    return rows, image_io.stats()
+
+
+def phase_camera_dataset(card, tmp):
+    """FocalFormer3D_LC on a written nuScenes directory with cameras: the
+    image fixtures' digests, ``get_sample``'s host time and split under
+    both pipelines, the train CLI (2 x 2 frozen-branch steps), the test CLI
+    over the samples and ``--tta`` on FocalFormer3D_LC_TTA. Returns the
+    model-path kernels' launches, each run's counted from zero just before
+    it and read just after it, summed."""
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.data import image_io
+    from focalformer3d_tpu_torch.tools import test as test_cli
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    cfg_all = get_config("FocalFormer3D_LC")
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+    root = f"{tmp}/nuscenes_cam"
+    t0 = time.perf_counter()
+    write_nuscenes(
+        root, seed=CAMDATA_SEED, samples=DATASET_SAMPLES,
+        points=DATASET_POINTS, sweeps=DATASET_SWEEPS,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], cameras=True,
+        img_hw=CAMDATA_IMG_HW)
+    n_jpeg = 6 * DATASET_SAMPLES
+    print(f"camera dataset ({card}): wrote {DATASET_SAMPLES} samples of a "
+          f"{DATASET_POINTS}-point key frame, {DATASET_SWEEPS} sweeps and "
+          f"{n_jpeg} {CAMDATA_IMG_HW[1]} x {CAMDATA_IMG_HW[0]} JPEGs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _check_image_fixtures(card)
+
+    loader = {}
+    for mode in ("train", "test"):
+        rows, st = _camera_host_ms(cfg_all, root, mode)
+        med = {k: statistics.median(v) for k, v in rows.items()}
+        per_decode = st["decode_s"] / max(st["decodes"], 1) * 1e3
+        per_resample = st["resample_s"] / max(st["resamples"], 1) * 1e3
+        loader[mode] = 2 * (med["get_sample"] + med["collate"])
+        print(f"camera dataset host ms per sample ({card}; {mode} pipeline, "
+              f"six cameras decoded and resampled side by side; median of "
+              f"{len(rows['get_sample'])}): get_sample "
+              f"{med['get_sample']:.1f} (" + ", ".join(
+                  f"{x:.1f}" for x in rows["get_sample"]) + f"); its split: "
+              f"decode {med['decode']:.1f}, resample {med['resample']:.1f}, "
+              f"the rest {med['rest']:.1f}; collate {med['collate']:.1f}; "
+              f"one decode {per_decode:.2f} ms, one resample "
+              f"{per_resample:.2f} ms (thread time, {st['decodes']} and "
+              f"{st['resamples']} calls)", flush=True)
+
+    work = f"{tmp}/work_cam"
+    for k in _wrappers():
+        k.reset_launch_count()
+    image_io.reset_call_count()
+    run, _ = _run_cli(train_cli.main, [
+        "FocalFormer3D_LC", "--data-root", root, "--epochs", "2",
+        "--iters-per-epoch", str(CAMDATA_TRAIN_STEPS // 2), "--batch-size",
+        str(TRAIN_BATCH), "--log-interval", "1", "--work-dir", work,
+        "--no-tensorboard"])
+    with open(f"{work}/train_log.jsonl") as fh:
+        recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
+    losses = [r["loss"] for r in recs]
+    if (len(losses) != CAMDATA_TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"camera dataset train CLI: losses {losses}")
+    if 2 not in ckpt.list_epochs(work):
+        raise RuntimeError(f"camera dataset train CLI: epochs "
+                           f"{ckpt.list_epochs(work)} saved")
+    got = _model_path_launches()
+    want = {k: 0 for k in got}
+    want["sparse_conv"] = CAMDATA_TRAIN_STEPS * LAUNCHES_PER_SCAN["cuda"][0]
+    if got != want:
+        raise RuntimeError(f"camera dataset train CLI: launches {got}, "
+                           f"expected {want} (the frozen point branch: "
+                           "K1 forward only)")
+    # the first batch (drawn as JAX draws it to initialise) + the steps
+    decodes = image_io.call_count()
+    if decodes != 6 * TRAIN_BATCH * (CAMDATA_TRAIN_STEPS + 1):
+        raise RuntimeError(f"camera dataset train CLI: {decodes} decodes")
+    for k, n in got.items():
+        total[k] += n
+    print(f"camera dataset train CLI ({card}; FocalFormer3D_LC float32, "
+          f"batch {TRAIN_BATCH}, its frozen branches): losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; s/it "
+          + ", ".join(f"{r['time']:.3f}" for r in recs)
+          + f" beside the loader's {loader['train'] / 1e3:.3f} s a batch "
+          f"(get_sample x {TRAIN_BATCH} + collate, train pipeline); "
+          f"{decodes} decodes; launches {got}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    keys = {"mAP", "mATE", "mASE", "mAOE", "mAVE", "nds_no_attr"}
+    keys |= {f"AP_{c}" for c in cfg_all["class_names"]}
+    tta_passes = len(get_config("FocalFormer3D_LC_TTA")["tta"][
+        "pts_scale_ratio"]) * 4
+    for name, engine, n, extra in (
+            ("FocalFormer3D_LC", CAMDATA_TEST_ENGINE, DATASET_SAMPLES, []),
+            ("FocalFormer3D_LC_TTA", CAMDATA_TTA_ENGINE, CAMDATA_TTA_SAMPLES,
+             ["--tta"])):
+        passes = n * (tta_passes if extra else 1)
+        want = {k: 0 for k in MODEL_KERNELS}
+        for k, c in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                        LAUNCHES_PER_SCAN[engine]):
+            want[k] = c * passes
+        for k in _wrappers():
+            k.reset_launch_count()
+        image_io.reset_call_count()
+        out = f"{tmp}/sub_cam_{name}.json"
+        res, rec = _run_cli(test_cli.main, [
+            name, "--data-root", root, "--checkpoint", f"{work}/epoch_2",
+            "--limit", str(n), "--engine", engine, "--out", out, *extra])
+        got = _model_path_launches()
+        if got != want:
+            raise RuntimeError(f"camera dataset test CLI {name}: launches "
+                               f"{got}, expected {want} (phase 4's per "
+                               "pass)")
+        if rec is None or set(rec) != keys or res.passes != passes // n:
+            raise RuntimeError(f"camera dataset test CLI {name}: metrics "
+                               f"{rec}, {res.passes} passes")
+        if image_io.call_count() != 6 * n:
+            raise RuntimeError(f"camera dataset test CLI {name}: "
+                               f"{image_io.call_count()} decodes")
+        n_boxes = _check_submission(out, n, name)
+        for k, c in got.items():
+            total[k] += c
+        steady = ((res.samples - 1) / (res.seconds - res.seconds_first)
+                  if res.samples > 1 else float("nan"))
+        merged = (f"; the merge {res.seconds_merge / n * 1e3:.1f} ms a "
+                  "sample" if extra else "")
+        print(f"camera dataset test CLI {' '.join([name, *extra])} ({card}; "
+              f"engine {engine}): {res.samples / res.seconds:.3f} samples/s "
+              f"({res.samples} samples in {res.seconds:.2f} s, "
+              f"{res.passes} pass(es) a sample, the first sample in "
+              f"{res.seconds_first:.2f} s; after it {steady:.3f} "
+              f"samples/s{merged}); the loader's test-pipeline sample "
+              f"{loader['test'] / 2e3:.3f} s; {n_boxes} boxes in the "
+              f"submission, all finite; launches {got}", flush=True)
+        torch.cuda.empty_cache()
+    print(f"camera dataset ({card}): {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}", flush=True)
+    return total
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -2487,6 +2758,9 @@ def main():
     engines = phase_train_engines(card, tcfg, _train_batch(tcfg, device),
                                   device)
     camera_proj = phase_camera_proj(card, device)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        camera_dataset = phase_camera_dataset(card, tmp)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -2513,6 +2787,7 @@ def main():
             by[path] = sum(n for k, n in engines[engine].items()
                            if LAUNCH_ROWS[k] == name)
         by["camera_proj"] = camera_proj[name]
+        by["camera_dataset"] = camera_dataset[name]
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

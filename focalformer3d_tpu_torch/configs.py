@@ -448,6 +448,20 @@ def _focalformer3d_lc_proj():
     return cfg
 
 
+def _focalformer3d_lc_tta():
+    """FocalFormer3D_LC_TTA (JAX ``configs/variants.py``
+    ``focalformer3d_lc_tta``): the LC model with the eval-time double flip
+    at three point-cloud scales, 12 passes a sample (the test CLI's
+    ``--tta`` reads ``tta``)."""
+    cfg = _focalformer3d_lc()
+    cfg["tta"] = {
+        "pts_scale_ratio": (1.0, 1.06, 0.96),
+        "flip_horizontal": True,
+        "flip_vertical": True,
+    }
+    return cfg
+
+
 def _deformformer3d_c_r50():
     """DeformFormer3D_C_R50 (JAX ``configs/deformformer3d_c_r50.py``):
     camera only (no point branch), ResNet-50 + FPN at 448 x 800, the LSS
@@ -486,26 +500,23 @@ _REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l,
              "DeformFormer3D_L_dynamic": _deformformer3d_l_dynamic,
              "FocalFormer3D_LC": _focalformer3d_lc,
              "FocalFormer3D_LC_Proj": _focalformer3d_lc_proj,
+             "FocalFormer3D_LC_TTA": _focalformer3d_lc_tta,
              "DeformFormer3D_C_R50": _deformformer3d_c_r50}
 
 
 # the JAX package's configs that the port does not run yet, with the
 # ROADMAP.md item that ports each
-_UNPORTED = {
-    "FocalFormer3D_LC_TTA": "Queue 1 item 8c (the camera data layer)",
-    **{n: "Queue 1 item 10b (Waymo)" for n in (
-        "FocalFormer3D_Waymo_L", "Tiny_Waymo_L", "FocalFormer3D_Waymo15_L",
-        "DeformFormer3D_Waymo_L", "DeformFormer3D_Waymo15_L")},
-}
+_UNPORTED = {n: "Queue 1 item 10b (Waymo)" for n in (
+    "FocalFormer3D_Waymo_L", "Tiny_Waymo_L", "FocalFormer3D_Waymo15_L",
+    "DeformFormer3D_Waymo_L", "DeformFormer3D_Waymo15_L")}
 
 
 def get_config(name: str):
     """Named config: ``{"model": DetectorConfig, "loss": LossConfig,
     "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes"}`` (and
     ``"img_scale"`` for a camera config), as the JAX
-    ``configs.get_config`` returns it. The configs of ROADMAP.md Queue 1
-    items 8c (``FocalFormer3D_LC_TTA``) and 10b (Waymo) are not
-    registered."""
+    ``configs.get_config`` returns it. The Waymo configs (ROADMAP.md
+    Queue 1 item 10b) are not registered."""
     if name not in _REGISTRY:
         item = (f" (ROADMAP.md, {_UNPORTED[name]})" if name in _UNPORTED
                 else "")

@@ -2,8 +2,8 @@
 loading, CBGS class-balanced resampling, GT-paste (ObjectSample), and
 fixed-shape batch collation.
 
-The port's copy of the LiDAR part of ``focalformer3d_tpu/data/nuscenes.py``,
-the counterpart of the reference's data stack (mmdet3d ``NuScenesDataset``
+The port's copy of ``focalformer3d_tpu/data/nuscenes.py``, the
+counterpart of the reference's data stack (mmdet3d ``NuScenesDataset``
 + ``LoadPointsFromFile`` / ``LoadPointsFromMultiSweeps`` + ``CBGSDataset``
 + ``ObjectSample``, configured at FocalFormer3D_L.py:28-149). The info and
 dbinfo pickle formats stay byte-compatible with mmdet3d v0.17, so existing
@@ -14,13 +14,13 @@ packages give equal samples and batches for one seed
 
 Everything here is host-side NumPy; ``collate`` gives a dict of
 fixed-shape arrays for the device (padded points + masks, padded GTs,
-``bev_aug``). The camera parts (``lidar2img_matrices``, ``CAM_ORDER``,
-the images of ``get_sample`` and ``collate``) are the camera data layer,
-ROADMAP.md Queue 1 item 8c (the JAX copy decodes and resamples images with
-Pillow, which the card's machine lacks): ``with_images=True`` raises. The
-camera models train on the synthetic camera stream meanwhile.
-Points load through the native loader (``data/native``), which raises if
-it cannot be built; ``use_native=False`` takes the numpy path.
+``bev_aug``, and with ``with_images`` the images, ``lidar2img`` and
+``img_aug``). Points load through the native loader (``data/native``),
+which raises if it cannot be built; ``use_native=False`` takes the numpy
+path. Camera images decode through ``data/image_io`` (the port's baseline
+JPEG decoder, bit for bit with Pillow's libjpeg-turbo, where the JAX copy
+calls ``Image.open``), a sample's six side by side; it raises on a file it
+cannot read and has no fallback either.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import image_io
 from . import transforms as T
 
 CLASS_NAMES = (
@@ -52,9 +53,10 @@ DEFAULT_ATTRIBUTES = {
     "traffic_cone": "",
 }
 
-CAMERA_BRANCH = ("camera inputs of the dataset layer are not ported yet: "
-                 "they come with the camera branch's data layer (ROADMAP.md, "
-                 "Queue 1 item 8c); the camera configs train on --synthetic")
+CAM_ORDER = (
+    "CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT",
+    "CAM_BACK", "CAM_BACK_LEFT", "CAM_BACK_RIGHT",
+)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +138,23 @@ def load_points_multisweep(
         p[:, 4] = ts - sw["timestamp"] / 1e6
         out.append(p)
     return np.concatenate(out, 0)
+
+
+def lidar2img_matrices(info: dict,
+                       cam_order: Sequence[str] = CAM_ORDER) -> np.ndarray:
+    """(Ncam, 4, 4) lidar -> image-pixel projective matrices."""
+    mats = []
+    for name in cam_order:
+        cam = info["cams"][name]
+        R = np.asarray(cam["sensor2lidar_rotation"], np.float64)
+        t = np.asarray(cam["sensor2lidar_translation"], np.float64)
+        l2c = np.eye(4)
+        l2c[:3, :3] = R.T
+        l2c[:3, 3] = -R.T @ t
+        K = np.eye(4)
+        K[:3, :3] = np.asarray(cam["cam_intrinsic"], np.float64)
+        mats.append((K @ l2c).astype(np.float32))
+    return np.stack(mats)
 
 
 # ---------------------------------------------------------------------------
@@ -323,8 +342,6 @@ class NuScenesDataset:
         load_interval: int = 1,
         use_valid_flag: bool = True,
     ):
-        if with_images:
-            raise NotImplementedError(CAMERA_BRANCH)
         with open(ann_file, "rb") as f:
             data = pickle.load(f)
         infos = sorted(data["infos"], key=lambda e: e["timestamp"])
@@ -335,6 +352,7 @@ class NuScenesDataset:
         self.pipeline = T.Compose(pipeline) if pipeline else None
         self.sweeps_num = sweeps_num
         self.load_dim = load_dim
+        self.with_images = with_images
         self.test_mode = test_mode
         self.use_valid_flag = use_valid_flag
 
@@ -397,6 +415,16 @@ class NuScenesDataset:
                 )
             sample["gt_boxes"] = np.concatenate([gt_boxes, vel], -1)
             sample["gt_names"] = gt_names
+        if self.with_images:
+            # the JAX copy: np.asarray(Image.open(p), dtype=np.float32),
+            # then RGB -> BGR; here the six cameras side by side
+            sample["imgs"] = image_io.parallel_map(
+                lambda p: image_io.imread(p).astype(np.float32)[..., ::-1],
+                [info["cams"][name]["data_path"] for name in CAM_ORDER])
+            sample["lidar2img"] = lidar2img_matrices(info)
+            sample["img_aug"] = np.broadcast_to(
+                np.eye(4, dtype=np.float32), sample["lidar2img"].shape
+            ).copy()
         if self.pipeline is not None:
             sample = self.pipeline(sample, rng)
         return sample
@@ -415,8 +443,6 @@ def collate(
     point_dim: int = 5,
 ) -> Dict[str, np.ndarray]:
     """Pad a list of pipeline outputs to fixed-shape device arrays."""
-    if "imgs" in samples[0]:
-        raise NotImplementedError(CAMERA_BRANCH)
     B = len(samples)
     out = {
         "points": np.zeros((B, max_points, point_dim), np.float32),
@@ -442,5 +468,10 @@ def collate(
             out["gt_boxes"][i, : len(boxes)] = boxes
             out["gt_labels"][i, : len(boxes)] = labels
             out["gt_valid"][i, : len(boxes)] = True
+    if "imgs" in samples[0]:
+        imgs = np.stack([np.stack(s["imgs"]) for s in samples])
+        out["imgs"] = imgs.astype(np.float32)
+        out["lidar2img"] = np.stack([s["lidar2img"] for s in samples])
+        out["img_aug"] = np.stack([s["img_aug"] for s in samples])
     out["tokens"] = [s.get("token", "") for s in samples]
     return out

@@ -7,6 +7,12 @@ draws the same numbers from the same ``numpy.random.RandomState`` calls,
 so both packages give equal arrays for one seed
 (``tests/test_torch_voxelize.py``; the camera batch in
 ``tests/test_torch_camera_model.py``).
+
+The port adds what a written camera directory needs (``chip_smoke.py``'s
+``write_nuscenes(cameras=True)`` and the tests' fixtures): the
+``make_cameras`` ring as a nuScenes info holds it (``ring_camera_infos``)
+and camera frames with a textured background under the splats
+(``camera_frames``), which ``data/image_io.encode_jpeg`` writes.
 """
 from __future__ import annotations
 
@@ -149,6 +155,50 @@ def make_cameras(rng: np.random.RandomState, n_cams: int = 6,
         ext[:3, 3] = t
         mats.append(K @ ext)
     return np.stack(mats)
+
+
+def ring_camera_infos(rng: np.random.RandomState, n_cams: int = 6,
+                      img_hw=(900, 1600)) -> list:
+    """The ``make_cameras`` ring (1 m out from the sensor at 1.8 m, yawed
+    evenly, jittered by up to 0.05 rad, fx = fy = 0.6 W) in the form of a
+    nuScenes info's ``cams`` entry (``tools/create_data.py``), float64:
+    ``cam_intrinsic`` (3, 3), ``sensor2lidar_rotation`` (camera axes in the
+    lidar frame) and ``sensor2lidar_translation`` (its centre)."""
+    H, W = img_hw
+    K = np.array([[0.6 * W, 0.0, W / 2], [0.0, 0.6 * W, H / 2],
+                  [0.0, 0.0, 1.0]])
+    cams = []
+    for i in range(n_cams):
+        yaw = 2 * np.pi * i / n_cams + rng.uniform(-0.05, 0.05)
+        c, s = np.cos(yaw), np.sin(yaw)
+        # lidar -> camera; the camera frame is (right, down, forward)
+        r_l2c = np.array([[-s, c, 0.0], [0.0, 0.0, -1.0], [c, s, 0.0]])
+        cams.append({"cam_intrinsic": K.copy(),
+                     "sensor2lidar_rotation": r_l2c.T,
+                     "sensor2lidar_translation": np.array([c, s, 1.8])})
+    return cams
+
+
+def camera_frames(rng: np.random.RandomState, points: np.ndarray,
+                  lidar2img: np.ndarray, img_hw=(900, 1600)) -> np.ndarray:
+    """``render_images``' splats (255 a unit of intensity) over a textured
+    background: smooth gradients of random phase and seeded noise of +-12,
+    so that every 8 x 8 block of a JPEG of it carries detail. (Ncam, H, W,
+    3) uint8 RGB."""
+    H, W = img_hw
+    splats = render_images(points, lidar2img, img_hw)
+    y = np.linspace(0.0, 1.0, H, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, W, dtype=np.float32)[None]
+    out = np.empty(splats.shape, np.uint8)
+    for c in range(len(splats)):
+        ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+        bg = np.stack([
+            90 + 50 * np.sin(2 * np.pi * (x * (c + 1) + y) + ph[0]),
+            70 + 60 * y + 20 * np.sin(6 * np.pi * x + ph[1]),
+            80 + 40 * np.cos(2 * np.pi * (2 * x - y) + ph[2])], -1)
+        noise = rng.randint(-12, 13, (H, W, 3)).astype(np.float32)
+        out[c] = np.clip(bg + noise + 255 * splats[c], 0, 255)
+    return out
 
 
 def render_images(points: np.ndarray, lidar2img: np.ndarray,

@@ -31,6 +31,14 @@ there (``dump_aug_cache``, the JAX package's pickle layout). With
 sample's cached candidates of the given folders (padded to ``--max-out`` x
 8 x folders) are merged (``merge_aug_boxes``).
 
+A camera config (FocalFormer3D_LC, FocalFormer3D_LC_TTA, ...) reads each
+sample's six cameras with the port's JPEG decoder and scales them to the
+config's image size (``ScaleImageMultiViewImage``), as the JAX CLI does. Its
+TTA passes, like the JAX CLI's, scale and flip only the points: ``bev_aug``
+stays the identity, so the camera BEV of a flipped or scaled pass is the
+plain pass's (a fault of the JAX package kept for parity, ROADMAP.md
+Queue 3).
+
 It runs on the card unless ``--device cpu`` is given, and raises where
 there is none. A Waymo config raises (ROADMAP.md, Queue 1 item 10).
 """
@@ -170,7 +178,8 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
     ds = nusc.NuScenesDataset(
         ann, data_root=args.data_root, classes=classes,
         pipeline=pl.test_pipeline(cfg.voxel.point_cloud_range,
-                                  with_images=cfg.input_img),
+                                  with_images=cfg.input_img,
+                                  img_scale=cfg.lss.img_scale),
         with_images=cfg.input_img, test_mode=True)
     n = len(ds) if args.limit is None else min(args.limit, len(ds))
     augs = (ma.tta_augs(cfg_all.get("tta", {})) if args.tta

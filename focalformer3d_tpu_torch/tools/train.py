@@ -15,12 +15,14 @@ A camera config's synthetic stream carries six cameras per scene, rendered
 at the config's image size (``data/synthetic.make_batch(with_images=True)``,
 as the JAX CLI draws it); ``--load-img-from`` loads the image branch
 (``img_backbone``, ``img_neck``, ``imgpts_neck.cam_lss``) of another
-checkpoint. A camera config on a nuScenes directory raises: the camera
-data layer is ROADMAP.md Queue 1 item 8c.
+checkpoint. A camera config on a nuScenes directory reads each sample's
+six cameras (``NuScenesDataset(with_images=True)``, the port's JPEG decoder)
+and augments them with ``ImageAug3D`` at the config's image size.
 
 The dataset branch is JAX's nuScenes branch: the GT-paste sampler where
-``nuscenes_dbinfos_train.pkl`` exists in ``--data-root``, the train
-pipeline, CBGS resampling unless ``--no-cbgs``, one ``rng_np.permutation``
+``nuscenes_dbinfos_train.pkl`` exists in ``--data-root`` (not for a camera
+config), the train pipeline, CBGS resampling unless ``--no-cbgs``, one
+``rng_np.permutation``
 of the indices per epoch and ``Fading`` at the recipe's ``fade_epoch``.
 The CLI draws from its ``numpy.random.RandomState(--seed)`` in the order the
 JAX CLI does (the first batch, which JAX draws to initialise its state,
@@ -147,7 +149,8 @@ def nuscenes_batches(args, cfg_all: dict, batch_size: int,
             min_points={c: MIN_POINTS for c in classes})
     pipe = pl.train_pipeline(cfg.voxel.point_cloud_range, classes,
                              db_sampler=db_sampler,
-                             with_images=cfg.input_img)
+                             with_images=cfg.input_img,
+                             img_scale=cfg.lss.img_scale)
     ds = nusc.NuScenesDataset(ann, data_root=args.data_root,
                               classes=classes, pipeline=pipe,
                               with_images=cfg.input_img)

@@ -20,8 +20,10 @@ I2P in place of the LSS (as ``FocalFormer3D_LC_Proj``):
   ``--load-img-from`` a checkpoint of another run takes that run's image
   branch (``img_backbone``, ``img_neck``, ``imgpts_neck.cam_lss``) bit for
   bit and nothing else;
-- a camera config on a nuScenes directory raises, naming ROADMAP.md Queue 1
-  item 8c.
+- a camera config on a nuScenes directory with cameras (six 90 x 160
+  JPEGs a sample, ``chip_smoke.write_nuscenes(cameras=True)``) trains: LC
+  and LC_Proj, one step each, with finite losses, reading every camera
+  through the port's decoder.
 """
 import dataclasses
 import json
@@ -232,7 +234,32 @@ def test_train_cli_trains_lc_proj(registered, tmp_path, capsys):
 
 @pytest.mark.parametrize("name", ["Tiny_LC", "Tiny_LC_Proj"])
 def test_camera_config_on_a_dataset_raises(registered, tmp_path, name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8c"):
-        train_cli.main([name, "--device", "cpu", "--data-root",
-                        str(tmp_path), "--epochs", "1",
-                        "--work-dir", str(tmp_path / "w")])
+    """(Named for what it checked before the camera data layer: that the
+    run raised.) The train CLI on a written directory with cameras: one
+    step at batch 1, a finite loss, the six cameras of each drawn sample
+    decoded (the first batch, drawn as JAX draws it to initialise, and the
+    step's)."""
+    import chip_smoke
+    from focalformer3d_tpu_torch.data import image_io
+
+    cfg_all = tconfigs.get_config("Tiny_L")
+    chip_smoke.write_nuscenes(
+        tmp_path, seed=6, samples=2, points=1500, sweeps=1,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], boxes=4, cameras=True,
+        img_hw=(90, 160))
+    image_io.reset_call_count()
+    run = train_cli.main([name, "--device", "cpu", "--data-root",
+                          str(tmp_path), "--epochs", "1",
+                          "--iters-per-epoch", "1", "--batch-size", "1",
+                          "--max-points", "6000", "--no-cbgs",
+                          "--no-tensorboard", "--log-interval", "1",
+                          "--work-dir", str(tmp_path / "w")])
+    assert image_io.call_count() == 2 * 6
+    assert [type(t).__name__ for t in run.pipeline.transforms][-3:] == [
+        "ImageAug3D", "NormalizeMultiviewImage", "PadMultiViewImage"]
+    with open(tmp_path / "w" / "train_log.jsonl") as fh:
+        losses = [json.loads(x)["loss"] for x in fh
+                  if json.loads(x)["mode"] == "train"]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert run.opt_state.count == 1

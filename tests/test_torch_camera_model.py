@@ -212,17 +212,25 @@ def test_camera_keys_match_jax(name):
 
 def test_i2p_and_unported_camera_configs_raise():
     """``cam_proj="i2p"`` is ported (``tests/test_torch_i2p.py``); the LC
-    TTA config still raises, naming the camera data layer's item (8c), and
-    a projection neither package has raises in both the model and the
-    weight bridge."""
+    TTA config (ported with the camera data layer) equals JAX's: the LC
+    config field for field plus its ``tta`` dict; and a projection neither
+    package has raises in both the model and the weight bridge."""
     tm = dataclasses.replace(tconfigs.get_config("FocalFormer3D_LC")["model"],
                              cam_proj="i2p")
     with torch.device("meta"):
         assert tdet.FocalFormer3D(tm).imgpts_neck.cam_lss is None
     assert "imgpts_neck.shared_conv_img.weight" in \
         jax_keys.reference_state_shapes(tm)
-    with pytest.raises(KeyError, match="not ported.*Queue 1 item 8c"):
-        tconfigs.get_config("FocalFormer3D_LC_TTA")
+    t = tconfigs.get_config("FocalFormer3D_LC_TTA")
+    j = jax_get_config("FocalFormer3D_LC_TTA")
+    assert set(t) == set(j) and "FocalFormer3D_LC_TTA" in tconfigs.available()
+    for k in ("model", "loss", "train"):
+        assert dataclasses.asdict(t[k]) == dataclasses.asdict(j[k]), k
+    for k in ("class_names", "img_scale", "dataset", "tta"):
+        assert t[k] == j[k], k
+    assert t["tta"]["pts_scale_ratio"] == (1.0, 1.06, 0.96)
+    lc = tconfigs.get_config("FocalFormer3D_LC")
+    assert dataclasses.asdict(t["model"]) == dataclasses.asdict(lc["model"])
     bad = dataclasses.replace(tm, cam_proj="bev")
     with pytest.raises(ValueError, match="cam_proj"):
         tdet.FocalFormer3D(bad)

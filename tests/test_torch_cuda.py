@@ -25,7 +25,8 @@ their own grids of widths, tap counts, batch sizes and ragged sizes near the
 end of the file; then come branch freezing (``freeze_pts`` launches no dx
 or dW and keeps the point branch's bits) and a checkpoint round trip of a
 card model; then the test CLI on a written nuScenes-format directory on
-the card against the same run on the CPU's plain engine (1e-2); last,
+the card against the same run on the CPU's plain engine (1e-2), and the
+same on a tiny LC config over a directory with JPEG cameras; last,
 ``dynamic_voxelize`` on the card against the CPU (coords and mask exactly,
 features within 2 * 2**-23 * sum|x| per voxel), a DeformFormer3D_L scan
 per engine with FocalFormer3D_L's launch counts, the TTA merge on the card
@@ -1174,6 +1175,43 @@ def test_test_cli_on_card_matches_cpu(dev, tmp_path):
     assert set(runs["cuda"].predictions) == set(runs["cpu"].predictions)
     for tok, ref in runs["cpu"].predictions.items():
         assert len(ref["scores"]) >= 30  # Tiny_L keeps 32
+        _top_boxes_close(runs["cuda"].predictions[tok], ref)
+
+
+def test_test_cli_on_a_camera_directory_matches_cpu(dev, tmp_path,
+                                                   monkeypatch):
+    """The test CLI on a tiny LC config (``Tiny_LC`` of
+    ``tests/test_torch_camera_cli.py``) over a written directory with six
+    90 x 160 JPEG cameras a sample, decoded by the port's decoder: engine
+    ``cuda`` on the card (K1, 11 launches a sample) against ``--device
+    cpu`` on the plain engine, the best 50 boxes of each sample within 1e-2
+    (``_top_boxes_close``, as for Tiny_L)."""
+    import chip_smoke
+    from focalformer3d_tpu_torch import configs as tconfigs
+    from focalformer3d_tpu_torch.data import image_io
+    from focalformer3d_tpu_torch.tools import test as test_cli
+    from test_torch_camera_cli import _tiny_lc
+
+    monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_LC", _tiny_lc)
+    cfg_all = get_config("Tiny_L")
+    chip_smoke.write_nuscenes(
+        tmp_path, seed=3, samples=2, points=1500, sweeps=2,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], boxes=4, cameras=True,
+        img_hw=(90, 160))
+    runs = {}
+    for device, engine in (("cuda", "cuda"), ("cpu", "plain")):
+        k1.reset_launch_count()
+        image_io.reset_call_count()
+        runs[device] = test_cli.main([
+            "Tiny_LC", "--data-root", str(tmp_path), "--device", device,
+            "--engine", engine, "--limit", "2", "--max-points", "6000",
+            "--seed", "3"])
+        assert k1.launch_count() == (22 if device == "cuda" else 0)
+        assert image_io.call_count() == 12
+    assert set(runs["cuda"].predictions) == set(runs["cpu"].predictions)
+    for tok, ref in runs["cpu"].predictions.items():
+        assert len(ref["scores"]) >= 30
         _top_boxes_close(runs["cuda"].predictions[tok], ref)
 
 

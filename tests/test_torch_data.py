@@ -12,6 +12,10 @@ numpy path's matmul sums in another order) and against the JAX native
 loader (bit for bit, one source, one compiler command); a native build
 that fails raises with the compiler's message instead of falling back;
 ``Fading`` drops ``ObjectSample`` from a ``Compose`` from its epoch on.
+The camera stages of the pipelines have JAX's names and order, and the
+fake directory with six cameras a sample (the port's JPEG writer) reads
+into JAX's arrays (``tests/test_torch_camera_data.py`` holds the camera
+layer in full).
 """
 import importlib.util
 import pickle
@@ -19,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from focalformer3d_tpu.data import nuscenes as jnusc
 from focalformer3d_tpu.data import pipelines as jpl
@@ -291,26 +296,86 @@ def test_create_gt_database_equals_jax(tmp_path):
 
 
 def test_pipelines_equal_jax_and_camera_raises():
+    """(Named for what it checked before the camera data layer: that the
+    camera stages raised.) Every stage list, the camera ones included,
+    has JAX's stages in JAX's order; ``collate`` stacks the images."""
     t = tpl.train_pipeline(PCR, tnusc.CLASS_NAMES)
     j = jpl.train_pipeline(PCR, jnusc.CLASS_NAMES)
     assert [type(x).__name__ for x in t] == [type(x).__name__ for x in j]
     assert ([type(x).__name__ for x in tpl.test_pipeline(PCR)]
             == [type(x).__name__ for x in jpl.test_pipeline(PCR)])
-    for call in (lambda: tpl.train_pipeline(PCR, tnusc.CLASS_NAMES,
-                                            with_images=True),
-                 lambda: tpl.test_pipeline(PCR, with_images=True),
-                 lambda: tnusc.collate([{"imgs": [], "bev_aug": np.eye(4),
-                                         "points": np.zeros((1, 5))}])):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            call()
+    names = lambda ts: [type(x).__name__ for x in ts]  # noqa: E731
+    for kw in ({}, {"image_aug": False}, {"img_scale": (64, 96)}):
+        t = tpl.train_pipeline(PCR, tnusc.CLASS_NAMES, with_images=True, **kw)
+        j = jpl.train_pipeline(PCR, jnusc.CLASS_NAMES, with_images=True, **kw)
+        assert names(t) == names(j)
+        assert names(t)[-3:-2] == (["ScaleImageMultiViewImage"]
+                                   if kw.get("image_aug") is False
+                                   else ["ImageAug3D"])
+        assert vars(t[-3]) == vars(j[-3])
+    t = tpl.test_pipeline(PCR, with_images=True, img_scale=(64, 96))
+    j = jpl.test_pipeline(PCR, with_images=True, img_scale=(64, 96))
+    assert names(t) == names(j) == [
+        "PointsRangeFilter", "ScaleImageMultiViewImage",
+        "NormalizeMultiviewImage", "PadMultiViewImage"]
+    assert t[1].scales == j[1].scales == (96, 64)
+    assert tpl.IMG_NORM_MEAN == jpl.IMG_NORM_MEAN
+    assert tpl.IMG_NORM_STD == jpl.IMG_NORM_STD
+    sample = {"imgs": [np.ones((4, 6, 3), np.float32)] * 6,
+              "lidar2img": np.eye(4, dtype=np.float32)[None].repeat(6, 0),
+              "img_aug": np.eye(4, dtype=np.float32)[None].repeat(6, 0),
+              "bev_aug": np.eye(4), "points": np.zeros((1, 5))}
+    tb = tnusc.collate([sample])
+    jb = jnusc.collate([sample])
+    for k in ("imgs", "lidar2img", "img_aug"):
+        np.testing.assert_array_equal(tb[k], jb[k])
+    assert tb["imgs"].shape == (1, 6, 4, 6, 3)
     assert tnusc.CLASS_NAMES == jnusc.CLASS_NAMES
     assert tnusc.DEFAULT_ATTRIBUTES == jnusc.DEFAULT_ATTRIBUTES
 
 
+def _add_cameras(pkl, root, hw=(30, 48)):
+    """Six cameras a sample for the fake directory: the synthetic ring
+    rig and textured frames, written by the port's JPEG writer."""
+    from focalformer3d_tpu_torch.data import image_io, synthetic
+
+    rng = np.random.RandomState(9)
+    with open(pkl, "rb") as f:
+        data = pickle.load(f)
+    for i, info in enumerate(data["infos"]):
+        cams = dict(zip(tnusc.CAM_ORDER,
+                        synthetic.ring_camera_infos(rng, 6, hw)))
+        info["cams"] = cams
+        pts = np.fromfile(info["lidar_path"], np.float32).reshape(-1, 5)
+        frames = synthetic.camera_frames(
+            rng, pts, tnusc.lidar2img_matrices(info), hw)
+        for (name, cam), frame in zip(cams.items(), frames):
+            cam["data_path"] = str(root / f"{name}_{i}.jpg")
+            image_io.imwrite(cam["data_path"], frame)
+    with open(pkl, "wb") as f:
+        pickle.dump(data, f)
+
+
 def test_dataset_with_images_raises(fake):
+    """(Named for what it checked before the camera data layer: that
+    ``with_images=True`` raised.) The dataset reads the fake directory's
+    cameras: every sample equals JAX's (Pillow's decode there), with BGR
+    images, ``lidar2img`` and identity ``img_aug``."""
     pkl, root = fake
-    with pytest.raises(NotImplementedError, match="camera branch"):
-        tnusc.NuScenesDataset(str(pkl), str(root), with_images=True)
+    _add_cameras(pkl, root)
+    ts = tnusc.NuScenesDataset(str(pkl), str(root), with_images=True)
+    js = jnusc.NuScenesDataset(str(pkl), str(root), with_images=True)
+    assert len(ts) == len(js) == 4
+    for i in range(len(ts)):
+        t = ts.get_sample(i, np.random.RandomState(i))
+        j = js.get_sample(i, np.random.RandomState(i))
+        _assert_same(t, j)
+        assert len(t["imgs"]) == 6 and t["imgs"][0].shape == (30, 48, 3)
+        rgb = np.asarray(Image.open(
+            ts.infos[i]["cams"]["CAM_FRONT"]["data_path"]), np.float32)
+        np.testing.assert_array_equal(t["imgs"][0], rgb[..., ::-1])
+        np.testing.assert_array_equal(t["img_aug"], np.broadcast_to(
+            np.eye(4, dtype=np.float32), (6, 4, 4)))
 
 
 @pytest.mark.parametrize("test_mode", [True, False])

@@ -1,9 +1,12 @@
-"""The port stands alone: no module of it imports JAX or the JAX package.
+"""The port stands alone: no module of it imports JAX, the JAX package or
+Pillow.
 
 ``test_no_jax_imports`` walks the syntax tree of every module of
 ``focalformer3d_tpu_torch/`` and of ``chip_smoke.py`` (imports inside
 functions included) and fails on any import of ``jax``, ``jaxlib``,
-``flax``, ``optax``, ``orbax`` or ``focalformer3d_tpu``. The port's copy
+``flax``, ``optax``, ``orbax``, ``focalformer3d_tpu`` or ``PIL`` (the
+card's machine has no Pillow: the port decodes and resamples the cameras
+itself, ``data/image_io.py``). The port's copy
 of the reference checkpoint's key inventory and key mapping
 (``utils/jax_keys.py``) is held here against the JAX package's originals,
 for the LiDAR and the camera configs: the same keys, shapes and flax
@@ -22,7 +25,8 @@ from focalformer3d_tpu_torch import configs as tconfigs
 from focalformer3d_tpu_torch.utils import jax_keys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu",
+          "PIL")
 
 
 def _port_files():
@@ -71,6 +75,18 @@ def test_guard_sees_nested_imports():
            "    importlib.import_module('flax.linen')\n")
     roots = [r for _, r in _imported_roots(ast.parse(src))]
     assert roots == ["focalformer3d_tpu", "jax", "flax"]
+
+
+def test_walk_covers_the_camera_data_layer():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("data/image_io.py", "data/native/__init__.py",
+                "data/transforms.py", "data/nuscenes.py", "data/pipelines.py",
+                "data/synthetic.py"):
+        assert pkg + mod in files, mod
+    roots = [r for _, r in _imported_roots(ast.parse(
+        "def f():\n    from PIL import Image\n"))]
+    assert roots == ["PIL"] and "PIL" in BANNED
 
 
 def test_walk_covers_the_tta_and_checkpoint_modules():
