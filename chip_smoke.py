@@ -185,7 +185,7 @@ Phases (any failure raises and exits non-zero):
    state: finite losses, the K1 forward / dx / dW, K2 and K3 launches of
    ``TRAIN_ENGINE_LAUNCHES`` exactly, ms a step with its split by CUDA
    events, peak memory.
-15. LC_Proj (last): FocalFormer3D_LC_Proj at full width (LC with I2P in
+15. LC_Proj: FocalFormer3D_LC_Proj at full width (LC with I2P in
    place of the LSS: ``shared_conv_img`` and a 10 x 180 x 180 grid of
    points projected into the six cameras; bf16 where the config computes
    in its dtype, the image branch and I2P in float32; random weights from
@@ -198,7 +198,7 @@ Phases (any failure raises and exits non-zero):
    Two float32 frozen training steps at batch 2 on ``cuda``: K1 forward
    11 a step, no dx or dW, the image and point branches bit-identical,
    ``shared_conv_img`` and I2P moved, ms a step, peak memory.
-16. camera dataset (last): a nuScenes-format directory of phase 10's size
+16. camera dataset: a nuScenes-format directory of phase 10's size
    (6 samples, a 30k-point key frame and 9 sweeps each) with six 1600 x
    900 JPEG cameras a sample (``write_nuscenes(cameras=True)``, the port's
    writer); the committed fixtures of ``tests/torch_images/`` through the
@@ -214,11 +214,40 @@ Phases (any failure raises and exits non-zero):
    (12 passes a sample): finite boxes, samples/s, phase 4's (K1, K2, K3)
    launches per pass exactly, 6 decodes a sample.
 
+17. Waymo (last): ``write_waymo`` writes a KITTI-layout directory of 6
+   frames of 180 000 radial points within +-76.8 m (float32, 6 columns;
+   boxes in the camera frame through a non-identity ``R0_rect`` and
+   ``Tr_velo_to_cam``, a DontCare row, LEVEL_2-only boxes). On the first
+   frame through the test pipeline, FocalFormer3D_Waymo_L's geometry (a
+   41 x 1536 x 1536 grid, 150 000 voxels at L0): K2's 8 rulebooks exactly,
+   K1 at the 9 geometries of ``cuda`` and ``cuda_mxu`` and K3 at the 5 of
+   ``cuda_zrun`` within 1e-3 of their plain versions, timed by CUDA-graph
+   replay beside phase 3's nuScenes times; ``hard_voxelize`` on the card
+   equal to the CPU bit for bit and the HardVFE within 1e-5 of the CPU's
+   scale (each timed by events). FocalFormer3D_Waymo_L (bf16, seed-0
+   weights) on three frames per engine: finite 7-value boxes, 1-200 kept,
+   phase 4's (K1, K2, K3) launches a frame exactly; the BEV engine parity
+   of phase 5 on the first frame (1e-2); FocalFormer3D_Waymo15_L
+   (class-aware heads) and DeformFormer3D_Waymo_L on ``cuda_mxu``, one
+   frame each; the benchmark CLI on the three engines (its stage split
+   with the ``HardVFE`` stage, and each level's occupancy: active /
+   capacity / dropped); the train CLI on FocalFormer3D_Waymo_L, 2 x 2
+   steps at batch 2 (finite losses, s/it, K1 forward / dx / dW 16 / 16 /
+   16 a step: conv_input's dx too, the HardVFE trains), then
+   DeformFormer3D_Waymo15_L one epoch (its ``load_interval`` 5 leaves 2 of
+   the 6 frames: one step); the test CLI on the first checkpoint over the
+   6 frames on each engine (samples/s, the L1 / L2 mAP / mAPH and per-class
+   keys all finite, exactly 6 frames' launches, the evaluator's host ms).
+
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
 phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's,
 ``train_mxu`` and ``train_zrun`` phase 14's step on that engine,
-``camera_proj`` phase 15's, ``camera_dataset`` phase 16's),
+``camera_proj`` phase 15's, ``camera_dataset`` phase 16's, ``waymo``
+phase 17's, each run counted from zero just before it and read just after
+it), K1's, K2's and K3's stats at the Waymo geometry (``waymo``: max
+error, per-frame ms, plain ms, bound; ``max_abs_err`` is the larger of
+the two phases'),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -497,6 +526,85 @@ def write_nuscenes(root, *, seed, samples, points, sweeps, pc_range,
     return str(ann)
 
 
+def _rot(axis, angle):
+    """4 x 4 rotation by ``angle`` about axis 0 (x), 1 (y) or 2 (z)."""
+    c, s = math.cos(angle), math.sin(angle)
+    i, j = [(1, 2), (2, 0), (0, 1)][axis]
+    m = np.eye(4)
+    m[i, i], m[i, j], m[j, i], m[j, j] = c, -s, s, c
+    return m
+
+
+def write_waymo(root, *, seed, frames, points, pc_range, classes, boxes=12):
+    """Write a Waymo directory in mmdet3d's KITTI layout (what
+    ``data/waymo.py`` reads) from the port's synthetic scenes: per frame a
+    radial scan of ``points`` points (``data/synthetic.make_scene``) as a
+    float32 ``.bin`` of 6 columns (the 5 of the scan and one more, as
+    Waymo's load_dim 6), and an info with the KITTI calibration (a
+    non-identity ``R0_rect`` and ``Tr_velo_to_cam``: the LiDAR-to-camera
+    axis swap after a small rotation and shift) and ``annos`` in the camera
+    frame (location of the bottom centre, dimensions (l, h, w),
+    rotation_y), one ``DontCare`` row, ``difficulty`` (0, 1 or 2) and
+    ``num_points_in_gt`` (the scan's points in the box), so that some boxes
+    are LEVEL_2 only. One pickle is written as both
+    ``waymo_infos_train.pkl`` and ``waymo_infos_val.pkl``. Returns the
+    train infos' path."""
+    import pathlib
+    import pickle
+
+    from focalformer3d_tpu_torch.data import synthetic
+
+    root = pathlib.Path(root)
+    (root / "training" / "velodyne").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    axes = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0],
+                     [0, 0, 0, 1.0]])  # x_cam = -y, y_cam = -z, z_cam = x
+    infos = []
+    for i in range(frames):
+        pts, gt, labels = synthetic.make_scene(
+            rng, n_points=points, n_boxes=boxes, num_classes=len(classes),
+            pc_range=pc_range, mode="radial")
+        extra = rng.uniform(0.0, 1.0, (len(pts), 1)).astype(np.float32)
+        rel = f"training/velodyne/{i:06d}.bin"
+        np.concatenate([pts, extra], 1).astype(np.float32).tofile(root / rel)
+        rect = _rot(0, rng.uniform(-0.02, 0.02))
+        trv2c = axes @ _rot(2, rng.uniform(-0.05, 0.05))
+        trv2c[:3, 3] = rng.uniform(-0.3, 0.3, 3)
+        lidar2cam = rect @ trv2c
+        loc = (np.concatenate([gt[:, :3], np.ones((len(gt), 1))], 1)
+               @ lidar2cam.T)[:, :3]
+        dims = gt[:, [3, 5, 4]].astype(np.float64)  # (l, h, w)
+        rot_y = -gt[:, 6].astype(np.float64) - np.pi / 2
+        # the scan's points in each bottom-centred box
+        d = pts[:, None, :2] - gt[None, :, :2]
+        cy, sy = np.cos(gt[:, 6]), np.sin(gt[:, 6])
+        lx = d[..., 0] * cy + d[..., 1] * sy
+        ly = -d[..., 0] * sy + d[..., 1] * cy
+        dz = pts[:, None, 2] - gt[None, :, 2]
+        n_in = ((np.abs(lx) <= gt[:, 3] / 2) & (np.abs(ly) <= gt[:, 4] / 2)
+                & (dz >= 0) & (dz <= gt[:, 5])).sum(0)
+        infos.append({
+            "image": {"image_idx": i},
+            "point_cloud": {"num_features": 6, "velodyne_path": rel},
+            "calib": {"R0_rect": rect, "Tr_velo_to_cam": trv2c},
+            "annos": {
+                "name": np.array([classes[k] for k in labels] + ["DontCare"],
+                                 object),
+                "location": np.concatenate([loc, [[0.0, 1.0, 30.0]]]),
+                "dimensions": np.concatenate([dims, [[1.0, 1.0, 1.0]]]),
+                "rotation_y": np.concatenate([rot_y, [0.0]]),
+                "difficulty": np.concatenate(
+                    [rng.choice([0, 0, 1, 2], len(gt)), [0]]).astype(np.int32),
+                "num_points_in_gt": np.concatenate([n_in, [0]]).astype(
+                    np.int32),
+            },
+        })
+    for name in ("waymo_infos_train.pkl", "waymo_infos_val.pkl"):
+        with open(root / name, "wb") as f:
+            pickle.dump(infos, f)
+    return str(root / "waymo_infos_train.pkl")
+
+
 def _median_ms(fn, reps=REPS):
     fn()  # warm-up
     times = []
@@ -583,7 +691,8 @@ def _convs(cfg, geoms):
             i = int(name[1])
             n_basic = len(ch[i]) - (i < n_stage - 1)
             if i == 0:
-                convs.append(("conv_input", g, cfg.point_dim, ch[0][0], 1))
+                convs.append(("conv_input", g, cfg.voxel_feature_dim,
+                              ch[0][0], 1))
             convs.append((name, g, ch[i][0], ch[i][0], 2 * n_basic))
         elif name == "conv_out":
             convs.append((name, g, ch[-1][-1], cfg.sparse_out_channels, 1))
@@ -624,7 +733,7 @@ def _rand_conv(gen, device, v_in, c, k, cout):
     return feats.to(torch.bfloat16), w.to(torch.bfloat16), bias
 
 
-def phase_k2(cfg, vox, mxu_geoms, device):
+def phase_k2(cfg, vox, mxu_geoms, device, tag=""):
     from focalformer3d_tpu_torch.ops import plan_builder as tpb
     from focalformer3d_tpu_torch.ops import sparse_conv as sc
     from focalformer3d_tpu_torch.tools import _common
@@ -651,12 +760,12 @@ def phase_k2(cfg, vox, mxu_geoms, device):
         torch.cuda.synchronize()
         if not (torch.equal(got[0], plain()) and torch.equal(got[0],
                                                              torch_op())):
-            raise RuntimeError(f"K2 {name}: rulebook differs from "
+            raise RuntimeError(f"{tag}K2 {name}: rulebook differs from "
                                "decode_rules / build_conv_rules")
         ms = _common.time_ms(device, lambda: k2.plan_rules(*args))[0]
         p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
         t_ms = _common.time_ms(device, torch_op, _common.PLAIN_REPS)[0]
-        print(f"K2 {name}: K {got.shape[1]}, V_in {src.capacity}, V_out "
+        print(f"{tag}K2 {name}: K {got.shape[1]}, V_in {src.capacity}, V_out "
               f"{dst.capacity} ({int(dst.valid.sum())} active), equal to "
               f"decode_rules and build_conv_rules; kernel {ms:.4f} ms, "
               f"decode_rules {p_ms:.4f} ms, build_conv_rules {t_ms:.4f} ms",
@@ -667,7 +776,8 @@ def phase_k2(cfg, vox, mxu_geoms, device):
                   + dst.colz.numel() * dst.colz.element_size()
                   + got.numel() * got.element_size(), 0, "bf16")
         rules_by_geom.append(got)
-    print(f"K2 per scan (8 rulebooks): kernel {k2_ms:.3f} ms, decode_rules "
+    print(f"{tag}K2 per scan (8 rulebooks): kernel {k2_ms:.3f} ms, "
+          f"decode_rules "
           f"{plain_ms:.3f} ms, build_conv_rules {torch_ms:.3f} ms, bound "
           f"{bound.ms:.4f} ms", flush=True)
     return rules_by_geom, {"max_abs_err": 0, "ms": k2_ms,
@@ -718,7 +828,8 @@ def _k1_geometry(tag, name, k1, args, plain, device):
     return err, ms, p_ms
 
 
-def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
+def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device,
+             tag=""):
     """K1 at the 5 conv geometries of ``cuda`` (torch-op rulebooks) and the
     4 more that ``cuda_mxu`` runs (K2's rulebooks)."""
     k1, _, _ = _wrappers()
@@ -737,7 +848,7 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
                                     rules.shape[1], cout)
         args = (feats, rules, w, dst.valid, bias)
         err, ms, p_ms = _k1_geometry(
-            "K1", f"{name} ({int(dst.valid.sum())} active)", k1, args,
+            f"{tag}K1", f"{name} ({int(dst.valid.sum())} active)", k1, args,
             lambda: k1.apply_conv_plain(feats.float(), rules, w.float(),
                                         dst.valid, bias, torch.float32),
             device)
@@ -754,7 +865,7 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device):
     cuda_names = [c[0] for c in _convs(cfg, coord_geoms)]
     ms, plain_ms = total(cuda_names)
     mxu_ms, mxu_plain = total(list(per_scan))
-    print(f"K1 per scan: cuda (11 convs) kernel {ms:.3f} ms, plain "
+    print(f"{tag}K1 per scan: cuda (11 convs) kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound.ms:.4f} ms; cuda_mxu (21 convs) "
           f"kernel {mxu_ms:.3f} ms, plain {mxu_plain:.3f} ms", flush=True)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -776,7 +887,7 @@ def _conv_bound(bound, rules, v_in, out_valid, c, cout, index_numel=None,
               times)
 
 
-def phase_k3(cfg, vox, device):
+def phase_k3(cfg, vox, device, tag=""):
     """K3 at the 5 conv geometries of ``cuda_zrun``: against its plain
     version within ``KERNEL_TOL`` of its scale on both routes, two runs
     equal bit for bit, the hit shares of its codes, the launch's plan, and
@@ -811,10 +922,10 @@ def phase_k3(cfg, vox, device):
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         if not err <= KERNEL_TOL * scale:
-            raise RuntimeError(f"K3 {name}: rel err {err / scale:.3g} > "
+            raise RuntimeError(f"{tag}K3 {name}: rel err {err / scale:.3g} > "
                                f"{KERNEL_TOL}")
         if not torch.equal(got, again):
-            raise RuntimeError(f"K3 {name}: two runs differ")
+            raise RuntimeError(f"{tag}K3 {name}: two runs differ")
         kc, kcout = k1.kernel_widths(c, cout)
         other = 1 - k3.route_for(kc, kcout)
         plan = k3.launch_plan(1, cd.shape[2], cd.shape[1], kc, kcout)
@@ -822,11 +933,13 @@ def phase_k3(cfg, vox, device):
         other_ms, alt = _common.time_ms(
             device, lambda: k3.zrun_conv(*args, route=other))
         if not float((alt - ref).abs().max()) <= KERNEL_TOL * scale:
-            raise RuntimeError(f"K3 {name}: route {k1.ROUTE_NAMES[other]} "
+            raise RuntimeError(f"{tag}K3 {name}: route "
+                               f"{k1.ROUTE_NAMES[other]} "
                                "differs from plain")
         p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
         sh = k3.zrun_hit_shares(cd)
-        print(f"K3 {name}: C {c} -> {cout}, {cd.shape[1]} BEV taps, V_in "
+        print(f"{tag}K3 {name}: C {c} -> {cout}, {cd.shape[1]} BEV taps, "
+              f"V_in "
               f"{src.capacity} -> V_out {dst.capacity}; hit share "
               f"tile128/group64/strip16/site {sh['tile']:.4f}/"
               f"{sh['group64']:.4f}/{sh['strip16']:.4f}/{sh['site']:.4f}; "
@@ -840,7 +953,7 @@ def phase_k3(cfg, vox, device):
         k3_ms, plain_ms = k3_ms + n * ms, plain_ms + n * p_ms
         _conv_bound(bound, zrun_rules(cd, src.capacity), src.capacity,
                     dst.valid, c, cout, index_numel=cd.numel(), times=n)
-    print(f"K3 per scan (11 convs): kernel {k3_ms:.3f} ms, plain "
+    print(f"{tag}K3 per scan (11 convs): kernel {k3_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound.ms:.4f} ms", flush=True)
     return {"max_abs_err": max_err, "ms": k3_ms, "plain_ms": plain_ms,
             **bound.keys()}
@@ -898,9 +1011,10 @@ def phase_slice(cfg, model, engine, scans, name=None, kept_exact=True):
                 if not torch.isfinite(dec[k]).all():
                     raise RuntimeError(f"{engine}: non-finite {k}")
             kept = int(dec["mask"].sum())
-            if dec["bboxes"].shape[-1] != 9 or not (
+            dim = 9 if cfg.decoder.with_vel else 7
+            if dec["bboxes"].shape[-1] != dim or not (
                     kept == 200 if kept_exact else 0 < kept <= 200):
-                raise RuntimeError(f"{engine}: expected 200 kept 9-dim "
+                raise RuntimeError(f"{engine}: expected 200 kept {dim}-dim "
                                    f"boxes, got {kept} of "
                                    f"{tuple(dec['bboxes'].shape)}")
     finally:
@@ -922,22 +1036,31 @@ def phase_slice(cfg, model, engine, scans, name=None, kept_exact=True):
     return launches
 
 
-def phase_engine_parity(cfg, model, device):
+def _voxel_features(model, cfg, vox):
+    """The sparse encoder's input features of ``preprocess_points``'s
+    output: the HardVFE's (the Waymo configs) or the mean VFE's."""
+    if cfg.vfe_type == "HardVFE":
+        return model.pts_voxel_encoder(vox["voxels"], vox["num_points"])
+    return vox["features"]
+
+
+def phase_engine_parity(cfg, model, device, scan=None, tag=""):
     from focalformer3d_tpu_torch.models.detector import preprocess_points
     from focalformer3d_tpu_torch.models.sparse_encoder import SparseEncoder
 
-    pts, mask = _scan(cfg, 0, device)
+    pts, mask = scan or _scan(cfg, 0, device)
     vox = preprocess_points(cfg, pts, mask)
     enc = model.pts_middle_encoder
     plain = SparseEncoder(
-        in_channels=cfg.point_dim, sparse_shape=cfg.sparse_shape,
+        in_channels=cfg.voxel_feature_dim, sparse_shape=cfg.sparse_shape,
         output_channels=cfg.sparse_out_channels,
         encoder_channels=cfg.encoder_channels,
         down_paddings=cfg.down_paddings, capacities=cfg.capacities,
         out_capacity=cfg.out_capacity, engine="plain",
     ).to(device).eval()
     plain.load_state_dict(enc.state_dict(), strict=True)
-    args = (vox["features"], vox["coords"], vox["voxel_mask"])
+    args = (_voxel_features(model, cfg, vox), vox["coords"],
+            vox["voxel_mask"])
     ref = {}
     for engine in ENGINES:
         enc.engine = engine
@@ -950,8 +1073,9 @@ def phase_engine_parity(cfg, model, device):
         r = ref[dense_from]
         rel = float((got - r).abs().max() / r.abs().max())
         if not rel <= ENGINE_TOL:
-            raise RuntimeError(f"BEV {engine} vs plain engine rel {rel:.3g}")
-        print(f"engine parity: BEV {tuple(got.shape)} {engine} vs plain "
+            raise RuntimeError(f"{tag}BEV {engine} vs plain engine rel "
+                               f"{rel:.3g}")
+        print(f"{tag}engine parity: BEV {tuple(got.shape)} {engine} vs plain "
               f"engine (dense_from={dense_from}) max rel diff {rel:.3g} "
               f"(limit {ENGINE_TOL})", flush=True)
 
@@ -2702,6 +2826,268 @@ def phase_camera_dataset(card, tmp):
     return total
 
 
+# phase 17: Waymo, FocalFormer3D_Waymo_L on a written KITTI-layout
+# directory of frames the size of a Waymo top-LiDAR sweep
+WAYMO_SEED = 30
+WAYMO_FRAMES = 6
+WAYMO_POINTS = 180_000
+WAYMO_MAX_POINTS = 200_000
+WAYMO_SCANS = 3
+# K1 forward / dx / dW per FocalFormer3D_Waymo_L training step on ``cuda``:
+# FocalFormer3D_L's encoder, and conv_input's dx too (its voxel features
+# are the HardVFE's, which trains)
+WAYMO_TRAIN_LAUNCHES = {"forward": 16, "dx": 16, "wgrad": 16}
+WAYMO_VFE_TOL = 1e-5
+
+
+def _waymo_scans(cfg_all, root, device, n):
+    """The first ``n`` frames of a written directory through the test
+    pipeline and ``collate``, on the card: [(points, points_mask)]."""
+    from focalformer3d_tpu_torch.data import nuscenes as nusc
+    from focalformer3d_tpu_torch.data import pipelines as pl
+    from focalformer3d_tpu_torch.data import waymo as wds
+
+    cfg = cfg_all["model"]
+    ds = wds.WaymoDataset(
+        f"{root}/waymo_infos_val.pkl", data_root=root,
+        classes=cfg_all["class_names"],
+        pipeline=pl.test_pipeline(cfg.voxel.point_cloud_range),
+        test_mode=True)
+    rng = np.random.RandomState(0)
+    out = []
+    for i in range(n):
+        b = nusc.collate([ds.get_sample(i, rng)], cfg_all["class_names"],
+                         max_points=WAYMO_MAX_POINTS,
+                         max_gts=cfg.decoder.max_gts // 4)
+        out.append((torch.from_numpy(b["points"]).to(device),
+                    torch.from_numpy(b["points_mask"]).to(device)))
+    return out
+
+
+def _check_waymo_vfe(cfg, model, scan, card):
+    """``hard_voxelize`` on the card against the CPU, bit for bit, and the
+    HardVFE (eval) on the card against the same module on the CPU within
+    ``WAYMO_VFE_TOL`` of scale; each timed by CUDA events."""
+    import copy
+
+    from focalformer3d_tpu_torch.ops.voxelize import hard_voxelize
+
+    pts, mask = scan[0][0], scan[1][0]
+    got = hard_voxelize(cfg.voxel, pts, mask)
+    ref = hard_voxelize(cfg.voxel, pts.cpu(), mask.cpu())
+    for k, v in ref.items():
+        if not torch.equal(got[k].cpu(), v):
+            raise RuntimeError(f"waymo hard_voxelize {k}: the card differs "
+                               "from the CPU")
+    vfe = model.pts_voxel_encoder
+    feats = vfe(got["voxels"][None], got["num_points"][None])
+    cpu = copy.deepcopy(vfe).cpu()
+    want = cpu(ref["voxels"][None], ref["num_points"][None])
+    rel = float((feats.cpu() - want).abs().max() / want.abs().max())
+    if not rel <= WAYMO_VFE_TOL:
+        raise RuntimeError(f"waymo HardVFE: the card differs from the CPU "
+                           f"by {rel:.3g} of scale")
+    vox_ms = _median_ms(lambda: hard_voxelize(cfg.voxel, pts, mask))
+    vfe_ms = _median_ms(lambda: vfe(got["voxels"][None],
+                                    got["num_points"][None]))
+    n = got["num_points"]
+    print(f"waymo voxelizer ({card}): {int(mask.sum())} points -> "
+          f"{int(got['voxel_mask'].sum())} of {cfg.voxel.max_voxels} voxels "
+          f"({int((n == cfg.voxel.max_num_points).sum())} with every slot "
+          f"full), equal to the CPU bit for bit; hard_voxelize "
+          f"{vox_ms:.3f} ms, HardVFE {vfe_ms:.3f} ms (events); HardVFE "
+          f"within {rel:.3g} of the CPU's scale (limit {WAYMO_VFE_TOL})",
+          flush=True)
+
+
+def _waymo_kernel_checks(cfg, scan, device, nusc_stats):
+    """Phase 3's checks at the Waymo geometry (a 1536 x 1536 BEV, an L0
+    capacity of 150 000): K2's rulebooks exactly, K1 at every geometry of
+    ``cuda`` and ``cuda_mxu`` and K3 at every geometry of ``cuda_zrun``
+    within ``KERNEL_TOL``, each timed by CUDA-graph replay; one line beside
+    the nuScenes scan's per-scan times. Returns {kernel: stats}."""
+    from focalformer3d_tpu_torch.models.detector import preprocess_points
+    from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
+
+    vox = preprocess_points(cfg, *scan)
+    coord_geoms = _walk(cfg, vox, False, 2)
+    mxu_geoms = _walk(cfg, vox, True, len(cfg.encoder_channels))
+    coord_rules = [conv_index(src, dst, ks, st, pad, "cuda")
+                   for _, src, dst, ks, st, pad in coord_geoms]
+    mxu_rules, k2 = phase_k2(cfg, vox, mxu_geoms, device, tag="waymo ")
+    k1 = phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules,
+                  device, tag="waymo ")
+    k3 = phase_k3(cfg, vox, device, tag="waymo ")
+    stats = {"sparse_conv": k1, "plan_rules": k2, "sparse_conv_zrun": k3}
+    print("waymo kernels per frame (graph replay; the nuScenes scan's in "
+          "brackets): " + "; ".join(
+              f"{name} {st['ms']:.4f} [{nu['ms']:.4f}] ms, plain "
+              f"{st['plain_ms']:.3f} [{nu['plain_ms']:.3f}], bound "
+              f"{st['bound_ms']:.4f} [{nu['bound_ms']:.4f}]"
+              for name, st in stats.items()
+              for nu in [nusc_stats[name]]), flush=True)
+    return stats
+
+
+def _waymo_cli_runs(card, root, tmp, classes):
+    """The train CLI (FocalFormer3D_Waymo_L 2 x 2 steps, then
+    DeformFormer3D_Waymo15_L one epoch of its load_interval-5 frames) and
+    the test CLI on the first checkpoint over the frames on each engine;
+    returns the launches, each run's counted from zero just before it and
+    read just after it, summed."""
+    from focalformer3d_tpu_torch.tools import test as test_cli
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+    k1, _, _ = _wrappers()
+    work = f"{tmp}/work_waymo"
+    for name, epochs, iters, steps, work_dir in (
+            ("FocalFormer3D_Waymo_L", 2, ["--iters-per-epoch", "2"], 4, work),
+            ("DeformFormer3D_Waymo15_L", 1, [], 1, f"{work}_15")):
+        for k in _wrappers():
+            k.reset_launch_count()
+        _run_cli(train_cli.main, [
+            name, "--data-root", root, "--epochs", str(epochs), *iters,
+            "--batch-size", str(TRAIN_BATCH), "--log-interval", "1",
+            "--max-points", str(WAYMO_MAX_POINTS), "--work-dir", work_dir,
+            "--no-tensorboard"])
+        got = _model_path_launches()
+        with open(f"{work_dir}/train_log.jsonl") as fh:
+            recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
+        losses = [r["loss"] for r in recs]
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"waymo train CLI {name}: losses {losses}, "
+                               f"expected {steps} finite")
+        if epochs not in ckpt.list_epochs(work_dir):
+            raise RuntimeError(f"waymo train CLI {name}: epochs "
+                               f"{ckpt.list_epochs(work_dir)} saved")
+        want = {k: 0 for k in got}
+        for kind, n in WAYMO_TRAIN_LAUNCHES.items():
+            want[LAUNCH_ROWS[kind]] = steps * n
+        if got != want:
+            raise RuntimeError(f"waymo train CLI {name}: launches {got}, "
+                               f"expected {want}")
+        for k, n in got.items():
+            total[k] += n
+        print(f"waymo train CLI {name} ({card}; float32, batch "
+              f"{TRAIN_BATCH}, {steps} step(s)): losses " + ", ".join(
+                  f"{x:.4f}" for x in losses) + "; s/it " + ", ".join(
+                  f"{r['time']:.3f}" for r in recs) + f"; launches {got}",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    keys = {f"L{lv}/{m}" for lv in (1, 2) for m in ("mAP", "mAPH")}
+    keys |= {f"L{lv}/{c}_{m}" for lv in (1, 2) for c in classes
+             for m in ("AP", "APH")}
+    for engine in ENGINES:
+        want = {k: 0 for k in MODEL_KERNELS}
+        for k, c in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                        LAUNCHES_PER_SCAN[engine]):
+            want[k] = c * WAYMO_FRAMES
+        for k in _wrappers():
+            k.reset_launch_count()
+        res, rec = _run_cli(test_cli.main, [
+            "FocalFormer3D_Waymo_L", "--data-root", root, "--checkpoint",
+            f"{work}/epoch_2", "--engine", engine, "--max-points",
+            str(WAYMO_MAX_POINTS)])
+        got = _model_path_launches()
+        if got != want:
+            raise RuntimeError(f"waymo test CLI {engine}: launches {got}, "
+                               f"expected {want}")
+        if (rec is None or set(rec) != keys or res.samples != WAYMO_FRAMES
+                or not all(math.isfinite(v) for v in rec.values())):
+            raise RuntimeError(f"waymo test CLI {engine}: metrics {rec}")
+        n_l2 = sum(int(g.get("l2_only", np.zeros(0)).sum())
+                   for g in res.ground_truth.values())
+        n_boxes = sum(len(p["scores"]) for p in res.predictions.values())
+        for k, c in got.items():
+            total[k] += c
+        steady = (res.samples - 1) / (res.seconds - res.seconds_first)
+        print(f"waymo test CLI {engine} ({card}; FocalFormer3D_Waymo_L "
+              f"float32): {res.samples / res.seconds:.3f} samples/s "
+              f"({res.samples} frames in {res.seconds:.2f} s, the first in "
+              f"{res.seconds_first:.2f} s; after it {steady:.3f} samples/s); "
+              f"the evaluator {res.seconds_eval * 1e3:.1f} ms (host) over "
+              f"{n_boxes} boxes and {n_l2} LEVEL_2-only GT boxes; L1/mAP "
+              f"{rec['L1/mAP']}, L2/mAPH {rec['L2/mAPH']}; launches {got}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_waymo(card, device, tmp, nusc_stats):
+    """Waymo (phase 17): a written directory, the kernels at its geometry,
+    the voxelizer and HardVFE against the CPU, FocalFormer3D_Waymo_L's
+    eval on the three engines with the BEV engine parity, the other Waymo
+    configs, the benchmark CLI's occupancy, the train and test CLIs.
+    Returns (the model-path kernels' launches on the Waymo path, each
+    run's counted from zero just before it and read just after it,
+    summed; the kernels' stats at the Waymo geometry)."""
+    from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
+    from focalformer3d_tpu_torch.tools import benchmark
+
+    t_phase = time.perf_counter()
+    cfg_all = get_config("FocalFormer3D_Waymo_L")
+    classes = cfg_all["class_names"]
+    cfg = with_compute_dtype(dataclasses.replace(
+        cfg_all["model"], sparse_engine="cuda"), "bfloat16")
+    root = f"{tmp}/waymo"
+    t0 = time.perf_counter()
+    write_waymo(root, seed=WAYMO_SEED, frames=WAYMO_FRAMES,
+                points=WAYMO_POINTS, pc_range=cfg.voxel.point_cloud_range,
+                classes=classes)
+    scans = _waymo_scans(cfg_all, root, device, WAYMO_SCANS)
+    print(f"waymo ({card}): wrote {WAYMO_FRAMES} frames of {WAYMO_POINTS} "
+          f"points in {time.perf_counter() - t0:.1f} s; points in range per "
+          f"frame " + ", ".join(str(int(m.sum())) for _, m in scans),
+          flush=True)
+    stats = _waymo_kernel_checks(cfg, scans[0], device, nusc_stats)
+    torch.cuda.empty_cache()
+
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+
+    def add(launches):
+        for name, n in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                           launches):
+            total[name] += n
+
+    model = _model(cfg, device)
+    _check_waymo_vfe(cfg, model, scans[0], card)
+    for engine in ENGINES:
+        add(phase_slice(cfg, model, engine, scans, "FocalFormer3D_Waymo_L",
+                        kept_exact=False))
+    phase_engine_parity(cfg, model, device, scans[0], tag="waymo ")
+    del model
+    torch.cuda.empty_cache()
+    for name in ("FocalFormer3D_Waymo15_L", "DeformFormer3D_Waymo_L"):
+        other = with_compute_dtype(dataclasses.replace(
+            get_config(name)["model"], sparse_engine="cuda"), "bfloat16")
+        model = _model(other, device)
+        add(phase_slice(other, model, "cuda_mxu", scans[:1], name,
+                        kept_exact=False))
+        del model
+        torch.cuda.empty_cache()
+
+    for k in _wrappers():
+        k.reset_launch_count()
+    _, rec = _run_cli(benchmark.main, [
+        "FocalFormer3D_Waymo_L", "--engines", ",".join(ENGINES), "--samples",
+        "3", "--warmup", "1", "--n-points", str(WAYMO_POINTS),
+        "--big-batch", "0"])
+    if rec is None or sorted(rec["engines"]) != sorted(ENGINES):
+        raise RuntimeError("waymo benchmark: no JSON line for the engines")
+    for k, n in _model_path_launches().items():
+        total[k] += n
+    torch.cuda.empty_cache()
+
+    for k, n in _waymo_cli_runs(card, root, tmp, classes).items():
+        total[k] += n
+    print(f"waymo ({card}): {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}", flush=True)
+    return total, stats
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -2761,6 +3147,10 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         camera_dataset = phase_camera_dataset(card, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        waymo, waymo_stats = phase_waymo(card, device, tmp, {
+            "sparse_conv": k1, "plan_rules": k2, "sparse_conv_zrun": k3})
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -2788,6 +3178,12 @@ def main():
                            if LAUNCH_ROWS[k] == name)
         by["camera_proj"] = camera_proj[name]
         by["camera_dataset"] = camera_dataset[name]
+        by["waymo"] = waymo[name]
+    for name, st in waymo_stats.items():  # the kernels at the Waymo geometry
+        stats = next(r[1] for r in rows if r[0] == name)
+        stats["waymo"] = {k: st[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        stats["max_abs_err"] = max(stats["max_abs_err"], st["max_abs_err"])
     kernels = []
     for name, stats, by in rows:
         source, replaces = KERNELS[name]

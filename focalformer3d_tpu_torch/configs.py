@@ -4,12 +4,11 @@ Counterparts of ``focalformer3d_tpu.ops.voxelize.VoxelConfig``,
 ``models.detector.DetectorConfig`` / ``with_compute_dtype``,
 ``models.focal_decoder.FocalDecoderConfig``, ``models.lss.LSSConfig``,
 ``core.box_coder.BBoxCoderConfig`` and ``configs.focalformer3d_l
-.TrainRecipe``. Field names, defaults and the seven named configs
-(``FocalFormer3D_L``, ``Tiny_L``, ``DeformFormer3D_L``,
-``DeformFormer3D_L_dynamic``, and the camera configs ``FocalFormer3D_LC``,
-``FocalFormer3D_LC_Proj`` and ``DeformFormer3D_C_R50``: model, loss,
-training recipe, class names,
-dataset and, for the camera configs, the image size) are identical, so
+.TrainRecipe``. Field names, defaults and the 13 named configs of the
+JAX registry (the nuScenes LiDAR and camera configs and the five Waymo
+configs: model, loss, training recipe, class names, dataset and, where a
+config has them, the image size, the TTA passes and the Waymo
+``load_interval``) are identical, so
 ``focalformer3d_tpu.utils.ref_keys.reference_state_shapes(cfg)`` accepts a
 config of either package. Only the dtype properties differ: they return
 torch dtypes here.
@@ -217,6 +216,13 @@ class DetectorConfig:
     @property
     def point_dim(self) -> int:
         return 5
+
+    @property
+    def voxel_feature_dim(self) -> int:
+        """Channels of the voxel features the sparse encoder reads: the
+        HardVFE's last width, else the point's (the mean VFEs)."""
+        return (self.vfe_channels[-1] if self.vfe_type == "HardVFE"
+                else self.point_dim)
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -495,32 +501,191 @@ def _deformformer3d_c_r50():
     return cfg
 
 
+_WAYMO_CLASSES = ("Car", "Pedestrian", "Cyclist")
+_WAYMO_PC_RANGE = (-76.8, -76.8, -2.0, 76.8, 76.8, 4.0)
+_WAYMO_VOXEL = (0.1, 0.1, 0.15)
+
+
+def _focalformer3d_waymo_l():
+    """FocalFormer3D_Waymo_L (JAX ``configs/focalformer3d_waymo_l.py``):
+    3 classes, 0.1 m voxels over +-76.8 m (a 41 x 1536 x 1536 grid), the
+    ``HardVFE`` PointNet (5 -> 64) over 5 point slots of up to 150 000
+    voxels, two ``bevfusionmb2`` fusion layers, three heatmap stages (two
+    plus the reused first), boxes without velocity (code size 8), the box
+    loss at weight 2; 12 epochs, the fade at epoch 11."""
+    model = DetectorConfig(
+        voxel=VoxelConfig(
+            point_cloud_range=_WAYMO_PC_RANGE,
+            voxel_size=_WAYMO_VOXEL,
+            max_num_points=5,
+            max_voxels=150000,
+        ),
+        vfe_type="HardVFE",
+        vfe_channels=(64,),
+        sparse_shape=(41, 1536, 1536),
+        sparse_out_channels=128,
+        encoder_channels=((16, 16, 32), (32, 32, 64), (64, 64, 128),
+                          (128, 128)),
+        down_paddings=((1, 1, 1), (1, 1, 1), (0, 1, 1)),
+        capacities=(150000, 245760, 188416, 77824),
+        out_capacity=57344,
+        second_channels=(128, 256),
+        second_layers=(5, 5),
+        fpn_channels=(256, 256),
+        neck_layers=2,
+        hidden=128,
+        iterbev="bevfusionmb2",
+        extra_feat=True,
+        input_img=False,
+        decoder=FocalDecoderConfig(
+            num_classes=len(_WAYMO_CLASSES),
+            hidden=128,
+            hidden_roi=512,
+            num_proposals=200,
+            num_decoder_layers=2,
+            inner_layers=3,
+            num_heads=8,
+            nms_kernel_size=3,
+            multistage_heatmap=2,
+            reuse_first_heatmap=True,
+            extra_feat=True,
+            multiscale=True,
+            bevpos=True,
+            roi_feats=7,
+            roi_dropout=0.1,
+            roi_based_reg=True,
+            roi_expand_ratio=1.2,
+            add_gt_groups=3,
+            add_gt_pos_thresh=5.0,
+            add_gt_pos_boxnoise_thresh=0.75,
+            gt_center_limit=5.0,
+            max_gts=220,
+            kernel1_classes=(1, 2),
+            code_size=8,
+            pc_range=_WAYMO_PC_RANGE,
+            voxel_size=_WAYMO_VOXEL,
+            out_size_factor=8,
+            post_center_range=(-80.0, -80.0, -10.0, 80.0, 80.0, 10.0),
+            score_threshold=0.0,
+        ),
+    )
+    from .training.losses import LossConfig  # it imports this module
+
+    loss = LossConfig(
+        code_weights=(1.0,) * 8,
+        loss_cls_weight=1.0,
+        loss_bbox_weight=2.0,
+        loss_heatmap_weight=1.0,
+        gaussian_overlap=0.1,
+        min_radius=2,
+    )
+    return {"model": model, "loss": loss,
+            "train": TrainRecipe(total_epochs=12, fade_epoch=11),
+            "class_names": _WAYMO_CLASSES, "dataset": "waymo"}
+
+
+def _tiny_waymo_l():
+    """Tiny_Waymo_L (JAX ``configs/tiny_waymo_l.py``): the Waymo path
+    (HardVFE, 3 classes, code size 8, the Waymo data layer and evaluator)
+    at toy widths, for smokes and the CPU tests."""
+    pc_range = (-8.0, -8.0, -3.0, 8.0, 8.0, 3.0)
+    model = DetectorConfig(
+        voxel=VoxelConfig(
+            point_cloud_range=pc_range,
+            voxel_size=(0.25, 0.25, 0.24),
+            max_num_points=5,
+            max_voxels=512,
+        ),
+        vfe_type="HardVFE",
+        vfe_channels=(16,),
+        sparse_shape=(25, 64, 64),
+        sparse_out_channels=32,
+        encoder_channels=((8, 8, 16), (16, 16, 24), (24, 24, 32), (32, 32)),
+        down_paddings=((1, 1, 1), (1, 1, 1), (0, 1, 1)),
+        capacities=(512, 384, 256, 192),
+        out_capacity=192,
+        second_channels=(32, 48),
+        second_layers=(2, 2),
+        fpn_channels=(48, 48),
+        hidden=32,
+        decoder=FocalDecoderConfig(
+            num_classes=len(_WAYMO_CLASSES),
+            hidden=32,
+            hidden_roi=64,
+            num_proposals=16,
+            num_decoder_layers=2,
+            inner_layers=1,
+            num_heads=4,
+            multistage_heatmap=1,
+            reuse_first_heatmap=True,
+            multiscale=True,
+            roi_feats=3,
+            add_gt_groups=2,
+            max_gts=24,
+            kernel1_classes=(1, 2),
+            code_size=8,
+            pc_range=pc_range,
+            voxel_size=(0.25, 0.25, 0.75),
+            out_size_factor=8,
+            post_center_range=(-10, -10, -5, 10, 10, 5),
+        ),
+    )
+    from .training.losses import LossConfig  # it imports this module
+
+    return {"model": model, "loss": LossConfig(code_weights=(1.0,) * 8),
+            "train": TrainRecipe(total_epochs=2, fade_epoch=1,
+                                 samples_per_device=2),
+            "class_names": _WAYMO_CLASSES, "dataset": "waymo"}
+
+
+def _focalformer3d_waymo15_l():
+    """FocalFormer3D_Waymo15_L (JAX ``configs/variants.py``
+    ``focalformer3d_waymo15_l``): FocalFormer3D_Waymo_L on every fifth
+    training frame (``load_interval`` 5), with class-aware regression
+    heads."""
+    cfg = _focalformer3d_waymo_l()
+    model = cfg["model"]
+    cfg["model"] = dataclasses.replace(model, decoder=dataclasses.replace(
+        model.decoder, num_proposals=200, classaware_reg=True))
+    cfg["load_interval"] = 5
+    return cfg
+
+
+def _deformformer3d_waymo_l():
+    """DeformFormer3D_Waymo_L: the single-stage head on the Waymo base."""
+    return deform_deltas(_focalformer3d_waymo_l())
+
+
+def _deformformer3d_waymo15_l():
+    """DeformFormer3D_Waymo15_L: DeformFormer3D_Waymo_L on every fifth
+    training frame."""
+    cfg = deform_deltas(_focalformer3d_waymo_l())
+    cfg["load_interval"] = 5
+    return cfg
+
+
 _REGISTRY = {"FocalFormer3D_L": _focalformer3d_l, "Tiny_L": _tiny_l,
              "DeformFormer3D_L": _deformformer3d_l,
              "DeformFormer3D_L_dynamic": _deformformer3d_l_dynamic,
              "FocalFormer3D_LC": _focalformer3d_lc,
              "FocalFormer3D_LC_Proj": _focalformer3d_lc_proj,
              "FocalFormer3D_LC_TTA": _focalformer3d_lc_tta,
-             "DeformFormer3D_C_R50": _deformformer3d_c_r50}
-
-
-# the JAX package's configs that the port does not run yet, with the
-# ROADMAP.md item that ports each
-_UNPORTED = {n: "Queue 1 item 10b (Waymo)" for n in (
-    "FocalFormer3D_Waymo_L", "Tiny_Waymo_L", "FocalFormer3D_Waymo15_L",
-    "DeformFormer3D_Waymo_L", "DeformFormer3D_Waymo15_L")}
+             "DeformFormer3D_C_R50": _deformformer3d_c_r50,
+             "FocalFormer3D_Waymo_L": _focalformer3d_waymo_l,
+             "Tiny_Waymo_L": _tiny_waymo_l,
+             "FocalFormer3D_Waymo15_L": _focalformer3d_waymo15_l,
+             "DeformFormer3D_Waymo_L": _deformformer3d_waymo_l,
+             "DeformFormer3D_Waymo15_L": _deformformer3d_waymo15_l}
 
 
 def get_config(name: str):
     """Named config: ``{"model": DetectorConfig, "loss": LossConfig,
-    "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes"}`` (and
-    ``"img_scale"`` for a camera config), as the JAX
-    ``configs.get_config`` returns it. The Waymo configs (ROADMAP.md
-    Queue 1 item 10b) are not registered."""
+    "train": TrainRecipe, "class_names": ..., "dataset": "nuscenes" or
+    "waymo"}`` (and ``"img_scale"`` for a camera config, ``"tta"`` for
+    FocalFormer3D_LC_TTA, ``"load_interval"`` for the 1/5-split Waymo
+    configs), as the JAX ``configs.get_config`` returns it."""
     if name not in _REGISTRY:
-        item = (f" (ROADMAP.md, {_UNPORTED[name]})" if name in _UNPORTED
-                else "")
-        raise KeyError(f"config {name!r} is not ported{item}; available: "
+        raise KeyError(f"unknown config {name!r}; available: "
                        f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 

@@ -3,11 +3,13 @@
 Port of ``focalformer3d_tpu/models/detector.py`` (``preprocess_points``,
 ``FocalFormer3D``, ``get_bboxes``): [image branch: ResNet + FPN, level 0
 -> the LSS camera BEV in the neck] + [point branch: voxelization with the
-mean VFE (hard or dynamic, both parameter-free) -> SparseEncoder -> SECOND
--> SECONDFPN] -> FocalEncoder fusion neck -> FocalDecoder -> boxes.
+mean VFE (hard or dynamic, both parameter-free), or hard voxelization and
+the ``HardVFE`` PointNet (the Waymo configs) -> SparseEncoder -> SECOND ->
+SECONDFPN] -> FocalEncoder fusion neck -> FocalDecoder -> boxes.
 Submodules carry the reference checkpoint's top-level names
-(``pts_middle_encoder``, ``pts_backbone``, ``pts_neck``, ``img_backbone``,
-``img_neck``, ``imgpts_neck``, ``pts_bbox_head``). The module's
+(``pts_voxel_encoder``, ``pts_middle_encoder``, ``pts_backbone``,
+``pts_neck``, ``img_backbone``, ``img_neck``, ``imgpts_neck``,
+``pts_bbox_head``). The module's
 ``training`` flag is the JAX ``train`` argument: in eval the sparse
 encoder's dense boundary is ``sparse_dense_from_eval`` and batch norm uses
 its running statistics; in training the boundary is ``sparse_dense_from``,
@@ -31,7 +33,9 @@ a frozen branch stays in eval mode when the model trains, so its batch
 norm uses and keeps its running statistics, and it runs without autograd,
 so its backward launches no kernel (JAX cuts the gradient at its output).
 ``freeze_pts`` covers ``pts_middle_encoder``, ``pts_backbone`` and
-``pts_neck`` (the encoder then takes the eval dense boundary);
+``pts_neck`` (the encoder then takes the eval dense boundary), and the
+parameters of ``pts_voxel_encoder``, whose batch norm follows the model's
+mode as JAX's VFE follows its ``train`` argument;
 ``freeze_img`` the image backbone and FPN; ``freeze_camlss`` the LSS
 (``imgpts_neck.cam_lss``). Which parameters a flag freezes is decided
 here, by ``trainable_mask``: the model marks them ``requires_grad=False``
@@ -54,20 +58,25 @@ from .focal_encoder import FocalEncoder
 from .resnet import FPN, ResNet
 from .second import SECOND, SECONDFPN
 from .sparse_encoder import SparseEncoder
+from .vfe import HardVFE
 
 
 def preprocess_points(cfg: DetectorConfig, points: torch.Tensor,
                       mask: torch.Tensor, train: bool = False
                       ) -> Dict[str, torch.Tensor]:
-    """Batched voxelization + mean VFE. points (B, N, D), mask (B, N).
+    """Batched voxelization (+ mean VFE). points (B, N, D), mask (B, N).
 
     ``HardSimpleVFE``: hard voxelization, the mean of each voxel's first
     ``max_num_points`` points; ``DynamicSimpleVFE``: dynamic voxelization,
     the mean of all its points. Either returns features, coords and
-    voxel_mask. Inference uses the test-time voxel cap when the config sets
-    one; ``train=True`` keeps the training cap ``max_voxels``."""
+    voxel_mask. ``HardVFE``: hard voxelization alone (``hard_voxelize``:
+    voxels, num_points, coords, voxel_mask), for the model's
+    ``pts_voxel_encoder``. Inference uses the test-time voxel cap when the
+    config sets one; ``train=True`` keeps the training cap
+    ``max_voxels``."""
     voxelize = {"HardSimpleVFE": vox.hard_voxelize_simple,
-                "DynamicSimpleVFE": vox.dynamic_voxelize}.get(cfg.vfe_type)
+                "DynamicSimpleVFE": vox.dynamic_voxelize,
+                "HardVFE": vox.hard_voxelize}.get(cfg.vfe_type)
     if voxelize is None:
         raise NotImplementedError(f"vfe {cfg.vfe_type!r} is not ported")
     vcfg = cfg.voxel
@@ -89,7 +98,8 @@ def _frozen_prefixes(cfg: DetectorConfig) -> List[str]:
     if cfg.freeze_camlss:
         prefixes += ["imgpts_neck.cam_lss"]
     if cfg.freeze_pts:
-        prefixes += ["vfe", "pts_middle_encoder", "pts_backbone", "pts_neck",
+        prefixes += ["vfe", "pts_voxel_encoder", "pts_middle_encoder",
+                     "pts_backbone", "pts_neck",
                      "imgpts_neck.shared_conv_pts"]
     return prefixes
 
@@ -116,8 +126,11 @@ class FocalFormer3D(nn.Module):
         super().__init__()
         self.cfg = cfg
         if cfg.input_pts:
+            if cfg.vfe_type == "HardVFE":
+                self.pts_voxel_encoder = HardVFE(cfg.point_dim,
+                                                 cfg.vfe_channels)
             self.pts_middle_encoder = SparseEncoder(
-                in_channels=cfg.point_dim,
+                in_channels=cfg.voxel_feature_dim,
                 sparse_shape=cfg.sparse_shape,
                 output_channels=cfg.sparse_out_channels,
                 encoder_channels=cfg.encoder_channels,
@@ -199,7 +212,8 @@ class FocalFormer3D(nn.Module):
         branch); in training the padded GT (boxes (B, G, 9), labels,
         validity) for the head's denoising groups and the generator of its
         dropouts and noise. ``mark(stage)``, if given, is called as each
-        stage ends: "image backbone + FPN", the encoder's (see
+        stage ends: "image backbone + FPN", "HardVFE" (the Waymo configs'
+        PointNet), the encoder's (see
         ``SparseEncoder.forward``), "SECOND + neck", the LSS's ("LSS lift",
         "LSS splat", "BevEncode"; or, with ``cam_proj="i2p"``, "I2P" after
         the first fusion layer's projection, ``shared_conv_img`` included),
@@ -217,7 +231,12 @@ class FocalFormer3D(nn.Module):
             frozen = (torch.no_grad() if cfg.freeze_pts
                       else contextlib.nullcontext())
             with frozen:
-                bev = self.pts_middle_encoder(voxel_data["features"],
+                feats = voxel_data.get("features")
+                if cfg.vfe_type == "HardVFE":
+                    feats = self.pts_voxel_encoder(voxel_data["voxels"],
+                                                   voxel_data["num_points"])
+                    mark("HardVFE")
+                bev = self.pts_middle_encoder(feats,
                                               voxel_data["coords"],
                                               voxel_data["voxel_mask"], mark)
                 fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)

@@ -18,9 +18,16 @@ Port of ``focalformer3d_tpu/models/focal_decoder.py`` and its
   ``gt_query_labels`` outputs the losses read. Stop-gradients sit where
   the JAX head has them (heatmap picks, query positions, query boxes).
 
-The ``pos`` / ``boxcls`` mask modes are not ported (no shipped LiDAR config
-uses them). Inputs and outputs keep the JAX layouts: BEV maps (B, H, W, C);
-per-round outputs (B, rounds, Q, d).
+Where the neck has more fusion layers than the head has heatmap stages
+(DeformFormer3D_Waymo_L and _Waymo15_L: two layers, one stage without
+reuse), the stages read the deepest maps; JAX's head asserts that the two
+counts agree, so those configs run in the port only (ROADMAP.md Queue 3).
+
+The ``pos`` / ``boxcls`` mask modes are not ported (no shipped config uses
+them). With ``classaware_reg`` (FocalFormer3D_Waymo15_L) the box heads are
+``num_classes`` times as wide, and each query reads the slice of its label
+before the RoI box is added. Inputs and outputs keep the JAX layouts: BEV
+maps (B, H, W, C); per-round outputs (B, rounds, Q, d).
 
 Top-k ties: after peak suppression many cells are exactly 0, and
 ``torch.topk`` does not promise an order among equal values, so proposals
@@ -113,10 +120,11 @@ class _HeatmapHead(nn.Module):
 class FocalDecoder(nn.Module):
     def __init__(self, cfg: FocalDecoderConfig):
         super().__init__()
-        if cfg.mask_heatmap_mode != "poscls" or cfg.classaware_reg:
+        if cfg.mask_heatmap_mode != "poscls":
             raise NotImplementedError(
-                "only the 'poscls' mask mode without class-aware "
-                "regression is ported")
+                f"mask_heatmap_mode {cfg.mask_heatmap_mode!r}: only "
+                "'poscls' is ported (the others are ROADMAP.md Queue 1 "
+                "item 10c)")
         self.cfg = cfg
         h, ncls = cfg.hidden, cfg.num_classes
         self.heatmap_head = _HeatmapHead(h, ncls)
@@ -141,6 +149,8 @@ class FocalDecoder(nn.Module):
         heads = {"center": 2, "height": 1, "dim": 3, "rot": 2}
         if cfg.with_vel:
             heads["vel"] = 2
+        if cfg.classaware_reg:  # one slice of each box head per class
+            heads = {k: d * ncls for k, d in heads.items()}
         heads["heatmap"] = ncls
         self.prediction_heads = nn.ModuleList(
             PredictionFFN(h, heads) for _ in range(cfg.num_decoder_layers)
@@ -265,6 +275,11 @@ class FocalDecoder(nn.Module):
 
         stage_feats = list(stage_feats)
         extra = stage_feats.pop(-1) if cfg.extra_feat else None
+        # more fusion layers than heatmap stages (the DeformFormer3D Waymo
+        # configs: two layers, one stage): the stages read the deepest
+        # maps, where JAX's head asserts (ROADMAP.md Queue 3)
+        n_maps = S - int(cfg.reuse_first_heatmap)
+        stage_feats = stage_feats[max(len(stage_feats) - n_maps, 0):]
         if cfg.reuse_first_heatmap:
             stage_feats = [lidar_feat] + stage_feats
         if len(stage_feats) != S:
@@ -364,6 +379,8 @@ class FocalDecoder(nn.Module):
                                          attn_mask, generator)
 
             res = self.prediction_heads[r](query_feat, dt)
+            if cfg.classaware_reg:
+                res = _class_slices(res, query_labels, ncls)
             res["center"] = res["center"] + query_pos
             query_pos = res["center"].detach()
             if cfg.roi_based_reg and query_box is not None:
@@ -388,6 +405,24 @@ class FocalDecoder(nn.Module):
             out["gt_valid_mask"] = groups[4]
             out["gt_query_labels"] = groups[3]
         return out
+
+
+def _class_slices(res: Dict[str, torch.Tensor], labels: torch.Tensor,
+                  ncls: int) -> Dict[str, torch.Tensor]:
+    """Class-aware regression (JAX ``focal_decoder.py:553-560``): each box
+    head's (B, Q, ncls * d) output -> the d values of each query's label,
+    clipped to [0, ncls - 1] (a background group query reads the last
+    class)."""
+    lab = labels.long().clamp(0, ncls - 1)
+    out = dict(res)
+    for k in ("center", "height", "dim", "rot", "vel"):
+        if k in res:
+            B, Q, n = res[k].shape
+            d = n // ncls
+            idx = lab[..., None, None].expand(B, Q, 1, d)
+            out[k] = torch.gather(res[k].reshape(B, Q, ncls, d), 2,
+                                  idx)[:, :, 0]
+    return out
 
 
 def get_bboxes(cfg: FocalDecoderConfig, out: Dict[str, torch.Tensor],

@@ -2,7 +2,8 @@
 output order.
 
 Port of ``focalformer3d_tpu/ops/voxelize.py`` (``point_voxel_coords``,
-``_linear_key``, ``hard_voxelize_simple``, ``dynamic_voxelize``). Points
+``_linear_key``, ``hard_voxelize``, ``hard_voxelize_simple``,
+``dynamic_voxelize``). Points
 are padded to a fixed N with a validity mask; a stable sort on a
 CSR-compatible linear key groups the points of each voxel, and the voxels
 come out in CSR order (column-major over BEV, z-minor), the order every
@@ -53,6 +54,59 @@ def _linear_key(coords: torch.Tensor, valid: torch.Tensor, grid_size):
     nx, ny, nz = grid_size
     key = (coords[:, 1] * nx + coords[:, 2]) * nz + coords[:, 0]
     return torch.where(valid, key, torch.full_like(key, INT32_MAX))
+
+
+def hard_voxelize(cfg: VoxelConfig, points: torch.Tensor,
+                  mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Fixed-capacity hard voxelization of one sample, for ``HardVFE``.
+
+    Each voxel keeps the first ``max_num_points`` points in input order, in
+    its point slots; voxels past ``max_voxels`` in CSR order are dropped,
+    with their points. The integer outputs equal JAX's bit for bit (the
+    same stable sort, run ranks and drops). Returns voxels (V, P, D), zero
+    in empty slots; num_points (V,) int32; coords (V, 3) int32 (z, y, x);
+    voxel_mask (V,)."""
+    V, P = cfg.max_voxels, cfg.max_num_points
+    N, D = points.shape
+    dev = points.device
+    coords, valid = point_voxel_coords(cfg, points, mask)
+    key = _linear_key(coords, valid, cfg.grid_size)
+
+    skey, order = torch.sort(key, stable=True)
+    svalid = valid[order]
+    is_start = torch.ones_like(svalid)
+    is_start[1:] = skey[1:] != skey[:-1]
+    is_start &= svalid
+    voxel_id = torch.cumsum(is_start, 0, dtype=torch.int64) - 1
+    pos = torch.arange(N, device=dev)
+    run_start = torch.cummax(
+        torch.where(is_start, pos, torch.zeros_like(pos)), 0
+    ).values
+    rank = pos - run_start
+    keep = svalid & (voxel_id < V) & (rank < P)
+
+    # dropped points go to the sentinel slot V * P, which is cut off
+    flat = torch.where(keep, voxel_id * P + rank,
+                       torch.full_like(voxel_id, V * P))
+    voxels = torch.zeros((V * P + 1, D), dtype=points.dtype, device=dev)
+    voxels[flat] = torch.where(keep[:, None], points[order], 0.0)
+    num_points = torch.zeros((V + 1,), dtype=torch.int32, device=dev)
+    num_points.index_add_(0, torch.where(keep, voxel_id,
+                                         torch.full_like(voxel_id, V)),
+                          keep.to(torch.int32))
+
+    vslot = torch.where(is_start & (voxel_id < V), voxel_id,
+                        torch.full_like(voxel_id, V))
+    out_coords = torch.zeros((V + 1, 3), dtype=torch.int32, device=dev)
+    out_coords[vslot] = coords[order]
+    voxel_mask = torch.zeros((V + 1,), dtype=torch.bool, device=dev)
+    voxel_mask[vslot] = True
+    return {
+        "voxels": voxels[:V * P].reshape(V, P, D),
+        "num_points": num_points[:V],
+        "coords": out_coords[:V],
+        "voxel_mask": voxel_mask[:V],
+    }
 
 
 def hard_voxelize_simple(cfg: VoxelConfig, points: torch.Tensor,

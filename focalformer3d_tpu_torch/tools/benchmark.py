@@ -96,9 +96,11 @@ def stages_of(cfg):
     """The stage names a config's forward marks, in the order it marks
     them: with I2P (``cam_proj="i2p"``) in place of the LSS, "I2P"
     (``shared_conv_img`` and the first fusion layer's projection) before
-    the fusion layers."""
+    the fusion layers; with the Waymo configs' PointNet VFE, "HardVFE"
+    after "voxelize"."""
     if not cfg.input_img:
-        return STAGES
+        return (STAGES[:1] + ("HardVFE",) + STAGES[1:]
+                if cfg.vfe_type == "HardVFE" else STAGES)
     if cfg.cam_proj != "i2p":
         return CAMERA_STAGES
     i = CAMERA_STAGES.index("FocalEncoder")
@@ -280,7 +282,9 @@ def _inference(args, device, card):
         drop0 = voxelizer_drop(cfg, pts, mask)
         levels = []
         vox = preprocess_points(cfg, pts, mask)
-        enc(vox["features"], vox["coords"], vox["voxel_mask"], levels=levels)
+        feats = (model.pts_voxel_encoder(vox["voxels"], vox["num_points"])
+                 if cfg.vfe_type == "HardVFE" else vox["features"])
+        enc(feats, vox["coords"], vox["voxel_mask"], levels=levels)
         parts = []
         for i, lvl in enumerate(levels):
             active = lvl.valid.sum(1).tolist()

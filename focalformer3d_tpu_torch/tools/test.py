@@ -1,9 +1,11 @@
 """Evaluation CLI.
 
-Port of ``tools/test.py``: runs the eval step over a nuScenes split on one
-card, optionally with test-time augmentation, scores the boxes with the
-port's evaluator (``core/eval_nuscenes.py``), and writes a nuScenes
-submission (``--out``) and a tracking file (``--tracking-out``):
+Port of ``tools/test.py``: runs the eval step over a nuScenes or Waymo
+split on one card, optionally with test-time augmentation, scores the boxes
+with the port's evaluator (``core/eval_nuscenes.py``, or for a Waymo config
+``core/eval_waymo.py``: L1 / L2 mAP and mAPH, each class's AP and APH),
+and for nuScenes writes a submission (``--out``) and a tracking file
+(``--tracking-out``):
 
     python -m focalformer3d_tpu_torch.tools.test FocalFormer3D_L \\
         --checkpoint work_dirs/ff3d_l/epoch_6 --data-root data/nuscenes \\
@@ -39,8 +41,14 @@ stays the identity, so the camera BEV of a flipped or scaled pass is the
 plain pass's (a fault of the JAX package kept for parity, ROADMAP.md
 Queue 3).
 
+A Waymo config reads ``waymo_infos_val.pkl`` (the KITTI layout of
+``data/waymo.py``) through the test pipeline, carries each frame's
+LEVEL_2-only flags (``gt_l2_only``) into the ground truth, with and without
+``--tta``, and, as the JAX CLI, writes no submission and runs no
+``--official-eval``.
+
 It runs on the card unless ``--device cpu`` is given, and raises where
-there is none. A Waymo config raises (ROADMAP.md, Queue 1 item 10).
+there is none.
 """
 from __future__ import annotations
 
@@ -67,7 +75,8 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="epoch_N directory of the train CLI")
     p.add_argument("--data-root", default="data/nuscenes")
     p.add_argument("--ann-file", default=None,
-                   help="infos pkl (default: nuscenes_infos_val.pkl in "
+                   help="infos pkl (default: nuscenes_infos_val.pkl, or "
+                        "waymo_infos_val.pkl for a Waymo config, in "
                         "--data-root)")
     p.add_argument("--out", default=None, help="submission json path")
     p.add_argument("--tracking-out", default=None)
@@ -104,8 +113,9 @@ class EvalRun:
     truth per sample token, the submission (None without ``--out``), the
     samples and seconds of the loop over them, the seconds to the first
     sample's boxes (set-up included), the eval passes per sample (0 for an
-    ensemble) and the seconds of the TTA merges (host clock from the
-    device's last pass to the merged boxes on the host)."""
+    ensemble), the seconds of the TTA merges (host clock from the
+    device's last pass to the merged boxes on the host) and of the
+    evaluator (host clock)."""
 
     metrics: Dict[str, float]
     predictions: Dict[str, dict]
@@ -116,17 +126,22 @@ class EvalRun:
     seconds_first: float
     passes: int = 1
     seconds_merge: float = 0.0
+    seconds_eval: float = 0.0
 
 
 def ground_truth_of(sample: dict, classes) -> dict:
     """The evaluator's ground truth of one pipeline output: its boxes of
-    the config's classes and their labels (JAX ``tools/test.py:253-265``)."""
+    the config's classes, their labels and, for Waymo, their LEVEL_2-only
+    flags (JAX ``tools/test.py:253-265``)."""
     if "gt_boxes" in sample and len(sample["gt_boxes"]):
         names = sample["gt_names"]
         keep = [j for j, nm in enumerate(names) if nm in classes]
-        return {"boxes": sample["gt_boxes"][keep],
-                "labels": np.asarray([classes.index(names[j]) for j in keep],
-                                     np.int32)}
+        gt = {"boxes": sample["gt_boxes"][keep],
+              "labels": np.asarray([classes.index(names[j]) for j in keep],
+                                   np.int32)}
+        if "gt_l2_only" in sample:
+            gt["l2_only"] = np.asarray(sample["gt_l2_only"])[keep]
+        return gt
     return {"boxes": np.zeros((0, 9)), "labels": np.zeros(0)}
 
 
@@ -158,11 +173,12 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
     args = parse_args(argv)
     device = resolve_device(args.device)
 
-    from ..core import eval_nuscenes
+    from ..core import eval_nuscenes, eval_waymo
     from ..core import merge_augs as ma
     from ..core import results as res
     from ..data import nuscenes as nusc
     from ..data import pipelines as pl
+    from ..data import waymo as wds
     from ..data.prefetch import prefetch
     from ..models.detector import FocalFormer3D
     from ..training import checkpoint as ckpt
@@ -173,14 +189,22 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
     cfg_all = load_config(args.config)
     cfg = dataclasses.replace(cfg_all["model"], sparse_engine=args.engine)
     classes = list(cfg_all["class_names"])
-    ann = args.ann_file or str(
-        Path(args.data_root) / "nuscenes_infos_val.pkl")
-    ds = nusc.NuScenesDataset(
-        ann, data_root=args.data_root, classes=classes,
-        pipeline=pl.test_pipeline(cfg.voxel.point_cloud_range,
-                                  with_images=cfg.input_img,
-                                  img_scale=cfg.lss.img_scale),
-        with_images=cfg.input_img, test_mode=True)
+    waymo = cfg_all["dataset"] == "waymo"
+    if waymo:
+        ds = wds.WaymoDataset(
+            args.ann_file or str(Path(args.data_root) / "waymo_infos_val.pkl"),
+            data_root=args.data_root, classes=classes,
+            pipeline=pl.test_pipeline(cfg.voxel.point_cloud_range),
+            test_mode=True)
+    else:
+        ds = nusc.NuScenesDataset(
+            args.ann_file or str(
+                Path(args.data_root) / "nuscenes_infos_val.pkl"),
+            data_root=args.data_root, classes=classes,
+            pipeline=pl.test_pipeline(cfg.voxel.point_cloud_range,
+                                      with_images=cfg.input_img,
+                                      img_scale=cfg.lss.img_scale),
+            with_images=cfg.input_img, test_mode=True)
     n = len(ds) if args.limit is None else min(args.limit, len(ds))
     augs = (ma.tta_augs(cfg_all.get("tta", {})) if args.tta
             else [(1.0, False, False)])
@@ -268,15 +292,21 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
     print(f"{n} samples in {seconds:.2f} s ({n / seconds:.3f} samples/s; "
           f"the first {first:.2f} s{merged})", flush=True)
 
-    metrics = eval_nuscenes.evaluate_detections(predictions, gt, classes)
+    t_eval = time.time()
+    evaluator = eval_waymo if waymo else eval_nuscenes
+    metrics = evaluator.evaluate_detections(predictions, gt, classes)
+    seconds_eval = time.time() - t_eval
     print(json.dumps({k: round(v, 4) for k, v in metrics.items()}),
           flush=True)
-    print("note: nds_no_attr averages 9 terms (no attribute error: info "
-          "pkls carry no attributes) and is NOT comparable to published "
-          "NDS; use --official-eval for devkit NDS.", flush=True)
+    print(f"evaluator {evaluator.__name__.rsplit('.', 1)[1]}: "
+          f"{seconds_eval * 1e3:.1f} ms (host)", flush=True)
+    if not waymo:
+        print("note: nds_no_attr averages 9 terms (no attribute error: info "
+              "pkls carry no attributes) and is NOT comparable to published "
+              "NDS; use --official-eval for devkit NDS.", flush=True)
 
     sub = None
-    if args.out:
+    if args.out and not waymo:
         infos_by_token = {info["token"]: info for info in ds.infos}
         sub = res.format_nuscenes_submission(predictions, infos_by_token,
                                              classes, args.out)
@@ -284,14 +314,15 @@ def main(argv: Optional[List[str]] = None) -> EvalRun:
         if args.tracking_out:
             res.tracking_from_detections(sub, args.tracking_out)
             print(f"wrote {args.tracking_out}", flush=True)
-    if args.official_eval:
+    if args.official_eval and not waymo:
         official = run_official_nuscenes_eval(
             args.out, args.data_root, args.eval_set, args.nusc_version)
         if official is not None:
             print("official nuScenes devkit metrics:")
             print(json.dumps(official, indent=1), flush=True)
     return EvalRun(metrics, predictions, gt, sub, n, seconds, first,
-                   0 if args.tta_ensemble else len(augs), merge_s)
+                   0 if args.tta_ensemble else len(augs), merge_s,
+                   seconds_eval)
 
 
 def run_official_nuscenes_eval(submission_json, data_root, eval_set,

@@ -1,7 +1,8 @@
 """Training CLI.
 
-Port of ``tools/train.py``: builds a named config, a nuScenes dataset (or a
-synthetic scene stream with ``--synthetic``), the model with random weights
+Port of ``tools/train.py``: builds a named config, a nuScenes or Waymo
+dataset (or a synthetic scene stream with ``--synthetic``), the model with
+random weights
 from ``--seed`` (or warm starts from a checkpoint), the optimizer over the
 parameters the config leaves trainable, and runs the epoch loop with
 Fading, per-epoch checkpoints and auto-resume, on one card:
@@ -19,18 +20,21 @@ checkpoint. A camera config on a nuScenes directory reads each sample's
 six cameras (``NuScenesDataset(with_images=True)``, the port's JPEG decoder)
 and augments them with ``ImageAug3D`` at the config's image size.
 
-The dataset branch is JAX's nuScenes branch: the GT-paste sampler where
+The dataset branches are JAX's. nuScenes: the GT-paste sampler where
 ``nuscenes_dbinfos_train.pkl`` exists in ``--data-root`` (not for a camera
 config), the train pipeline, CBGS resampling unless ``--no-cbgs``, one
-``rng_np.permutation``
-of the indices per epoch and ``Fading`` at the recipe's ``fade_epoch``.
+``rng_np.permutation`` of the indices per epoch and ``Fading`` at the
+recipe's ``fade_epoch``. Waymo (a config whose ``dataset`` is "waymo";
+``waymo_infos_train.pkl`` in the KITTI layout of ``data/waymo.py``): the
+train pipeline without GT-paste, every ``load_interval``-th frame of the
+config (1 unless it sets one), no CBGS, one permutation per epoch.
 The CLI draws from its ``numpy.random.RandomState(--seed)`` in the order the
 JAX CLI does (the first batch, which JAX draws to initialise its state,
 included), so one seed gives the same batches in both packages.
 
 It runs on the card unless ``--device cpu`` is given, and raises where
-there is none. A Waymo config raises (ROADMAP.md, Queue 1 item 10). One
-card: the JAX CLI's data-parallel mesh has no counterpart yet.
+there is none. One card: the JAX CLI's data-parallel mesh has no
+counterpart yet.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--work-dir", default=None)
     p.add_argument("--data-root", default="data/nuscenes")
     p.add_argument("--ann-file", default=None,
-                   help="infos pkl (default: nuscenes_infos_train.pkl in "
+                   help="infos pkl (default: nuscenes_infos_train.pkl, or "
+                        "waymo_infos_train.pkl for a Waymo config, in "
                         "--data-root)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic scene generator")
@@ -98,19 +103,21 @@ SAMPLE_GROUPS = dict(car=2, truck=3, construction_vehicle=7, bus=4,
                      trailer=6, barrier=2, motorcycle=6, bicycle=6,
                      pedestrian=2, traffic_cone=2)
 MIN_POINTS = 5
-WAYMO = ("Waymo configs are not ported yet: they wait for hard_voxelize, "
-         "HardVFE, classaware_reg, data/waymo.py and core/eval_waymo.py "
-         "(ROADMAP.md, Queue 1 item 10)")
 
 
 def load_config(name: str) -> dict:
-    """``configs.get_config(name)`` for the CLIs; a Waymo config raises,
-    naming the ROADMAP item that ports it."""
+    """``configs.get_config(name)`` for the CLIs. A config whose head asks
+    for a mask mode that the port does not run (ROADMAP.md Queue 1 item
+    10c) raises here, before any data is read."""
     from ..configs import get_config
 
-    if "waymo" in name.lower():
-        raise NotImplementedError(f"{name}: {WAYMO}")
-    return get_config(name)
+    cfg_all = get_config(name)
+    mode = cfg_all["model"].decoder.mask_heatmap_mode
+    if mode != "poscls":
+        raise NotImplementedError(
+            f"{name}: mask_heatmap_mode {mode!r} is not ported (ROADMAP.md, "
+            "Queue 1 item 10c)")
+    return cfg_all
 
 
 @dataclasses.dataclass
@@ -174,6 +181,44 @@ def nuscenes_batches(args, cfg_all: dict, batch_size: int,
     return batch_iter, steps_per_epoch, ds
 
 
+def waymo_batches(args, cfg_all: dict, batch_size: int,
+                  rng_np: np.random.RandomState
+                  ) -> Tuple[Callable[[int], Iterator[dict]], int, object]:
+    """The JAX CLI's Waymo branch (``tools/train.py:112-150``):
+    ``(batch_iter(epoch), steps_per_epoch, dataset)`` over every
+    ``load_interval``-th frame, the train pipeline without GT-paste; each
+    epoch draws a permutation of the frames, then the samples' own draws,
+    from ``rng_np``."""
+    from ..data import nuscenes as nusc  # collate
+    from ..data import pipelines as pl
+    from ..data import waymo as wds
+
+    cfg, classes = cfg_all["model"], cfg_all["class_names"]
+    ann = args.ann_file or str(Path(args.data_root) / "waymo_infos_train.pkl")
+    pipe = pl.train_pipeline(cfg.voxel.point_cloud_range, classes,
+                             db_sampler=None, with_images=False)
+    ds = wds.WaymoDataset(ann, data_root=args.data_root, classes=classes,
+                          pipeline=pipe,
+                          load_interval=cfg_all.get("load_interval", 1))
+    indices = np.arange(len(ds))
+    steps_per_epoch = args.iters_per_epoch or max(
+        1, len(indices) // batch_size)
+
+    def batch_iter(epoch):
+        order = rng_np.permutation(indices)
+        for it in range(steps_per_epoch):
+            sel = order[it * batch_size: (it + 1) * batch_size]
+            if len(sel) < batch_size:
+                return
+            samples = [ds.get_sample(int(i), rng_np) for i in sel]
+            b = nusc.collate(samples, classes, max_points=args.max_points,
+                             max_gts=cfg.decoder.max_gts // 4)
+            b.pop("tokens", None)
+            yield b
+
+    return batch_iter, steps_per_epoch, ds
+
+
 def main(argv: Optional[List[str]] = None) -> TrainRun:
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -207,8 +252,10 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                     pc_range=cfg.voxel.point_cloud_range,
                     with_images=cfg.input_img, img_hw=cfg.lss.img_scale)
     else:
-        batch_iter, steps_per_epoch, ds = nuscenes_batches(
-            args, cfg_all, batch_size, rng_np)
+        batches = (waymo_batches if cfg_all["dataset"] == "waymo"
+                   else nuscenes_batches)
+        batch_iter, steps_per_epoch, ds = batches(args, cfg_all, batch_size,
+                                                  rng_np)
         pipeline = ds.pipeline
 
     tx = optim.make_optimizer(

@@ -4,13 +4,20 @@ flax variables, for the configs the port runs.
 The port's own copy of ``focalformer3d_tpu.utils.ref_keys
 .reference_state_shapes`` and of ``focalformer3d_tpu.utils.convert
 .build_mapping`` with its ``t2f_*`` layout transforms, cut to the branches
-the port has: the point branch with the HardSimpleVFE, the ResNet-50 + FPN
-image branch, the LSS camera BEV or I2P (``shared_conv_img`` and the
+the port has: the point branch with the mean VFEs or the Waymo configs'
+``HardVFE`` (``pts_voxel_encoder.vfe_layers.{i}.linear`` / ``.norm`` ->
+flax ``vfe/vfe_fc{i}`` / ``vfe/vfe_bn{i}``), the ResNet-50 + FPN image
+branch, the LSS camera BEV or I2P (``shared_conv_img`` and the
 ``I2P_block``), the ``bevfusionmb2`` and ``bevfusion`` necks with their
-camera blocks, and the head (the HardVFE branch comes with the slice that
-ports it, ROADMAP.md Queue 1 item 10b). ``tests/test_torch_imports.py``
-holds both against the JAX package's functions for every registered
-config: the same keys, shapes, flax paths and transforms.
+camera blocks, and the head. ``tests/test_torch_imports.py`` holds both
+against the JAX package's functions for every registered config: the same
+keys, shapes, flax paths and transforms.
+
+One departure: with ``classaware_reg`` (FocalFormer3D_Waymo15_L) the box
+heads' output convs are ``num_classes`` times as wide, in the model of
+either package, and here; JAX's ``reference_state_shapes`` lists them at
+the class-agnostic width (a fault of the JAX package, ROADMAP.md Queue 3),
+so its own bridge cannot load its own class-aware model.
 """
 from __future__ import annotations
 
@@ -33,12 +40,10 @@ IGNORED = (
 
 def _check_ported(cfg) -> None:
     if (cfg.input_img and cfg.cam_proj not in ("lss", "i2p")) \
-            or cfg.vfe_type == "HardVFE" \
             or cfg.iterbev not in ("bevfusionmb2", "bevfusion"):
         raise NotImplementedError(
-            "the weight bridge covers the HardSimpleVFE, the LSS and I2P "
-            "camera projections and the bevfusionmb2 and bevfusion necks; "
-            "HardVFE is ROADMAP.md Queue 1 item 10b")
+            "the weight bridge covers the LSS and I2P camera projections "
+            "and the bevfusionmb2 and bevfusion necks")
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +105,12 @@ def reference_state_shapes(cfg) -> Dict[str, Shape]:
 def _point_branch_shapes(d, cfg) -> None:
     enc = cfg.encoder_channels
     cin = 5
+    if cfg.vfe_type == "HardVFE":
+        # mmdet3d VFELayer: Linear (no bias) + BN1d, max over the slots
+        for i, ch in enumerate(cfg.vfe_channels):
+            d[f"pts_voxel_encoder.vfe_layers.{i}.linear.weight"] = (ch, cin)
+            _bn_shapes(d, f"pts_voxel_encoder.vfe_layers.{i}.norm", ch)
+            cin = ch
     # pts_middle_encoder (SparseEncoder, basicblock)
     base = enc[0][0]
     d["pts_middle_encoder.conv_input.0.weight"] = (3, 3, 3, cin, base)
@@ -277,6 +288,8 @@ def _head_shapes(d, cfg) -> None:
         heads = {"center": 2, "height": 1, "dim": 3, "rot": 2}
         if dec.code_size == 10:
             heads["vel"] = 2
+        if dec.classaware_reg:
+            heads = {k: w * ncls for k, w in heads.items()}
         heads["heatmap"] = ncls
         for head, out in heads.items():
             p = f"{hb}.prediction_heads.{i}.{head}"
@@ -332,7 +345,8 @@ def _split3_t(a):
 # key -> flax path mapping
 # ---------------------------------------------------------------------------
 
-POINT_BRANCH = ("pts_middle_encoder.", "pts_backbone.", "pts_neck.")
+POINT_BRANCH = ("pts_voxel_encoder.", "pts_middle_encoder.", "pts_backbone.",
+                "pts_neck.")
 
 
 def absent(cfg, key: str) -> bool:
@@ -409,7 +423,17 @@ def _inverted_residual(m, tkey: str, tprefix: str,
 
 
 def _encoder_target(m, tk) -> bool:
-    """pts_backbone, pts_neck and pts_middle_encoder keys."""
+    """pts_voxel_encoder, pts_backbone, pts_neck and pts_middle_encoder
+    keys."""
+    g = re.fullmatch(r"pts_voxel_encoder\.vfe_layers\.(\d)\.(linear\.weight|"
+                     r"norm\.(?:weight|bias|running_mean|running_var))", tk)
+    if g:
+        i, rest = int(g.group(1)), g.group(2)
+        if rest == "linear.weight":
+            m[tk] = [("params", ("vfe", f"vfe_fc{i}", "kernel"), t2f_linear)]
+        else:
+            _set_bn(m, tk, ("vfe", f"vfe_bn{i}"), rest.split(".")[1])
+        return True
     g = re.fullmatch(r"pts_backbone\.blocks\.(\d)\.(\d+)\.(weight|bias|"
                      r"running_mean|running_var)", tk)
     if g:

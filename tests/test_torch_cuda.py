@@ -1136,7 +1136,7 @@ def _top_boxes_close(got, ref, k=50, tol=1e-2):
     scores = np.sort(ref["scores"])[::-1][:k]
     np.testing.assert_allclose(np.sort(got["scores"])[::-1][:k], scores,
                                rtol=0, atol=tol * scores[0])
-    cols = [0, 1, 2, 3, 4, 5, 7, 8]
+    cols = [c for c in (0, 1, 2, 3, 4, 5, 7, 8) if c < ref["boxes"].shape[1]]
     scale = np.abs(ref["boxes"][top][:, cols]).max()
     for i in top:
         same = cand[got["labels"][cand] == ref["labels"][i]]
@@ -1567,3 +1567,75 @@ def test_full_width_train_step_per_engine(dev, engine, launches):
     assert not still, still[:5]
     del m, state, b
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Waymo: hard voxelization, the HardVFE and the test CLI
+# ---------------------------------------------------------------------------
+
+def test_hard_voxelize_and_hard_vfe_on_card_match_cpu(dev):
+    """``hard_voxelize`` at Tiny_Waymo_L's caps (a 4000-point radial scan
+    overflows its 512 voxels and 5 point slots) on the card equals the
+    CPU bit for bit; the HardVFE on the card is within 1e-5 of the CPU's
+    scale, in eval and in a training call (its running statistics too)."""
+    from focalformer3d_tpu_torch.models.vfe import HardVFE
+    from focalformer3d_tpu_torch.ops.voxelize import hard_voxelize
+
+    cfg = get_config("Tiny_Waymo_L")["model"]
+    pts, mask = _radial(cfg, 4, 4000)
+    got = hard_voxelize(cfg.voxel, pts[0].to(dev), mask[0].to(dev))
+    ref = hard_voxelize(cfg.voxel, pts[0], mask[0])
+    for k, v in ref.items():
+        assert torch.equal(got[k].cpu(), v), k
+    assert int(ref["voxel_mask"].sum()) == 512 and int(
+        ref["num_points"].max()) == 5
+    vfe = HardVFE(5, (64,))
+    vfe.load_state_dict({k: torch.from_numpy(v.numpy()) for k, v in
+                         make_fake_state_dict(vfe, 2).items()}, strict=True)
+    card = HardVFE(5, (64,)).to(dev)
+    card.load_state_dict(vfe.state_dict())
+    for train in (False, True):
+        vfe.train(train)
+        card.train(train)
+        want = vfe(ref["voxels"][None], ref["num_points"][None])
+        out = card(got["voxels"][None], got["num_points"][None])
+        assert float((out.cpu() - want).abs().max()
+                     / want.abs().max()) <= 1e-5, train
+    for k in ("running_mean", "running_var"):
+        a = getattr(card.vfe_layers[0].norm, k).cpu()
+        b = getattr(vfe.vfe_layers[0].norm, k)
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5, k
+
+
+def test_test_cli_on_a_waymo_directory_matches_cpu(dev, tmp_path):
+    """The test CLI (Tiny_Waymo_L, random weights from a seed) on a
+    directory of ``chip_smoke.write_waymo``: engine ``cuda`` on the card
+    (K1, 11 launches a frame) against ``--device cpu`` on the plain
+    engine, the best 50 boxes of each frame (all 32 that Tiny_Waymo_L
+    keeps) within 1e-2 (``_top_boxes_close``, as for Tiny_L), the same
+    ground truth with its LEVEL_2-only flags, and finite L1 / L2 metrics."""
+    import chip_smoke
+    from focalformer3d_tpu_torch.tools import test as test_cli
+
+    cfg_all = get_config("Tiny_Waymo_L")
+    chip_smoke.write_waymo(
+        tmp_path, seed=3, frames=2, points=3000,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], boxes=6)
+    runs = {}
+    for device, engine in (("cuda", "cuda"), ("cpu", "plain")):
+        k1.reset_launch_count()
+        runs[device] = test_cli.main([
+            "Tiny_Waymo_L", "--data-root", str(tmp_path), "--device",
+            device, "--engine", engine, "--limit", "2", "--max-points",
+            "6000", "--seed", "3"])
+        assert k1.launch_count() == (22 if device == "cuda" else 0)
+        assert all(np.isfinite(v) for v in runs[device].metrics.values())
+    assert set(runs["cuda"].predictions) == set(runs["cpu"].predictions)
+    for tok, ref in runs["cpu"].predictions.items():
+        assert len(ref["scores"]) >= 30 and ref["boxes"].shape[1] == 7
+        _top_boxes_close(runs["cuda"].predictions[tok], ref)
+        g, h = runs["cuda"].ground_truth[tok], runs["cpu"].ground_truth[tok]
+        assert set(g) == set(h) == {"boxes", "labels", "l2_only"}
+        for k in g:
+            np.testing.assert_array_equal(g[k], h[k])

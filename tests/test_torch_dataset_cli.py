@@ -26,10 +26,12 @@ port's ``create_gt_database``:
   ``--require-full`` fails on a dropped, an extra or a reshaped key;
 - the train CLI's nuScenes branch on a dynamic-voxelization DeformFormer3D
   (Tiny_L with the DeformFormer3D deltas, the config injected);
-- a Waymo config raises, naming the ROADMAP item that ports it;
-  ``print_config`` lists and prints the port's configs;
+- a config whose head asks for a mask mode the port does not run raises
+  in ``load_config``, naming the ROADMAP item that ports it;
+  ``print_config`` lists and prints the port's 13 configs;
   ``create_nuscenes_infos`` raises without the nuscenes-devkit.
 """
+import dataclasses
 import importlib.util
 import itertools
 import json
@@ -175,12 +177,24 @@ def test_cli_batches_equal_jax(dataset, tmp_path, monkeypatch, extra):
         assert b_port["gt_valid"].any() and b_port["points_mask"].any()
 
 
-@pytest.mark.parametrize("cli,argv,match", [
-    (test_cli, ["FocalFormer3D_Waymo_L"], "Queue 1 item 10"),
-    (train_cli, ["Tiny_Waymo_L", "--synthetic"], "Queue 1 item 10"),
+@pytest.mark.parametrize("cli,argv,mode", [
+    (test_cli, ["Tiny_Waymo_L_masked"], "pos"),
+    (train_cli, ["Tiny_Waymo_L_masked", "--synthetic"], "boxcls"),
 ])
-def test_unported_options_raise(cli, argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise(cli, argv, mode, tmp_path, monkeypatch):
+    """The CLIs refuse a head mask mode other than 'poscls' (Queue 1 item
+    10c), here on a Waymo config that asks for one."""
+    from focalformer3d_tpu_torch import configs as tconfigs
+
+    def masked():
+        cfg = get_config("Tiny_Waymo_L")
+        model = cfg["model"]
+        return {**cfg, "model": dataclasses.replace(
+            model, decoder=dataclasses.replace(model.decoder,
+                                               mask_heatmap_mode=mode))}
+
+    monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_Waymo_L_masked", masked)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10c"):
         cli.main([*argv, "--device", "cpu", "--work-dir", str(tmp_path)]
                  if cli is train_cli else [*argv, "--device", "cpu"])
 
@@ -195,8 +209,11 @@ def test_print_config(capsys):
     print_config.main([])
     assert capsys.readouterr().out.strip() == (
         "available: DeformFormer3D_C_R50, DeformFormer3D_L, "
-        "DeformFormer3D_L_dynamic, FocalFormer3D_L, FocalFormer3D_LC, "
-        "FocalFormer3D_LC_Proj, FocalFormer3D_LC_TTA, Tiny_L")
+        "DeformFormer3D_L_dynamic, DeformFormer3D_Waymo15_L, "
+        "DeformFormer3D_Waymo_L, FocalFormer3D_L, FocalFormer3D_LC, "
+        "FocalFormer3D_LC_Proj, FocalFormer3D_LC_TTA, "
+        "FocalFormer3D_Waymo15_L, FocalFormer3D_Waymo_L, Tiny_L, "
+        "Tiny_Waymo_L")
     print_config.main(["Tiny_L"])
     out = capsys.readouterr().out
     assert "'model':" in out and "'sparse_shape': (25, 64, 64)" in out

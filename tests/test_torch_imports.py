@@ -9,7 +9,7 @@ card's machine has no Pillow: the port decodes and resamples the cameras
 itself, ``data/image_io.py``). The port's copy
 of the reference checkpoint's key inventory and key mapping
 (``utils/jax_keys.py``) is held here against the JAX package's originals,
-for the LiDAR and the camera configs: the same keys, shapes and flax
+for the LiDAR, camera and Waymo configs: the same keys, shapes and flax
 paths, and transforms that rearrange an index array the same way.
 """
 import ast
@@ -107,10 +107,23 @@ def test_walk_covers_the_camera_modules():
         assert pkg + mod in files, mod
 
 
+def test_walk_covers_the_waymo_modules():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("models/vfe.py", "data/waymo.py", "core/eval_waymo.py",
+                "ops/voxelize.py", "models/focal_decoder.py"):
+        assert pkg + mod in files, mod
+
+
+# FocalFormer3D_Waymo15_L's class-aware heads are wider than JAX's inventory
+# lists them (tests/test_torch_waymo_model.py)
 @pytest.mark.parametrize("name", ["Tiny_L", "FocalFormer3D_L",
                                   "DeformFormer3D_L", "FocalFormer3D_LC",
                                   "FocalFormer3D_LC_Proj",
-                                  "DeformFormer3D_C_R50"])
+                                  "DeformFormer3D_C_R50",
+                                  "FocalFormer3D_Waymo_L", "Tiny_Waymo_L",
+                                  "DeformFormer3D_Waymo_L",
+                                  "DeformFormer3D_Waymo15_L"])
 def test_jax_keys_match_the_jax_package(name):
     jcfg = jax_get_config(name)["model"]
     tcfg = tconfigs.get_config(name)["model"]
