@@ -238,13 +238,43 @@ Phases (any failure raises and exits non-zero):
    the 6 frames: one step); the test CLI on the first checkpoint over the
    6 frames on each engine (samples/s, the L1 / L2 mAP / mAPH and per-class
    keys all finite, exactly 6 frames' launches, the evaluator's host ms).
+18. data parallel (``tools/dryrun_ddp``, ``parallel/mesh.py``):
+   FocalFormer3D_L at full width in float32 (TF32 off), dropouts off and
+   the denoising groups' noise fixed: one step at batch 2 in this process
+   on ``plain``, ``cuda`` and ``cuda_mxu`` (and each once more on the
+   batch in reverse order, the same function with the float32 sums in
+   another order), then two worker processes over gloo, both on this card
+   (NCCL takes one rank a card), each on its half of the batch at batch 1
+   a step on each engine after an untimed one: per rank K1 forward / dx /
+   dW 16 / 15 / 16 on ``cuda`` and 21 / 20 / 21 with 8 K2 on ``cuda_mxu``
+   exactly; the ranks' gradients and parameters equal bit for bit;
+   against the world-size-1 step all gradients and the whole state after
+   the update (relative L2) within ``tests/test_torch_train_step.py``'s
+   tolerances, each no tighter than twice what the reversed batch moves
+   it, and the total loss within 1e-5 on ``plain`` and bf16's unit
+   roundoff 2^-9 on the kernel engines (``dryrun_ddp.compare_to_floor``:
+   at full width a change of the sums' order flips top-k picks, matches
+   and bf16 roundings, which move single terms and tensors; the
+   tensor-by-tensor shares are printed); per rank the step's ms, the
+   gradient all-reduce's ms, the batch-norm collectives and the peak
+   memory (two ranks share the card: no scaling figure). Then each worker
+   steps once more per engine with each of ``dryrun_ddp.FAULTS`` planted
+   (SyncBN's backward without the other rank's cotangents, the loss counts
+   of the rank's shard, no gradient all-reduce), and every one of them
+   must fail that comparison. Then the train CLI at world size 2 over gloo
+   on the card (two synthetic steps, global batch 2) and at world size 1
+   over NCCL (one step): every rank exits 0, rank 0 alone prints, logs and
+   saves; their s/it.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
 phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's,
 ``train_mxu`` and ``train_zrun`` phase 14's step on that engine,
 ``camera_proj`` phase 15's, ``camera_dataset`` phase 16's, ``waymo``
-phase 17's, each run counted from zero just before it and read just after
+phase 17's, ``ddp`` phase 18's workers' steps without a planted fault (their ranks
+and engines summed;
+each worker counts from zero just before its step and reads just after
+it), each run counted from zero just before it and read just after
 it), K1's, K2's and K3's stats at the Waymo geometry (``waymo``: max
 error, per-frame ms, plain ms, bound; ``max_abs_err`` is the larger of
 the two phases'),
@@ -280,6 +310,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3088,6 +3119,175 @@ def phase_waymo(card, device, tmp, nusc_stats):
     return total, stats
 
 
+# phase 18: data parallel, FocalFormer3D_L's float32 step at batch 2 on
+# two gloo ranks of batch 1 on the one card (NCCL takes one rank a card)
+# against the world-size-1 step on the same batch, weights and group noise
+DDP_ENGINES = ("plain", "cuda", "cuda_mxu")
+# per rank and step at batch 1: train_step.py's counts, as at batch 2
+DDP_LAUNCHES = {
+    "plain": {"forward": 0, "dx": 0, "wgrad": 0, "plan": 0, "zrun": 0},
+    "cuda": {"forward": 16, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 0},
+    "cuda_mxu": {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8,
+                 "zrun": 0}}
+DDP_TIMEOUT = 300  # seconds a group of ranks may take
+TRAIN_MODULE = "focalformer3d_tpu_torch.tools.train"
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_cli(card, tmp):
+    """The train CLI at world size 2 on the one card over gloo (global
+    batch 2, two synthetic steps) and at world size 1 over NCCL (one
+    step): both exit 0; rank 0 alone prints, logs and saves."""
+    from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
+
+    runs = {"gloo": (2, ["--iters-per-epoch", "2", "--device", "cuda:0"]),
+            "nccl": (1, ["--iters-per-epoch", "1"])}
+    for backend, (n, extra) in runs.items():
+        work, logs = f"{tmp}/cli_{backend}", f"{tmp}/cli_{backend}_logs"
+        os.makedirs(logs)
+        t0 = time.perf_counter()
+        out = dd.spawn(n, [
+            "FocalFormer3D_L", "--synthetic", "--epochs", "1",
+            "--batch-size", "2", "--log-interval", "1", "--dist-backend",
+            backend, "--work-dir", work, "--no-tensorboard", *extra],
+            DDP_TIMEOUT, logs, module=TRAIN_MODULE,
+            env={"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())})
+        wall = time.perf_counter() - t0
+        with open(f"{work}/train_log.jsonl") as fh:
+            recs = [json.loads(x) for x in fh]
+        train = [r for r in recs if r["mode"] == "train"]
+        steps = int(extra[1])
+        if (len(train) != steps or not all(math.isfinite(r["loss"])
+                                           for r in train)
+                or sorted(os.listdir(work)) != ["epoch_1", "train_log.jsonl"]
+                or out[0].count("loss=") != steps
+                or "device: cuda:0" not in out[0]
+                or any("loss=" in o or "saved" in o for o in out[1:])):
+            raise RuntimeError(f"ddp: the train CLI over {backend} at world "
+                               f"size {n}: {train}, {os.listdir(work)}, "
+                               f"{[o[-2000:] for o in out]}")
+        print(f"ddp ({card}): train CLI, world size {n} over {backend}, "
+              f"global batch 2: exit 0 on every rank, losses "
+              + ", ".join(f"{r['loss']:.4f}" for r in train) + "; s/it "
+              + ", ".join(f"{r['time']:.3f}" for r in train)
+              + f"; rank 0 alone wrote epoch_1 and train_log.jsonl; "
+              f"{wall:.1f} s with the start", flush=True)
+
+
+def phase_ddp(card, device, tmp):
+    """Data parallel (phase 18): the world-size-1 reference steps in this
+    process, two ``tools/dryrun_ddp`` workers over gloo on this card at
+    batch 1 each (each engine's step held against the reference, the
+    launches per rank exact, the ranks' parameters equal bit for bit),
+    then the train CLI at world size 2 (gloo) and 1 (NCCL). Returns the
+    workers' model-path launches, summed over ranks and engines."""
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("FocalFormer3D_L")["model"]
+    inputs = dd.step_inputs(cfg, seed=TRAIN_SEED, batch_size=TRAIN_BATCH,
+                            n_points=N_POINTS, n_boxes=24, max_gts=32,
+                            mode="radial")
+    np.savez(f"{tmp}/inputs.npz", **inputs)
+    swapped = {k: v[::-1].copy() for k, v in inputs.items()}
+    refs = {}
+    for engine in DDP_ENGINES:  # world size 1, batch 2
+        refs[engine] = [dd.one_step("FocalFormer3D_L", engine, x, 0, device)
+                        for x in (inputs, swapped)]
+        torch.cuda.empty_cache()
+        print(f"ddp ({card}): world size 1, batch 2, {engine}: step "
+              f"{refs[engine][1]['step_ms']:.1f} ms (on the reversed batch; "
+              f"the first call {refs[engine][0]['step_ms']:.1f}), peak "
+              f"{refs[engine][0]['peak_gib']:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    dd.spawn(TRAIN_BATCH, [
+        "--init-method", f"file://{tmp}/rendezvous", "--device", "cuda:0",
+        "--config", "FocalFormer3D_L", "--engines", ",".join(DDP_ENGINES),
+        "--inputs", f"{tmp}/inputs.npz", "--weights-seed", "0", "--out",
+        tmp, "--plant", ",".join(dd.FAULTS)], DDP_TIMEOUT, tmp)
+    print(f"ddp ({card}): {TRAIN_BATCH} gloo workers on one card, "
+          f"{len(DDP_ENGINES)} engines, each warmed up, then each again "
+          f"with each of {len(dd.FAULTS)} planted faults: "
+          f"{time.perf_counter() - t0:.1f} s with their start", flush=True)
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
+    for engine in DDP_ENGINES:
+        ranks = [torch.load(dd.result_path(tmp, engine, r),
+                            weights_only=True) for r in range(TRAIN_BATCH)]
+        for r in ranks:
+            if r["world"] != TRAIN_BATCH or r["launches"] != \
+                    DDP_LAUNCHES[engine]:
+                raise RuntimeError(f"ddp {engine}: rank {r['rank']} of "
+                                   f"{r['world']} launched {r['launches']}, "
+                                   f"expected {DDP_LAUNCHES[engine]}")
+            for k, n in r["launches"].items():
+                launches[LAUNCH_ROWS[k]] += n
+        differ = [k for part in ("grads", "state") for k in ranks[0][part]
+                  if not torch.equal(ranks[0][part][k], ranks[1][part][k])]
+        if differ:
+            raise RuntimeError(f"ddp {engine}: the ranks differ in "
+                               f"{differ[:5]}")
+        report = dd.compare_to_floor(ranks[0], *refs[engine])
+        each = dd.compare(ranks[0], refs[engine][0])
+        print(f"ddp ({card}): {engine}, world size 2 at batch 1 against "
+              f"world size 1 at batch 2: " + ", ".join(
+                  f"{kind} {report[kind]:.3g} (the reversed batch "
+                  f"{report[kind + '_floor']:.3g}; tolerance "
+                  f"{report[kind + '_tol']:.3g})"
+                  for kind in ("loss", "grad", "state"))
+              + "; tensor by tensor (not held: see dryrun_ddp."
+              "compare_to_floor), the worst share of the one-card tolerance "
+              + ", ".join(f"{kind} {each[kind + '_worst'][0]:.3g} "
+                          f"({each[kind + '_worst'][1]})"
+                          for kind in ("loss", "grad", "state"))
+              + f"; loss {ranks[0]['metrics']['loss']:.6f} against "
+              f"{refs[engine][0]['metrics']['loss']:.6f} (the reversed "
+              f"batch {refs[engine][1]['metrics']['loss']:.6f}); per rank: "
+              + "; ".join(
+                  f"rank {r['rank']} step {r['step_ms']:.1f} ms, gradient "
+                  f"all-reduce {r['allreduce_ms']:.1f} ms, "
+                  f"{r['bn_collectives']} batch-norm collectives "
+                  f"(forward; as many in the backward), collectives "
+                  f"{r['collectives']}, peak {r['peak_gib']:.2f} GiB"
+                  for r in ranks)
+              + f"; launches per rank {ranks[0]['launches']}", flush=True)
+        if not report["ok"]:
+            raise RuntimeError(f"ddp {engine}: {report}")
+        del ranks
+    missed = []
+    for engine in DDP_ENGINES:  # each planted fault must fail the gate
+        for fault in dd.FAULTS:
+            got = torch.load(dd.result_path(tmp, engine, 0, fault),
+                             weights_only=True)
+            report = dd.compare_to_floor(got, *refs[engine])
+            if report["ok"]:
+                missed.append((engine, fault))
+            print(f"ddp ({card}): {engine}, planted fault {fault}: "
+                  + ", ".join(f"{kind} {report[kind]:.3g} (tolerance "
+                              f"{report[kind + '_tol']:.3g})"
+                              for kind in ("loss", "grad", "state"))
+                  + ("; passed the gate" if report["ok"] else
+                     "; failed the gate, as it must"), flush=True)
+            del got
+    if missed:
+        raise RuntimeError(f"ddp: planted faults passed the gate: {missed}")
+    del refs
+    torch.cuda.empty_cache()
+    _ddp_cli(card, tmp)
+    print(f"ddp ({card}): {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -3151,6 +3351,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         waymo, waymo_stats = phase_waymo(card, device, tmp, {
             "sparse_conv": k1, "plan_rules": k2, "sparse_conv_zrun": k3})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp = phase_ddp(card, device, tmp)
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -3179,6 +3382,8 @@ def main():
         by["camera_proj"] = camera_proj[name]
         by["camera_dataset"] = camera_dataset[name]
         by["waymo"] = waymo[name]
+        if name != "sparse_conv_zrun":
+            by["ddp"] = ddp[name]
     for name, st in waymo_stats.items():  # the kernels at the Waymo geometry
         stats = next(r[1] for r in rows if r[0] == name)
         stats["waymo"] = {k: st[k] for k in (

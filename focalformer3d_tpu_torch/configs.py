@@ -107,8 +107,8 @@ class FocalDecoderConfig:
     inner_layers: int = 3  # deformable layers per round
     num_heads: int = 8
     nms_kernel_size: int = 3
-    mask_heatmap_mode: str = "poscls"  # only 'poscls' is ported
-    heatmap_box: bool = False
+    mask_heatmap_mode: str = "poscls"  # 'poscls' | 'pos' | 'boxcls'
+    heatmap_box: bool = False  # dense per-class box heads (boxcls mode)
     multistage_heatmap: int = 1
     reuse_first_heatmap: bool = True
     extra_feat: bool = True

@@ -127,8 +127,10 @@ class FocalFormer3D(nn.Module):
         self.cfg = cfg
         if cfg.input_pts:
             if cfg.vfe_type == "HardVFE":
-                self.pts_voxel_encoder = HardVFE(cfg.point_dim,
-                                                 cfg.vfe_channels)
+                self.pts_voxel_encoder = HardVFE(
+                    cfg.point_dim, cfg.vfe_channels,
+                    voxel_size=cfg.voxel.voxel_size,
+                    point_cloud_range=cfg.voxel.point_cloud_range)
             self.pts_middle_encoder = SparseEncoder(
                 in_channels=cfg.voxel_feature_dim,
                 sparse_shape=cfg.sparse_shape,
@@ -234,7 +236,8 @@ class FocalFormer3D(nn.Module):
                 feats = voxel_data.get("features")
                 if cfg.vfe_type == "HardVFE":
                     feats = self.pts_voxel_encoder(voxel_data["voxels"],
-                                                   voxel_data["num_points"])
+                                                   voxel_data["num_points"],
+                                                   voxel_data["coords"])
                     mark("HardVFE")
                 bev = self.pts_middle_encoder(feats,
                                               voxel_data["coords"],

@@ -6,7 +6,12 @@ Port of ``focalformer3d_tpu/models/focal_decoder.py`` and its
 * per stage, a BEV heatmap (the first stage reuses ``heatmap_head``), the
   accumulated mask of earlier stages, max-pool peak suppression with
   kernel-1 classes, and the top ``num_proposals`` (class, cell) picks as
-  queries with class embeddings; ``poscls`` masking of the picked cells;
+  queries with class embeddings; the mask of the picks for the next
+  stages (``mask_heatmap_mode``): ``poscls`` the picked (class, cell)
+  pairs, ``pos`` the picked cells in every class, ``boxcls`` the picked
+  pairs and, in each pick's class, the cells inside its box, which a dense
+  per-class box head of the stage regresses (``heatmap_box_head.{i}``,
+  detached; ``ops/points_in_boxes``);
 * a 3-level BEV pyramid, RoI grid pooling from the previous round's boxes,
   and ``num_decoder_layers`` rounds of the deformable decoder with FFN
   prediction heads.
@@ -23,10 +28,12 @@ Where the neck has more fusion layers than the head has heatmap stages
 reuse), the stages read the deepest maps; JAX's head asserts that the two
 counts agree, so those configs run in the port only (ROADMAP.md Queue 3).
 
-The ``pos`` / ``boxcls`` mask modes are not ported (no shipped config uses
-them). With ``classaware_reg`` (FocalFormer3D_Waymo15_L) the box heads are
-``num_classes`` times as wide, and each query reads the slice of its label
-before the RoI box is added. Inputs and outputs keep the JAX layouts: BEV
+No named config sets ``pos`` or ``boxcls``. JAX's key inventory lists no
+box heads: the port names them ``heatmap_box_head.{i}`` after the heatmap
+heads (``utils/jax_keys``). With ``classaware_reg``
+(FocalFormer3D_Waymo15_L) the box heads are ``num_classes`` times as
+wide, and each query reads the slice of its label before the RoI box is
+added. Inputs and outputs keep the JAX layouts: BEV
 maps (B, H, W, C); per-round outputs (B, rounds, Q, d).
 
 Top-k ties: after peak suppression many cells are exactly 0, and
@@ -36,6 +43,7 @@ come from a stable descending sort (ties to the lower flat index, as
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -46,12 +54,17 @@ from ..configs import FocalDecoderConfig
 from ..core import box_coder as bc
 from ..core.nms import top_k_mask
 from ..ops.bilinear import grid_sample_norm
+from ..ops.points_in_boxes import points_in_boxes
 from .deformable_decoder import DeformableDecoder
 from .layers import (FLAX_BN_MOMENTUM, ConvBN, MLP, PredictionFFN,
                      apply_bn, conv2d_nhwc, dropout, linear, sine_embed_2d)
 
 # shape of the reference checkpoint's bev_pos buffer (a 180 x 180 grid)
 REF_BEV_POS_SHAPE = (1, 32400, 2)
+MASK_MODES = ("poscls", "pos", "boxcls")
+# the dense box heads' regression per class (``boxcls``), whatever the
+# code size: centre offset 2, height 1, dims 3, sin / cos 2, velocity 2
+BOX_DIM = 10
 
 
 def _bev_pos(H: int, W: int, scale: float, device) -> torch.Tensor:
@@ -103,6 +116,53 @@ def _rotate_z(points, angle):
     return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
 
 
+def _gather_query_boxes(dense_boxes, bev_pos, top_i, ncls: int, HW: int):
+    """The dense box regressions at the picked (class, cell) indices, with
+    the reference's clipping, detached: dense_boxes (B, H, W, BOX_DIM *
+    ncls) -> (B, P, BOX_DIM)."""
+    B = dense_boxes.shape[0]
+    bd = dense_boxes.shape[-1] // ncls
+    df = dense_boxes.reshape(B, HW, ncls, bd).transpose(1, 2) \
+        .reshape(B, ncls * HW, bd)
+    qb = torch.gather(df, 1, top_i[..., None].expand(-1, -1, bd)).detach()
+    cell = bev_pos[top_i % HW]
+    return torch.cat([
+        qb[..., 0:2] + torch.floor(cell),
+        qb[..., 2:3].clamp(-5.0, 3.0),
+        qb[..., 3:6].clamp(math.log(0.5), math.log(15.0)),
+        qb[..., 6:8].clamp(-1.0, 1.0),
+        qb[..., 8:].clamp(-15.0, 15.0)], dim=-1)
+
+
+def _boxcls_mask(cfg, qb, top_cls, bev_pos, top_i, shape):
+    """``boxcls``: the picked (class, cell) pairs and, in each pick's class
+    channel, the BEV cells inside its box (its dims less a 1 m margin,
+    0.7-10 m); a cell inside several boxes takes the first pick's class.
+    Returns (B, ncls, H, W) in {0, 1}."""
+    B, ncls, H, W = shape
+    HW = H * W
+    center = bc.decode_center(cfg.coder, qb[..., 0:2])
+    pcr = cfg.pc_range
+    cx = center[..., 0].clamp(pcr[0], pcr[3])
+    cy = center[..., 1].clamp(pcr[1], pcr[4])
+    dxy = (torch.exp(qb[..., 3:5]) - 1.0).clamp(0.7, 10.0)
+    yaw = torch.atan2(qb[..., 6], qb[..., 7])
+    boxes = torch.stack([cx, cy, torch.full_like(cx, -100.0), dxy[..., 0],
+                         dxy[..., 1], torch.full_like(cx, 1000.0), yaw], -1)
+    cells = bc.decode_center(cfg.coder, bev_pos)
+    cells3 = torch.cat([cells, cells.new_zeros(HW, 1)], dim=-1)
+    sel = []
+    for b in range(B):
+        idx = points_in_boxes(cells3, boxes[b]).long()  # (HW,) pick or -1
+        cls_cell = torch.where(idx >= 0, top_cls[b][idx.clamp(min=0)],
+                               ncls)
+        selb = F.one_hot(cls_cell, ncls + 1)[:, :ncls].float()
+        selp = torch.zeros(ncls * HW, device=qb.device)
+        selp[top_i[b]] = 1.0
+        sel.append(torch.maximum(selb.T, selp.reshape(ncls, HW)))
+    return torch.stack(sel).reshape(B, ncls, H, W)
+
+
 class _HeatmapHead(nn.Module):
     """Sequential[ConvModule(h, h, 3), Conv2d(h, ncls, 3)]; f32 logits."""
 
@@ -120,11 +180,11 @@ class _HeatmapHead(nn.Module):
 class FocalDecoder(nn.Module):
     def __init__(self, cfg: FocalDecoderConfig):
         super().__init__()
-        if cfg.mask_heatmap_mode != "poscls":
-            raise NotImplementedError(
-                f"mask_heatmap_mode {cfg.mask_heatmap_mode!r}: only "
-                "'poscls' is ported (the others are ROADMAP.md Queue 1 "
-                "item 10c)")
+        if cfg.mask_heatmap_mode not in MASK_MODES:
+            raise ValueError(f"mask_heatmap_mode {cfg.mask_heatmap_mode!r} "
+                             f"not in {MASK_MODES}")
+        if cfg.mask_heatmap_mode == "boxcls" and not cfg.heatmap_box:
+            raise ValueError("boxcls masking needs heatmap_box")
         self.cfg = cfg
         h, ncls = cfg.hidden, cfg.num_classes
         self.heatmap_head = _HeatmapHead(h, ncls)
@@ -133,6 +193,10 @@ class FocalDecoder(nn.Module):
             str(i): _HeatmapHead(h, ncls)
             for i in range(start, cfg.total_stages)
         })
+        if cfg.mask_heatmap_mode == "boxcls":  # JAX's _HeatmapBoxHead
+            self.heatmap_box_head = nn.ModuleDict({
+                str(i): _HeatmapHead(h, BOX_DIM * ncls)
+                for i in range(cfg.total_stages)})
         self.class_encoding = nn.Conv1d(ncls, h, 1)
         n_levels = 1
         if cfg.multiscale:
@@ -320,11 +384,21 @@ class FocalDecoder(nn.Module):
                 heat_flat, 1, top_p[..., None].expand(-1, -1, ncls)))
             q_labels.append(top_cls.to(torch.int32))
 
-            sel = torch.zeros((B, ncls * HW), device=dev)
-            sel.scatter_(1, top_i, 1.0)
+            if cfg.mask_heatmap_mode == "boxcls":
+                db = self.heatmap_box_head[str(i)](stage_feats[i], dt)
+                sel = _boxcls_mask(
+                    cfg, _gather_query_boxes(db, bev_pos, top_i, ncls, HW),
+                    top_cls, bev_pos, top_i, (B, ncls, H, W))
+            elif cfg.mask_heatmap_mode == "pos":
+                sel = torch.zeros((B, HW), device=dev)
+                sel.scatter_(1, top_p, 1.0)
+                sel = sel.reshape(B, 1, H, W).expand(B, ncls, H, W)
+            else:
+                sel = torch.zeros((B, ncls * HW), device=dev)
+                sel.scatter_(1, top_i, 1.0)
+                sel = sel.reshape(B, ncls, H, W)
             acc_mask = acc_mask * (1.0 - _dilate_mask(
-                sel.reshape(B, ncls, H, W), cfg.nms_kernel_size,
-                cfg.kernel1_classes))
+                sel, cfg.nms_kernel_size, cfg.kernel1_classes))
 
         query_feat = torch.cat(q_feats, dim=1)  # (B, S*P, C)
         query_pos = torch.cat(q_pos, dim=1)

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 def bn_affine(bn: nn.modules.batchnorm._BatchNorm):
     """(g, b) with bn(x) == x * g + b in eval mode, float32."""
@@ -44,21 +46,37 @@ def apply_bn(x: torch.Tensor, bn,
       scale) + bias``;
     - ``mask`` given (broadcastable to x[..., 0]): ``MaskedBatchNorm``,
       statistics over the masked rows only (at least one counted), variance
-      ``E[(x - mean)^2]``; every row is normalised."""
+      ``E[(x - mean)^2]``; every row is normalised.
+
+    SyncBN: in training the statistics are sums over every rank's rows
+    (JAX's batch axis is global, so its batch norm is cross-replica),
+    through the differentiable ``mesh.all_reduce_sum``, which returns its
+    input outside a process group: the plain branch one collective of
+    (sum x, sum x^2, rows), the masked one two, (sum x, rows) and then
+    sum m (x - mean)^2, JAX's two-pass formula; the one-row clamp applies
+    to the global count. Eval runs no collective. Every rank must reach
+    every training batch norm, in the same order."""
     if not bn.training:
         g, b = bn_affine(bn)
         return x * g.to(x.dtype) + b.to(x.dtype)
     xf = x.float()
     dims = tuple(range(x.dim() - 1))
     if mask is None:
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        c = xf.shape[-1]
+        s = mesh.all_reduce_sum(torch.cat([
+            xf.sum(dims), (xf * xf).sum(dims),
+            xf.new_full((1,), xf.numel() // c)]), "bn")
+        mean = s[:c] / s[-1]
+        var = torch.clamp(s[c:2 * c] / s[-1] - mean * mean, min=0.0)
         y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     else:
         m = mask.float()[..., None]
-        cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (xf * m).sum(dims) / cnt
-        var = (m * (xf - mean) ** 2).sum(dims) / cnt
+        s = mesh.all_reduce_sum(torch.cat([
+            (xf * m).sum(dims), m.sum().reshape(1)]), "bn")
+        cnt = torch.clamp(s[-1], min=1.0)
+        mean = s[:-1] / cnt
+        var = mesh.all_reduce_sum((m * (xf - mean) ** 2).sum(dims),
+                                  "bn") / cnt
         y = (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
     with torch.no_grad():
         decay = 1.0 - bn.momentum

@@ -240,6 +240,12 @@ class SparseEncoder(nn.Module):
                  dense_from: int = 4,
                  train_dense_from: Optional[int] = None):
         super().__init__()
+        if engine == "pillar":
+            raise NotImplementedError(
+                "engine 'pillar' (the JAX package's ops/pillar_conv.py, a "
+                "TPU layout of engine 'voxel''s function) has no counterpart "
+                "by design: use 'plain' or a kernel engine (ROADMAP.md, "
+                "Queue 1, 'Without a counterpart, by design')")
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r} not in {ENGINES}")
         self.sparse_shape = tuple(sparse_shape)

@@ -33,13 +33,33 @@ JAX CLI does (the first batch, which JAX draws to initialise its state,
 included), so one seed gives the same batches in both packages.
 
 It runs on the card unless ``--device cpu`` is given, and raises where
-there is none. One card: the JAX CLI's data-parallel mesh has no
-counterpart yet.
+there is none.
+
+Data parallel (the JAX CLI's multi-process start): under ``torchrun``
+(``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) each process joins the group over ``--dist-backend``
+(``nccl`` on a card, ``gloo`` on the CPU, by default) and trains on
+``cuda:LOCAL_RANK`` unless ``--device`` names a card:
+
+    torchrun --nproc_per_node 8 -m focalformer3d_tpu_torch.tools.train \
+        FocalFormer3D_L --data-root data/nuscenes --work-dir work_dirs/ff3d_l
+
+The global batch (``--batch-size``, or the recipe's ``samples_per_device``
+times the world size) is split into per-rank batches of ``global //
+world``; each rank reads its shard ``[rank::world]`` of the indices (after
+the CBGS draw on nuScenes, over the frames on Waymo), and every rank takes
+the steps that the shortest shard fills, so that no rank waits in a
+collective for a step the others do not take (the JAX CLI counts its own
+shard's steps). ``--synthetic`` draws from ``RandomState(--seed)`` on every
+rank, so the ranks train on the same scenes, as the JAX CLI's do. Every
+rank starts from rank 0's weights (one broadcast) and auto-resumes from
+the same work dir; only rank 0 prints, logs and saves checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from pathlib import Path
 from typing import Callable, Iterator, List, Optional, Tuple
 
@@ -61,7 +81,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--iters-per-epoch", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None,
-                   help="batch (default: the recipe's samples_per_device)")
+                   help="global batch (default: the recipe's "
+                        "samples_per_device times the world size)")
     p.add_argument("--max-points", type=int, default=300000)
     p.add_argument("--no-cbgs", action="store_true")
     p.add_argument("--load-from", default=None,
@@ -72,8 +93,11 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--log-interval", type=int, default=50)
     p.add_argument("--keep-last", type=int, default=None)
     p.add_argument("--device", default="cuda",
-                   help="'cuda' (default: the card, raises without one) "
-                        "or 'cpu'")
+                   help="'cuda' (default: the card of LOCAL_RANK, raises "
+                        "without one), 'cuda:N' or 'cpu'")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="the process group's backend under torchrun "
+                        "(default: nccl on a card, gloo on the CPU)")
     p.add_argument("--no-tensorboard", action="store_true",
                    help="disable the TensorBoard writer (on by default "
                         "when torch.utils.tensorboard imports)")
@@ -106,18 +130,30 @@ MIN_POINTS = 5
 
 
 def load_config(name: str) -> dict:
-    """``configs.get_config(name)`` for the CLIs. A config whose head asks
-    for a mask mode that the port does not run (ROADMAP.md Queue 1 item
-    10c) raises here, before any data is read."""
+    """``configs.get_config(name)``: the one place both CLIs read a config
+    from (the tests inject one here)."""
     from ..configs import get_config
 
-    cfg_all = get_config(name)
-    mode = cfg_all["model"].decoder.mask_heatmap_mode
-    if mode != "poscls":
-        raise NotImplementedError(
-            f"{name}: mask_heatmap_mode {mode!r} is not ported (ROADMAP.md, "
-            "Queue 1 item 10c)")
-    return cfg_all
+    return get_config(name)
+
+
+def shard_steps(indices: np.ndarray, batch_size: int,
+                iters: Optional[int]) -> Tuple[np.ndarray, int]:
+    """This rank's shard ``indices[rank::world]`` and the steps an epoch
+    takes: ``iters`` (``--iters-per-epoch``) or the batches the shortest
+    shard fills, and under a process group never more than that, so that
+    every rank takes the same steps."""
+    from ..parallel import mesh
+
+    world = mesh.world_size()
+    fill = len(indices) // world // batch_size
+    if world > 1 and fill == 0:
+        raise ValueError(f"{len(indices)} samples cannot give each of "
+                         f"{world} ranks a batch of {batch_size}")
+    steps = iters or max(1, fill)
+    if world > 1:
+        steps = min(steps, fill)
+    return mesh.shard(indices), steps
 
 
 @dataclasses.dataclass
@@ -139,8 +175,9 @@ def nuscenes_batches(args, cfg_all: dict, batch_size: int,
     """The JAX CLI's nuScenes branch (``tools/train.py:151-200``):
     ``(batch_iter(epoch), steps_per_epoch, dataset)``. Builds the dataset
     and draws the CBGS indices from ``rng_np``; each epoch of
-    ``batch_iter`` draws a permutation of them, then the samples' own
-    draws, from the same ``rng_np``."""
+    ``batch_iter`` draws a permutation of this rank's shard of them
+    (``shard_steps``), then the samples' own draws, from the same
+    ``rng_np``."""
     from ..data import nuscenes as nusc
     from ..data import pipelines as pl
 
@@ -161,10 +198,9 @@ def nuscenes_batches(args, cfg_all: dict, batch_size: int,
     ds = nusc.NuScenesDataset(ann, data_root=args.data_root,
                               classes=classes, pipeline=pipe,
                               with_images=cfg.input_img)
-    indices = (np.arange(len(ds)) if args.no_cbgs
-               else ds.cbgs_indices(rng_np))
-    steps_per_epoch = args.iters_per_epoch or max(
-        1, len(indices) // batch_size)
+    indices, steps_per_epoch = shard_steps(
+        np.arange(len(ds)) if args.no_cbgs else ds.cbgs_indices(rng_np),
+        batch_size, args.iters_per_epoch)
 
     def batch_iter(epoch):
         order = rng_np.permutation(indices)
@@ -185,10 +221,10 @@ def waymo_batches(args, cfg_all: dict, batch_size: int,
                   rng_np: np.random.RandomState
                   ) -> Tuple[Callable[[int], Iterator[dict]], int, object]:
     """The JAX CLI's Waymo branch (``tools/train.py:112-150``):
-    ``(batch_iter(epoch), steps_per_epoch, dataset)`` over every
-    ``load_interval``-th frame, the train pipeline without GT-paste; each
-    epoch draws a permutation of the frames, then the samples' own draws,
-    from ``rng_np``."""
+    ``(batch_iter(epoch), steps_per_epoch, dataset)`` over this rank's
+    shard (``shard_steps``) of every ``load_interval``-th frame, the train
+    pipeline without GT-paste; each epoch draws a permutation of the
+    shard, then the samples' own draws, from ``rng_np``."""
     from ..data import nuscenes as nusc  # collate
     from ..data import pipelines as pl
     from ..data import waymo as wds
@@ -200,9 +236,8 @@ def waymo_batches(args, cfg_all: dict, batch_size: int,
     ds = wds.WaymoDataset(ann, data_root=args.data_root, classes=classes,
                           pipeline=pipe,
                           load_interval=cfg_all.get("load_interval", 1))
-    indices = np.arange(len(ds))
-    steps_per_epoch = args.iters_per_epoch or max(
-        1, len(indices) // batch_size)
+    indices, steps_per_epoch = shard_steps(np.arange(len(ds)), batch_size,
+                                           args.iters_per_epoch)
 
     def batch_iter(epoch):
         order = rng_np.permutation(indices)
@@ -222,18 +257,42 @@ def waymo_batches(args, cfg_all: dict, batch_size: int,
 def main(argv: Optional[List[str]] = None) -> TrainRun:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda",
+                                  int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    from ..parallel import mesh
 
+    joined = mesh.init_distributed(
+        args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"))
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            mesh.shutdown()
+
+
+def _train(args, device: torch.device) -> TrainRun:
     from ..data import synthetic
     from ..models.detector import FocalFormer3D
+    from ..parallel import mesh
     from ..training import checkpoint as ckpt
     from ..training import optim
     from ..training.loop import Fading, run_training
     from ..training.train_step import make_train_step
     from ..utils.ref_keys import make_fake_state_dict
 
+    world, main_proc = mesh.world_size(), mesh.is_main_process()
+
+    def say(msg):
+        if main_proc:
+            print(msg, flush=True)
+
     cfg_all = load_config(args.config)
     cfg, lcfg, recipe = cfg_all["model"], cfg_all["loss"], cfg_all["train"]
-    batch_size = args.batch_size or recipe.samples_per_device
+    global_batch = args.batch_size or recipe.samples_per_device * world
+    batch_size = max(1, global_batch // world)
     epochs = args.epochs or recipe.total_epochs
     work_dir = args.work_dir or f"work_dirs/{args.config}"
 
@@ -265,8 +324,10 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
         momentum_target_ratio=recipe.momentum_target_ratio,
         step_ratio_up=recipe.step_ratio_up,
     )
-    print(f"device: {device}, batch {batch_size}, {steps_per_epoch} "
-          f"iters/epoch, {epochs} epochs", flush=True)
+    dp = (f", world size {world}, global batch {batch_size * world}"
+          if world > 1 else "")
+    say(f"device: {device}, batch {batch_size}{dp}, {steps_per_epoch} "
+        f"iters/epoch, {epochs} epochs")
     # the JAX CLI initialises from the first batch of the same stream, so
     # the run trains on the batches after it: draw it here too
     next(iter(batch_iter(0)))
@@ -277,25 +338,26 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
     # the config's frozen parameters do not require a gradient: no state
     opt_state = tx.init(model.named_parameters())
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"params: {n_params / 1e6:.2f}M", flush=True)
+    say(f"params: {n_params / 1e6:.2f}M")
 
     if args.load_from:
         src = ckpt.load_payload(args.load_from)["state_dict"]
         model.load_state_dict(ckpt.load_partial_params(model.state_dict(),
                                                        src))
-        print(f"warm-started from {args.load_from}", flush=True)
+        say(f"warm-started from {args.load_from}")
     if args.load_img_from:
         src = ckpt.load_payload(args.load_img_from)["state_dict"]
         own = model.state_dict()
         params = {n: own[n] for n, _ in model.named_parameters()}
         model.load_state_dict(ckpt.load_partial_params(
             params, src, ckpt.img_branch_filter), strict=False)
-        print(f"loaded image branch from {args.load_img_from}", flush=True)
+        say(f"loaded image branch from {args.load_img_from}")
 
     start_epoch = ckpt.auto_resume(work_dir, model, opt_state)
     if start_epoch:
-        print(f"auto-resumed from epoch {start_epoch} (step "
-              f"{opt_state.count})", flush=True)
+        say(f"auto-resumed from epoch {start_epoch} (step "
+            f"{opt_state.count})")
+    mesh.broadcast_module(model)  # every rank from rank 0's weights
 
     fading = Fading(recipe.fade_epoch)
     fading.pipeline = pipeline
@@ -304,11 +366,14 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
         epochs=epochs, device=device, start_epoch=start_epoch,
         seed=args.seed, work_dir=work_dir, keep_last=args.keep_last,
         log_interval=args.log_interval, hooks=[fading],
-        json_log_path=str(Path(work_dir) / "train_log.jsonl"),
-        tensorboard_dir=(None if args.no_tensorboard
+        log_fn=print if main_proc else (lambda _msg: None),
+        save_checkpoints=main_proc,
+        json_log_path=(str(Path(work_dir) / "train_log.jsonl")
+                       if main_proc else None),
+        tensorboard_dir=(None if args.no_tensorboard or not main_proc
                          else str(Path(work_dir) / "tf_logs")),
     )
-    print("training complete", flush=True)
+    say("training complete")
     return TrainRun(model, opt_state, start_epoch, work_dir, pipeline)
 
 

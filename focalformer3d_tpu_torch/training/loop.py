@@ -21,6 +21,13 @@ Randomness: JAX folds the step into one key per run
 would. Here the step's ``torch.Generator`` is re-seeded from ``(seed + 1,
 step)`` before every step (``step_seed``) to the same end.
 
+Data parallel (``parallel/mesh.py``): every rank runs the loop on its
+shard; the step seeds its generator from ``(seed + 1, step, rank)``; at
+the log interval the metrics are summed over the ranks
+(``train_step.global_metrics``, the loop's only collective); the caller
+gives only the main process a ``log_fn`` that prints, a JSON log,
+TensorBoard and ``save_checkpoints``.
+
 Hooks: before each epoch the loop calls ``h.before_train_epoch(epoch,
 h.pipeline)`` of every hook, as the JAX loop does; ``Fading`` (the
 reference's core/hook/fading.py:6-16) drops the ``ObjectSample`` GT-paste
@@ -37,8 +44,10 @@ import numpy as np
 import torch
 
 from ..data.prefetch import prefetch
+from ..parallel import mesh
 from . import checkpoint as ckpt
 from .optim import OptState
+from .train_step import global_metrics
 
 # metrics of the port's step with no counterpart in the JAX step's (the
 # auction's loop count): kept out of the log records, whose keys are JAX's
@@ -61,11 +70,13 @@ class Fading:
         ]
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
     """The generator seed of training step ``step`` of a run seeded with
-    ``seed``: a function of both alone, so a resumed run draws as an
-    unbroken one."""
-    return int(np.random.SeedSequence([seed + 1, step]).generate_state(
+    ``seed`` on process ``rank``: a function of the three alone, so a
+    resumed run draws as an unbroken one, and the ranks of a data-parallel
+    run draw different dropouts (rank 0 draws what a one-card run draws)."""
+    entropy = [seed + 1, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
 
 
@@ -134,11 +145,13 @@ def run_training(
             t_it = time.time()
             for host_batch in prefetch(batch_iter_fn(epoch)):
                 batch = to_device(host_batch, device)
-                gen.manual_seed(step_seed(seed, opt_state.count))
+                gen.manual_seed(step_seed(seed, opt_state.count,
+                                          mesh.rank()))
                 metrics = train_step(model, opt_state, batch, gen)
                 n_iter += 1
                 if n_iter % log_interval == 0:
-                    metrics = {k: float(v) for k, v in metrics.items()
+                    metrics = {k: float(v)
+                               for k, v in global_metrics(metrics).items()
                                if k not in NOT_LOGGED}
                     dt = (time.time() - t_it) / log_interval
                     t_it = time.time()

@@ -6,6 +6,12 @@ a batch solved together, ``core/assigner.py``), the classification focal
 loss over the matched labels, L1 box regression with code weights, the
 dense heatmap gaussian-focal loss under the multistage masks, and the
 denoising GT-group losses; per-round diagnostics as the JAX metrics.
+
+Data parallel (``parallel/mesh.py``): every normaliser (``num_pos``, the
+heatmap's and the GT groups' ``avg_factor``) counts the global batch, as
+JAX's sums over its global batch axis; each rank's loss is its own
+numerators over those denominators, so the global loss is the sum of the
+ranks' losses.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from ..core import assigner as assigner_lib
 from ..core import box_coder as bc
 from ..core import gaussian
 from ..core import losses as L
+from ..parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,17 +88,8 @@ def detection_loss(cfg: FocalDecoderConfig, lcfg: LossConfig,
     code = gt_enc.shape[-1]
     tgt = torch.gather(gt_enc[:, None].expand(B, R, G, code), 2,
                        safe[..., None].expand(*safe.shape, code))
-    num_pos = torch.clamp(pos.sum(), min=1).float()
 
-    loss_cls = L.sigmoid_focal_loss(
-        heat.reshape(-1, ncls), labels.reshape(-1), None,
-        avg_factor=num_pos, loss_weight=lcfg.loss_cls_weight)
-    preds = _pred_vector(out, real, cfg.with_vel)
-    box_w = pos[..., None].to(preds.dtype) * cw
-    loss_bbox = L.l1_loss(preds, tgt, box_w, avg_factor=num_pos,
-                          loss_weight=lcfg.loss_bbox_weight)
-
-    # dense heatmap loss under the multistage masks
+    # dense heatmap targets under the multistage masks
     H, W = out["dense_heatmap"].shape[2:4]
     pcr = torch.tensor(cfg.pc_range, dtype=torch.float32, device=dev)
     vs = torch.tensor(cfg.voxel_size, dtype=torch.float32, device=dev)
@@ -102,9 +100,25 @@ def detection_loss(cfg: FocalDecoderConfig, lcfg: LossConfig,
         for b in range(B)])  # (B, ncls, H, W)
     masks = out["multistage_masks"]  # (B, S', H, W, ncls)
     hm_masked = hm_t.permute(0, 2, 3, 1)[:, None] * masks
+
+    # the normalisers count the global batch, as JAX's sums over its
+    # global batch axis: one collective of the raw counts, clamped after
+    counts = mesh.all_reduce_(torch.stack([
+        pos.sum(), (hm_masked == 1.0).sum(), gt_valid.sum()]), "loss")
+    num_pos = torch.clamp(counts[0], min=1).float()
+
+    loss_cls = L.sigmoid_focal_loss(
+        heat.reshape(-1, ncls), labels.reshape(-1), None,
+        avg_factor=num_pos, loss_weight=lcfg.loss_cls_weight)
+    preds = _pred_vector(out, real, cfg.with_vel)
+    box_w = pos[..., None].to(preds.dtype) * cw
+    loss_bbox = L.l1_loss(preds, tgt, box_w, avg_factor=num_pos,
+                          loss_weight=lcfg.loss_bbox_weight)
+
+    # dense heatmap loss under the multistage masks
     loss_heatmap = L.gaussian_focal_loss(
         L.clip_sigmoid(out["dense_heatmap"]), hm_masked, masks,
-        avg_factor=torch.clamp((hm_masked == 1.0).sum(), min=1).float(),
+        avg_factor=torch.clamp(counts[1], min=1).float(),
         loss_weight=lcfg.loss_heatmap_weight)
 
     metrics = {
@@ -130,7 +144,7 @@ def detection_loss(cfg: FocalDecoderConfig, lcfg: LossConfig,
         grp = (slice(None), slice(None), slice(num_prop, None))
         gq_labels = out["gt_query_labels"][:, None].expand(B, R, NGG)
         gq_valid = out["gt_valid_mask"][:, None].expand(B, R, NGG)
-        avg = torch.clamp(gt_valid.sum() * NG * R, min=1).float()
+        avg = torch.clamp(counts[2] * NG * R, min=1).float()
         gt_query_loss_cls = L.sigmoid_focal_loss(
             out["heatmap"][grp].reshape(-1, ncls), gq_labels.reshape(-1),
             gq_valid.reshape(-1).float(), avg_factor=avg,

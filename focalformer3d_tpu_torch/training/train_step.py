@@ -51,13 +51,20 @@ from ..models import grid_mask as gm
 from ..models.detector import (FocalFormer3D, preprocess_points,
                                trainable_mask)
 from ..ops import plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda
+from ..parallel import mesh
 from .losses import LossConfig, detection_loss
 from .optim import ClipAdamW, OptState
 
-__all__ = ["PHASES", "kernel_launches", "make_eval_step", "make_train_step",
-           "reset_kernel_launches", "trainable_mask"]
+__all__ = ["DP_PHASE", "PHASES", "global_metrics", "kernel_launches",
+           "make_eval_step", "make_train_step", "reset_kernel_launches",
+           "trainable_mask"]
 
 PHASES = ("voxelize", "forward", "loss", "backward", "optimizer")
+# the phase a step marks after "backward" under a process group: the
+# gradient all-reduce
+DP_PHASE = "gradient all-reduce"
+# metrics that are already global on every rank (``global_metrics``)
+_GLOBAL = ("num_pos", "grad_norm")
 _IMG_KEYS = ("imgs", "lidar2img", "img_aug", "bev_aug")
 
 
@@ -109,10 +116,19 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
     gt_valid (B, G) on the model's device (and, for a camera config, the
     camera arrays of ``_img_data_from_batch``); ``generator`` (on that
     device) draws the dropouts, the GT-group noise and the grid mask.
-    ``mark(name)``, if given, is called after each phase of ``PHASES``. Metrics are the loss terms of ``detection_loss``
+    ``mark(name)``, if given, is called after each phase of ``PHASES``
+    (and after ``DP_PHASE``, between "backward" and "optimizer", under a
+    process group). Metrics are the loss terms of ``detection_loss``
     (detached), ``grad_norm`` (the global norm of the updated parameters'
     gradients before clipping; the JAX step's metric also counts frozen
-    leaves' gradients) and ``assign_iterations``."""
+    leaves' gradients) and ``assign_iterations``.
+
+    Data parallel: under a process group (``parallel/mesh.active``) each
+    rank passes its shard of the global batch; batch norm and the loss
+    normalisers see the global batch (``parallel/mesh.py``), and the step
+    sums the gradients over the ranks before the update, so every rank
+    takes the world-size-1 step on the global batch. The loss terms it
+    returns are the rank's own shares (``global_metrics`` sums them)."""
 
     def train_step(model: FocalFormer3D, opt_state: OptState,
                    batch: Dict[str, torch.Tensor],
@@ -145,11 +161,18 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
             # only the updated parameters' gradients: a frozen parameter
             # outside the no-grad branch (shared_conv_pts) requires none
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        for p, g in zip(params, grads):
-            p.grad = g
-        mark("backward")
+        used = [g is not None for g in grads]
         grads = [g if g is not None else torch.zeros_like(p)
                  for p, g in zip(params, grads)]
+        mark("backward")
+        if mesh.active():
+            # the sum of the ranks' losses is the objective: sum the
+            # gradients, unused ones' zeros too (the reference's
+            # find_unused_parameters), so every rank updates alike
+            mesh.all_reduce_flat_(grads, "grad")
+            mark(DP_PHASE)
+        for p, g, u in zip(params, grads, used):
+            p.grad = g if u else None
         grad_norm = tx.update(grads, opt_state, params)
         mark("optimizer")
         metrics = {k: v.detach() if torch.is_tensor(v) else v
@@ -158,6 +181,32 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
         return metrics
 
     return train_step
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """A step's metrics over every rank of the process group: the loss
+    terms and ``matched_ious`` (each rank's numerators over the global
+    normalisers) summed, ``assign_iterations`` the largest; ``num_pos``
+    and ``grad_norm`` are global already. Two collectives; outside a
+    group the metrics themselves. Every rank must call it at the same
+    step."""
+    if not mesh.active():
+        return metrics
+    dev = metrics["loss"].device
+    summed = sorted(k for k in metrics
+                    if k not in _GLOBAL and k != "assign_iterations")
+    vec = mesh.all_reduce_(torch.stack([
+        torch.as_tensor(metrics[k], dtype=torch.float32, device=dev)
+        for k in summed]), "metrics")
+    out = dict(metrics)
+    out.update(zip(summed, vec.unbind()))
+    if "assign_iterations" in metrics:
+        it = torch.as_tensor(metrics["assign_iterations"],
+                             dtype=torch.float32, device=dev).reshape(1)
+        out["assign_iterations"] = mesh.all_reduce_(
+            it, "metrics", torch.distributed.ReduceOp.MAX)[0]
+    return out
 
 
 def make_eval_step(cfg: DetectorConfig, max_out: int = 200):

@@ -18,6 +18,11 @@ heads' output convs are ``num_classes`` times as wide, in the model of
 either package, and here; JAX's ``reference_state_shapes`` lists them at
 the class-agnostic width (a fault of the JAX package, ROADMAP.md Queue 3),
 so its own bridge cannot load its own class-aware model.
+
+JAX's inventory has no keys for the head's dense box heads of the
+``boxcls`` mask mode, which no named config sets; the port lists them as
+``pts_bbox_head.heatmap_box_head.{i}`` (the heatmap heads' layout, after
+them) and maps them to flax's ``heatmap_box_head{i}``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ import numpy as np
 
 Shape = Tuple[int, ...]
 Target = Tuple[str, Tuple[str, ...], Optional[Callable]]
+
+# the ``boxcls`` heads' regression per class (models/focal_decoder.BOX_DIM)
+BOX_DIM = 10
 
 # torch buffers that carry no learned state (recomputed by the models)
 IGNORED = (
@@ -252,6 +260,10 @@ def _head_shapes(d, cfg) -> None:
     start = 1 if dec.reuse_first_heatmap else 0
     for i in range(start, n_stages):
         _heatmap_head_shapes(d, f"{hb}.heatmap_head_img.{i}", h, ncls)
+    if dec.mask_heatmap_mode == "boxcls":  # the port's names: none in JAX's
+        for i in range(n_stages):
+            _heatmap_head_shapes(d, f"{hb}.heatmap_box_head.{i}", h,
+                                 BOX_DIM * ncls)
     d[f"{hb}.class_encoding.weight"] = (h, ncls, 1)
     d[f"{hb}.class_encoding.bias"] = (h,)
     if dec.multiscale:
@@ -643,13 +655,12 @@ def _head_target(m, tk) -> bool:
     rest = tk[len("pts_bbox_head."):]
     hb = ("pts_bbox_head",)
     g = re.fullmatch(
-        r"(heatmap_head|heatmap_head_img\.(\d))\.(\d)\.(?:(conv|bn)\.)?"
-        r"(weight|bias|running_mean|running_var)", rest)
+        r"(heatmap_head|heatmap_(head_img|box_head)\.(\d))\.(\d)\."
+        r"(?:(conv|bn)\.)?(weight|bias|running_mean|running_var)", rest)
     if g:
-        img_i, j, kind, leaf = g.group(2), int(g.group(3)), g.group(4), \
-            g.group(5)
-        name = ("heatmap_head" if img_i is None
-                else f"heatmap_head_img{img_i}")
+        j, kind, leaf = int(g.group(4)), g.group(5), g.group(6)
+        name = ("heatmap_head" if g.group(2) is None
+                else f"heatmap_{g.group(2)}{g.group(3)}")
         if j == 0 and kind == "conv" and leaf == "weight":
             m[tk] = [("params", hb + (name, "ConvBN_0", "Conv_0", "kernel"),
                       t2f_conv)]

@@ -1639,3 +1639,36 @@ def test_test_cli_on_a_waymo_directory_matches_cpu(dev, tmp_path):
         assert set(g) == set(h) == {"boxes", "labels", "l2_only"}
         for k in g:
             np.testing.assert_array_equal(g[k], h[k])
+
+
+def test_two_rank_step_on_one_card_matches_world_size_1(dev, tmp_path):
+    """Data parallel on the card: two ``tools/dryrun_ddp`` workers over
+    gloo, both on this card, each a Tiny_L step at batch 1 on engine
+    ``plain`` (float32: the batch statistics' and gradients' all-reduces
+    on CUDA tensors, SyncBN's backward), against this process's
+    world-size-1 step at batch 2, tensor by tensor at
+    ``tests/test_torch_train_step.py``'s tolerances
+    (``dryrun_ddp.compare``); the ranks end with the same parameters bit
+    for bit. ``chip_smoke.py`` phase 18 runs ``plain`` and the kernel
+    engines at full width, where a change of the sums' order alone flips
+    bf16 roundings and top-k picks, against the reversed batch's floor."""
+    from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
+
+    cfg = get_config("Tiny_L")["model"]
+    inputs = dd.step_inputs(cfg, seed=5, batch_size=2, n_points=2000,
+                            n_boxes=4, max_gts=8, mode="radial")
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    torch.cuda.empty_cache()
+    dd.spawn(2, ["--init-method", f"file://{tmp_path}/rendezvous",
+                 "--device", "cuda:0", "--config", "Tiny_L", "--engines",
+                 "plain", "--inputs", str(tmp_path / "inputs.npz"),
+                 "--weights-seed", "4", "--out", str(tmp_path)], 600,
+             str(tmp_path))
+    ranks = [torch.load(dd.result_path(str(tmp_path), "plain", r),
+                        weights_only=True) for r in range(2)]
+    ws1 = dd.one_step("Tiny_L", "plain", inputs, 4, dev)
+    report = dd.compare(ranks[0], ws1)
+    assert report["ok"], report
+    assert ranks[0]["collectives"]["grad"] == 1
+    for k in ranks[0]["state"]:
+        assert torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]), k

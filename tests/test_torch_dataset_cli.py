@@ -26,8 +26,8 @@ port's ``create_gt_database``:
   ``--require-full`` fails on a dropped, an extra or a reshaped key;
 - the train CLI's nuScenes branch on a dynamic-voxelization DeformFormer3D
   (Tiny_L with the DeformFormer3D deltas, the config injected);
-- a config whose head asks for a mask mode the port does not run raises
-  in ``load_config``, naming the ROADMAP item that ports it;
+- a Waymo config whose head asks for the ``pos`` or ``boxcls`` mask mode
+  runs through the test and train CLIs;
   ``print_config`` lists and prints the port's 13 configs;
   ``create_nuscenes_infos`` raises without the nuscenes-devkit.
 """
@@ -177,26 +177,57 @@ def test_cli_batches_equal_jax(dataset, tmp_path, monkeypatch, extra):
         assert b_port["gt_valid"].any() and b_port["points_mask"].any()
 
 
+@pytest.fixture(scope="module")
+def waymo_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("waymo")
+    cfg_all = get_config("Tiny_Waymo_L")
+    chip_smoke.write_waymo(
+        root, seed=2, frames=3, points=3000,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], boxes=6)
+    return root
+
+
 @pytest.mark.parametrize("cli,argv,mode", [
-    (test_cli, ["Tiny_Waymo_L_masked"], "pos"),
-    (train_cli, ["Tiny_Waymo_L_masked", "--synthetic"], "boxcls"),
+    (test_cli, ["Tiny_Waymo_L_masked", "--limit", "2", "--max-points",
+                str(MAX_POINTS)], "pos"),
+    (train_cli, ["Tiny_Waymo_L_masked", "--synthetic", "--epochs", "1",
+                 "--iters-per-epoch", "1", "--batch-size", "1",
+                 "--log-interval", "1", "--no-tensorboard"], "boxcls"),
 ])
-def test_unported_options_raise(cli, argv, mode, tmp_path, monkeypatch):
-    """The CLIs refuse a head mask mode other than 'poscls' (Queue 1 item
-    10c), here on a Waymo config that asks for one."""
+def test_unported_options_raise(cli, argv, mode, waymo_dir, tmp_path,
+                                monkeypatch):
+    """The head mask modes other than 'poscls', which the CLIs refused
+    until ROADMAP Queue 1 item 10c ported them, now run through them: the
+    test CLI on a written Waymo directory with 'pos', the train CLI on the
+    synthetic stream with 'boxcls' (with its dense box heads,
+    ``heatmap_box``, which JAX's head requires for it), on a Waymo
+    config that asks for the mode."""
     from focalformer3d_tpu_torch import configs as tconfigs
 
     def masked():
         cfg = get_config("Tiny_Waymo_L")
         model = cfg["model"]
         return {**cfg, "model": dataclasses.replace(
-            model, decoder=dataclasses.replace(model.decoder,
-                                               mask_heatmap_mode=mode))}
+            model, decoder=dataclasses.replace(
+                model.decoder, mask_heatmap_mode=mode,
+                heatmap_box=mode == "boxcls"))}
 
     monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_Waymo_L_masked", masked)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10c"):
-        cli.main([*argv, "--device", "cpu", "--work-dir", str(tmp_path)]
-                 if cli is train_cli else [*argv, "--device", "cpu"])
+    if cli is train_cli:
+        run = cli.main([*argv, "--device", "cpu", "--work-dir",
+                        str(tmp_path)])
+        assert run.opt_state.count == 1
+        assert any(".heatmap_box_head." in k
+                   for k in run.model.state_dict())
+        recs = [json.loads(x) for x in open(tmp_path / "train_log.jsonl")]
+        assert np.isfinite([r["loss"] for r in recs
+                            if r["mode"] == "train"]).all()
+    else:
+        run = cli.main([*argv, "--device", "cpu", "--data-root",
+                        str(waymo_dir)])
+        assert run.samples == 2
+        assert all(np.isfinite(v) for v in run.metrics.values())
 
 
 def test_test_cli_needs_a_card_unless_cpu_is_asked_for(dataset, monkeypatch):

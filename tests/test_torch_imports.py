@@ -115,6 +115,14 @@ def test_walk_covers_the_waymo_modules():
         assert pkg + mod in files, mod
 
 
+def test_walk_covers_the_data_parallel_modules():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "tools/dryrun_ddp.py", "ops/points_in_boxes.py"):
+        assert pkg + mod in files, mod
+
+
 # FocalFormer3D_Waymo15_L's class-aware heads are wider than JAX's inventory
 # lists them (tests/test_torch_waymo_model.py)
 @pytest.mark.parametrize("name", ["Tiny_L", "FocalFormer3D_L",

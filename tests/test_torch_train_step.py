@@ -114,12 +114,18 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-12)
 
 
-def run_both(jm, jlcfg, tm, lcfg, batch, mp):
+def run_both(jm, jlcfg, tm, lcfg, batch, mp, variables=None, mesh=None):
     """One ``make_train_step`` step of each package on ``batch`` from one
     state dict, dropout off, the same numpy group noise; ``mp`` is a
-    MonkeyPatch the caller undoes. Returns what the checks below read."""
+    MonkeyPatch the caller undoes. Returns what the checks below read.
+
+    ``variables``: flax variables to start from (a mode whose weights
+    JAX's key inventory lacks; the port loads ``from_jax_variables`` of
+    them) in place of ``make_fake_state_dict``'s. ``mesh``: a JAX device
+    mesh to jit the JAX step over, the batch sharded over its devices and
+    the state replicated (as ``__graft_entry__.dryrun_multichip``)."""
     noise = _noise(jm, batch)
-    sd = make_fake_state_dict(jm, seed=4)
+    sd = make_fake_state_dict(jm, seed=4) if variables is None else None
 
     # ---- JAX: one make_train_step step, dropout 0, the numpy noise ----
     mp.setattr(jfd, "DeformableDecoder",
@@ -133,18 +139,27 @@ def run_both(jm, jlcfg, tm, lcfg, batch, mp):
     model = JaxFF3D(jm)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     vox = jax_prep(jm, jb["points"], jb["points_mask"], train=True)
-    variables = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0), "gt": jax.random.PRNGKey(1),
-         "dropout": jax.random.PRNGKey(2)}, vox, None, True,
-        jb["gt_boxes"], jb["gt_labels"], jb["gt_valid"]))
-    variables = jax.tree_util.tree_map(
-        lambda s: np.zeros(s.shape, s.dtype), variables)
-    variables, report = convert_tree(variables, sd)
-    assert report.full, report.summary()
+    if variables is None:
+        variables = jax.eval_shape(lambda: model.init(
+            {"params": jax.random.PRNGKey(0), "gt": jax.random.PRNGKey(1),
+             "dropout": jax.random.PRNGKey(2)}, vox, None, True,
+            jb["gt_boxes"], jb["gt_labels"], jb["gt_valid"]))
+        variables = jax.tree_util.tree_map(
+            lambda s: np.zeros(s.shape, s.dtype), variables)
+        variables, report = convert_tree(variables, sd)
+        assert report.full, report.summary()
+    else:
+        sd = {k: v.numpy() for k, v in
+              from_jax_variables(variables, tm).items()}
     tx = joptim.make_optimizer(total_steps=10)
     state = TrainState(variables["params"], variables["batch_stats"],
                        tx.init(variables["params"]),
                        jnp.zeros((), jnp.int32))
+    if mesh is not None:
+        from focalformer3d_tpu.parallel import mesh as mesh_lib
+
+        state = mesh_lib.replicate(mesh, state)
+        jb = mesh_lib.shard_batch(mesh, jb)
     step = jstep(jm, jlcfg, tx)
 
     @jax.jit
@@ -173,7 +188,7 @@ def run_both(jm, jlcfg, tm, lcfg, batch, mp):
                 "batch_stats": new_state.batch_stats}
     return dict(jm=jm, tm=tm, jmetrics=jmetrics, jgrads=jgrads,
                 tmetrics=tmetrics, tgrads=tgrads, tmodel=tmodel,
-                new_vars=new_vars, old_vars=variables)
+                new_vars=new_vars, old_vars=variables, noise=noise, sd=sd)
 
 
 @pytest.fixture(scope="module")
@@ -249,6 +264,10 @@ def test_gradients_match(both):
 
 
 def test_updated_params_and_batch_stats_match(both):
+    check_params(both)
+
+
+def check_params(both):
     """Batch-norm statistics: PARAM_TOL of the tensor's scale. Parameters:
     the same, plus what the two packages' gradient differences can move
     through Adam's first update, ``lr * |f(g_port) - f(g_jax)|`` with
