@@ -214,7 +214,7 @@ Phases (any failure raises and exits non-zero):
    (12 passes a sample): finite boxes, samples/s, phase 4's (K1, K2, K3)
    launches per pass exactly, 6 decodes a sample.
 
-17. Waymo (last): ``write_waymo`` writes a KITTI-layout directory of 6
+17. Waymo: ``write_waymo`` writes a KITTI-layout directory of 6
    frames of 180 000 radial points within +-76.8 m (float32, 6 columns;
    boxes in the camera frame through a non-identity ``R0_rect`` and
    ``Tr_velo_to_cam``, a DontCare row, LEVEL_2-only boxes). On the first
@@ -222,7 +222,12 @@ Phases (any failure raises and exits non-zero):
    41 x 1536 x 1536 grid, 150 000 voxels at L0): K2's 8 rulebooks exactly,
    K1 at the 9 geometries of ``cuda`` and ``cuda_mxu`` and K3 at the 5 of
    ``cuda_zrun`` within 1e-3 of their plain versions, timed by CUDA-graph
-   replay beside phase 3's nuScenes times; ``hard_voxelize`` on the card
+   replay beside phase 3's nuScenes times; phase 6's check of K1's
+   backward on a float32 training batch of the first two frames (the
+   training voxel cap, dense from L3, conv_input's dx too): forward, dx
+   and dW within 1e-3 of autograd through the plain version, each timed
+   by CUDA-graph replay per step beside its plain version and its bound;
+   ``hard_voxelize`` on the card
    equal to the CPU bit for bit and the HardVFE within 1e-5 of the CPU's
    scale (each timed by events). FocalFormer3D_Waymo_L (bf16, seed-0
    weights) on three frames per engine: finite 7-value boxes, 1-200 kept,
@@ -265,19 +270,41 @@ Phases (any failure raises and exits non-zero):
    on the card (two synthetic steps, global batch 2) and at world size 1
    over NCCL (one step): every rank exits 0, rank 0 alone prints, logs and
    saves; their s/it.
+19. analysis tools (last; on what phase 10 left): ``tools/get_flops`` on
+   FocalFormer3D_L (its float32 config, the JAX tool's 200k-point scan) on
+   ``cuda``, ``cuda_mxu`` and ``cuda_zrun`` in turns, each a counted
+   forward and ``TOOLS_REPEAT`` timed ones: per forward exactly phase 4's
+   (K1, K2, K3) launches per scan; the L0 and L1 sparse FLOPs equal on the
+   three engines, and on ``cuda`` equal, integer for integer, to what
+   phase 4's K1 bound counts on that scan (``_k1_scan_bound``); FLOPs,
+   bytes and the forward's ms per engine, with the share of the bf16 peak
+   and of HBM's rate that the ms reaches. The card's count on ``cuda``
+   against the same count with ``--device cpu`` (``TOOLS_CPU_CONFIG``):
+   equal op by op but for ``CPU_ONLY_OPS``, ``F.one_hot``'s range check,
+   which PyTorch runs on the CPU alone and the line names with its calls
+   and bytes; any other difference fails the phase, naming each op.
+   get_flops on FocalFormer3D_LC and FocalFormer3D_Waymo_L (``cuda``, one
+   forward each, phase 4's launches). ``tools/analyze_logs`` on phase 10's
+   ``train_log.jsonl`` and the train CLI's printed lines: 4 log points
+   each, every s/it and loss as logged, the mean s/it line as the logged
+   times give it, and the curves' PNG read back. ``tools/browse_dataset``
+   with ``--synthetic`` and on phase 10's directory under the test and the
+   train pipeline: each PNG read back through zlib at its size, a red
+   pixel at every box corner and a non-white one at every point inside
+   the drawn range; matplotlib never imported.
 
 The ``kernels`` line carries, per kernel, its launches on the main paths
 (``launches_by_path``; ``entry_points`` is phase 9's, ``dataset``
 phase 10's, ``variants`` and ``tta`` phase 12's, ``camera`` phase 13's,
 ``train_mxu`` and ``train_zrun`` phase 14's step on that engine,
 ``camera_proj`` phase 15's, ``camera_dataset`` phase 16's, ``waymo``
-phase 17's, ``ddp`` phase 18's workers' steps without a planted fault (their ranks
-and engines summed;
+phase 17's, ``tools`` phase 19's get_flops runs, ``ddp`` phase 18's
+workers' steps without a planted fault (their ranks and engines summed;
 each worker counts from zero just before its step and reads just after
 it), each run counted from zero just before it and read just after
 it), K1's, K2's and K3's stats at the Waymo geometry (``waymo``: max
-error, per-frame ms, plain ms, bound; ``max_abs_err`` is the larger of
-the two phases'),
+error, per-frame ms, plain ms, bound; for dx and dW per training step of
+two frames; ``max_abs_err`` is the larger of the two phases'),
 its time and its plain version's (per eval scan for K1 forward, K2 and K3;
 per training step for dx and dW, and in ``train`` for K1 forward), and its
 bound: the larger of the bytes it must move (each input read once, each
@@ -410,6 +437,7 @@ class Bound:
 
     def __init__(self):
         self.ms = 0.0
+        self.flops = 0  # the operations counted, summed over the launches
         self.parts = {"bytes": 0.0, "operations": 0.0}
 
     def add(self, nbytes, flops, peak, times=1):
@@ -417,6 +445,7 @@ class Bound:
         t_ops = flops / PEAK_FLOPS[peak] * 1e3
         side = "bytes" if t_bytes >= t_ops else "operations"
         self.ms += times * max(t_bytes, t_ops)
+        self.flops += times * flops
         self.parts[side] += times * max(t_bytes, t_ops)
 
     def keys(self):
@@ -803,9 +832,8 @@ def phase_k2(cfg, vox, mxu_geoms, device, tag=""):
               flush=True)
         k2_ms, plain_ms, torch_ms = (k2_ms + ms, plain_ms + p_ms,
                                      torch_ms + t_ms)
-        bound.add(src.meta.numel() * src.meta.element_size()
-                  + dst.colz.numel() * dst.colz.element_size()
-                  + got.numel() * got.element_size(), 0, "bf16")
+        bound.add(_common.rulebook_bytes(src.meta, dst.colz, got), 0,
+                  "bf16")
         rules_by_geom.append(got)
     print(f"{tag}K2 per scan (8 rulebooks): kernel {k2_ms:.3f} ms, "
           f"decode_rules "
@@ -871,7 +899,6 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device,
     jobs += [(c, mxu_geoms, mxu_rules) for c in _convs(cfg, mxu_geoms)
              if c[1] >= n_coord]
     max_err, per_scan = 0.0, {}
-    bound = Bound()  # the 11 convs of a ``cuda`` scan
     for (name, g, c, cout, n), geoms, rules_by_geom in jobs:
         _, src, dst, *_rest = geoms[g]
         rules = rules_by_geom[g]
@@ -885,9 +912,7 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device,
             device)
         max_err = max(max_err, err)
         per_scan[name] = (n, ms, p_ms)
-        if geoms is coord_geoms:
-            _conv_bound(bound, rules, src.capacity, dst.valid, c, cout,
-                        times=n)
+    bound = _k1_scan_bound(cfg, coord_geoms, coord_rules)
 
     def total(names):
         return (sum(per_scan[x][0] * per_scan[x][1] for x in names),
@@ -902,6 +927,17 @@ def phase_k1(cfg, coord_geoms, coord_rules, mxu_geoms, mxu_rules, device,
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             **bound.keys(), "ms_cuda_mxu": mxu_ms,
             "plain_ms_cuda_mxu": mxu_plain}
+
+
+def _k1_scan_bound(cfg, geoms, rules_by_geom):
+    """K1's bound over the convs of one ``cuda`` scan (``_walk``'s
+    geometries and their rulebooks)."""
+    bound = Bound()
+    for _name, g, c, cout, n in _convs(cfg, geoms):
+        _, src, dst, *_rest = geoms[g]
+        _conv_bound(bound, rules_by_geom[g], src.capacity, dst.valid, c,
+                    cout, times=n)
+    return bound
 
 
 def _conv_bound(bound, rules, v_in, out_valid, c, cout, index_numel=None,
@@ -1123,11 +1159,15 @@ def _train_batch(cfg, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def phase_k1_grad(cfg, batch, device):
+def phase_k1_grad(cfg, batch, device, tag="", input_dx=False,
+                  launches=TRAIN_LAUNCHES_PER_STEP):
     """K1's differentiable conv at each conv of a training batch (engine
     ``cuda``, dense from L3), against autograd through its plain version;
-    then each kernel alone against its plain version. Returns per kernel
-    use (forward, dx, wgrad) the max error, per-step ms and bound."""
+    then each kernel alone against its plain version. ``input_dx``: the
+    voxel features take a gradient too, so conv_input has its dx (the
+    Waymo configs' HardVFE trains); ``launches`` the step's counts, for
+    the lines. Returns per kernel use (forward, dx, wgrad) the max error,
+    per-step ms and bound."""
     from focalformer3d_tpu_torch.models.detector import preprocess_points
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
     from focalformer3d_tpu_torch.ops import sparse_conv as sc
@@ -1156,19 +1196,19 @@ def phase_k1_grad(cfg, batch, device):
              * (2.0 / (K * c)) ** 0.5)
         cot = torch.where(dst.valid[..., None], torch.randn(
             B, dst.capacity, cout, device=device, generator=gen), 0.0)
-        need_dx = name != "conv_input"  # as on the main path
+        need_dx = input_dx or name != "conv_input"  # as on the main path
         res = {}
-        for tag in ("kernel", "plain"):
+        for side in ("kernel", "plain"):
             xx = x.clone().requires_grad_(need_dx)
             ww = w.clone().requires_grad_(True)
             with torch.enable_grad():
-                if tag == "kernel":
+                if side == "kernel":
                     y = k1.sparse_conv_train(xx, rules, rules_t, ww,
                                              dst.valid)
                 else:
                     y = k1.apply_conv_bf16_plain(xx, rules, ww, dst.valid)
                 y.backward(cot)
-            res[tag] = {"forward": y.detach(), "dx": xx.grad,
+            res[side] = {"forward": y.detach(), "dx": xx.grad,
                         "wgrad": ww.grad}
         torch.cuda.synchronize()
 
@@ -1206,13 +1246,14 @@ def phase_k1_grad(cfg, batch, device):
             err = float((got - ref).abs().max())
             rel = err / float(ref.abs().max())
             if not rel <= KERNEL_TOL:
-                raise RuntimeError(f"K1 {kind} {name}: rel err {rel:.3g} > "
-                                   f"{KERNEL_TOL}")
+                raise RuntimeError(f"{tag}K1 {kind} {name}: rel err "
+                                   f"{rel:.3g} > {KERNEL_TOL}")
             ms = _common.time_ms(device, run)[0]  # the device's time
             p_ms = _common.time_ms(device, plain, _common.PLAIN_REPS)[0]
             if kind == "wgrad":
                 if not torch.equal(run(), run()):
-                    raise RuntimeError(f"K1 wgrad {name}: two runs differ")
+                    raise RuntimeError(f"{tag}K1 wgrad {name}: two runs "
+                                       "differ")
                 chunk = k1.wgrad_chunk(*(next(n for n in k1.COUTS if n >= w)
                                          for w in (c, cout)))
                 slices, per = k1.wgrad_slices(B * dst.capacity, K)
@@ -1250,7 +1291,7 @@ def phase_k1_grad(cfg, batch, device):
                                times=n)
             line.append(f"{kind} rel {rel:.3g}, {ms:.4f} / {p_ms:.4f} ms"
                         + note)
-        print(f"K1 train {name} x{n}: C {c} -> {cout}, K {K}, V_in "
+        print(f"{tag}K1 train {name} x{n}: C {c} -> {cout}, K {K}, V_in "
               f"{src.capacity} -> V_out {dst.capacity} (B {B}, "
               f"{int(dst.valid.sum())} active, {hits} hits); kernel / plain: "
               + "; ".join(line), flush=True)
@@ -1258,7 +1299,7 @@ def phase_k1_grad(cfg, batch, device):
     for kind, s in stats.items():
         bound = s.pop("bound")
         out[kind] = {**s, **bound.keys()}
-        print(f"K1 {kind} per training step ({TRAIN_LAUNCHES_PER_STEP[kind]}"
+        print(f"{tag}K1 {kind} per training step ({launches[kind]}"
               f" launches): kernel {s['ms']:.3f} ms, plain "
               f"{s['plain_ms']:.3f} ms, bound {bound.ms:.4f} ms "
               f"({out[kind]['bound_by']})", flush=True)
@@ -1402,8 +1443,9 @@ def _profile_step(run, tag="train profile"):
               + "; ".join(lab for lab, _ in ops[:3]), flush=True)
 
 
-def _run_cli(main, argv):
-    """``main(argv)`` with its standard output captured, then echoed;
+def _run_cli(main, argv, log=None):
+    """``main(argv)`` with its standard output captured, then echoed (and
+    written to the file ``log`` if given, as a shell would redirect it);
     returns (its result, its one JSON line parsed, if it prints one)."""
     import contextlib
     import io
@@ -1415,6 +1457,9 @@ def _run_cli(main, argv):
     finally:
         print(buf.getvalue(), end="", flush=True)
     text = buf.getvalue()
+    if log is not None:
+        with open(log, "w") as fh:
+            fh.write(text)
     found = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
     if len(found) > 1:
         raise RuntimeError(f"{argv[:2]}: {len(found)} JSON lines")
@@ -1647,7 +1692,8 @@ def phase_dataset(card, tmp):
     run, _ = _run_cli(train_cli.main, [
         "FocalFormer3D_L", "--data-root", root, "--epochs", "2",
         "--iters-per-epoch", "2", "--batch-size", str(TRAIN_BATCH),
-        "--log-interval", "1", "--work-dir", work, "--no-tensorboard"])
+        "--log-interval", "1", "--work-dir", work, "--no-tensorboard"],
+        log=f"{tmp}/train_cli.log")
     with open(f"{work}/train_log.jsonl") as fh:
         recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
     losses = [r["loss"] for r in recs]
@@ -3075,6 +3121,16 @@ def phase_waymo(card, device, tmp, nusc_stats):
           flush=True)
     stats = _waymo_kernel_checks(cfg, scans[0], device, nusc_stats)
     torch.cuda.empty_cache()
+    # K1's dx and dW at the Waymo geometry: a float32 training batch of the
+    # first two frames, the training voxel cap and dense boundary
+    tcfg = dataclasses.replace(cfg_all["model"], sparse_engine="cuda")
+    grad = phase_k1_grad(tcfg, {
+        "points": torch.cat([p for p, _ in scans[:TRAIN_BATCH]]),
+        "points_mask": torch.cat([m for _, m in scans[:TRAIN_BATCH]])},
+        device, tag="waymo ", input_dx=True, launches=WAYMO_TRAIN_LAUNCHES)
+    stats["sparse_conv_dx"], stats["sparse_conv_wgrad"] = (grad["dx"],
+                                                           grad["wgrad"])
+    torch.cuda.empty_cache()
 
     total = dict.fromkeys(MODEL_KERNELS, 0)
 
@@ -3288,6 +3344,246 @@ def phase_ddp(card, device, tmp):
     return launches
 
 
+# phase 19: the analysis tools. A get_flops run makes one counted forward
+# and TOOLS_REPEAT timed ones, each launching phase 4's per-scan counts
+TOOLS_REPEAT = 3
+TOOLS_CPU_CONFIG = "FocalFormer3D_L"  # counted on the card and the CPU
+# what PyTorch runs for one forward on the CPU alone: F.one_hot checks its
+# classes' range there (a min, a max and two item()s a call), not on a card
+CPU_ONLY_OPS = ("aten.min", "aten.max", "aten._local_scalar_dense")
+
+
+def _per_forward(engine, forwards):
+    """The model-path launches of ``forwards`` eval forwards on
+    ``engine``: phase 4's per-scan counts."""
+    want = dict.fromkeys(MODEL_KERNELS, 0)
+    for k, n in zip(("sparse_conv", "plan_rules", "sparse_conv_zrun"),
+                    LAUNCHES_PER_SCAN[engine]):
+        want[k] = n * forwards
+    return want
+
+
+def _get_flops(argv):
+    """``get_flops.main(argv)`` with the model-path launches counted from
+    zero just before it and read just after it: (report, launches)."""
+    from focalformer3d_tpu_torch.tools import get_flops
+
+    for k in _wrappers():
+        k.reset_launch_count()
+    rep, _ = _run_cli(get_flops.main, argv)
+    torch.cuda.empty_cache()
+    return rep, _model_path_launches()
+
+
+def _count_differs(card, cpu):
+    """What differs between two get_flops reports of one scan, the card's
+    and the CPU's: the totals, each dense op by name ([calls, FLOPs,
+    bytes]), each sparse level, K2; the ops of ``CPU_ONLY_OPS`` that only
+    the CPU's count holds are set apart and must be ``F.one_hot``'s range
+    check (a min and a max a call, two item()s). Returns (what differs,
+    the CPU-only ops' rows)."""
+    ops_a, ops_b = card["dense"]["by_op"], cpu["dense"]["by_op"]
+    only = {op: ops_b[op] for op in CPU_ONLY_OPS
+            if op in ops_b and op not in ops_a}
+    out = [] if card["flops"] == cpu["flops"] else ["flops"]
+    if card["bytes"] != cpu["bytes"] - sum(r[2] for r in only.values()):
+        out.append("bytes")
+    out += [f"{op} {ops_a.get(op)} against {ops_b.get(op)}"
+            for op in sorted(set(ops_a) | set(ops_b))
+            if op not in only and ops_a.get(op) != ops_b.get(op)]
+    calls = {op: only.get(op, [0])[0] for op in CPU_ONLY_OPS}
+    if only and not (calls["aten.min"] == calls["aten.max"] > 0 and
+                     calls["aten._local_scalar_dense"]
+                     == 2 * calls["aten.min"]):
+        out.append(f"CPU-only ops {only} are not one_hot's range check")
+    for part in ("sparse_conv", "plan_rules"):
+        if card[part] != cpu[part]:
+            out.append(part)
+    return out, only
+
+
+def _check_png(path, points, boxes, what):
+    """The PNG reads back through zlib at browse_dataset's size with a red
+    pixel at every box corner and a non-white one at every point inside
+    the drawn range; returns (corners, points) inside it."""
+    from focalformer3d_tpu_torch.tools import browse_dataset
+    from focalformer3d_tpu_torch.utils import png
+
+    size = browse_dataset.SIZE
+    rgb = png.read_png(path)
+    if rgb.shape != (size, size, 3):
+        raise RuntimeError(f"tools browse_dataset {what}: {rgb.shape}")
+    x0, y0, x1, y1 = browse_dataset.PC_RANGE
+    canvas = png.Canvas(size, size, (x0, x1), (y0, y1))
+    xy, corners = browse_dataset.bev_geometry(points, boxes)
+    r, c = canvas.to_pixel(corners.reshape(-1, 2))
+    keep = canvas.inside(r, c)
+    pr, pc = canvas.to_pixel(xy)
+    pkeep = canvas.inside(pr, pc)
+    if not (keep.any() and (rgb[r[keep], c[keep]] == png.RED).all()):
+        raise RuntimeError(f"tools browse_dataset {what}: a box corner in "
+                           "range is not red")
+    if not (pkeep.any()
+            and (rgb[pr[pkeep], pc[pkeep]] != png.WHITE).any(-1).all()):
+        raise RuntimeError(f"tools browse_dataset {what}: a point in range "
+                           "is white")
+    return int(keep.sum()), int(pkeep.sum())
+
+
+def phase_tools(card, device, tmp):
+    """The analysis tools (phase 19) on what phase 10 left in ``tmp``:
+    get_flops on FocalFormer3D_L on each engine (launches, the levels'
+    sparse FLOPs against each other and against phase 4's K1 bound), the
+    card's count against the CPU's, get_flops on FocalFormer3D_LC and
+    FocalFormer3D_Waymo_L, analyze_logs on the train CLI's logs and
+    browse_dataset on a synthetic scene and the written directory. Returns
+    the get_flops runs' model-path launches, summed."""
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.models.detector import preprocess_points
+    from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
+    from focalformer3d_tpu_torch.tools import (analyze_logs, browse_dataset,
+                                               get_flops)
+    from focalformer3d_tpu_torch.utils import png
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(MODEL_KERNELS, 0)
+    reps = {}
+    for engine in ENGINES:
+        t0 = time.perf_counter()
+        rep, got = _get_flops(["FocalFormer3D_L", "--engine", engine,
+                               "--repeat", str(TOOLS_REPEAT)])
+        want = _per_forward(engine, 1 + TOOLS_REPEAT)
+        if got != want:
+            raise RuntimeError(f"tools get_flops {engine}: launches {got}, "
+                               f"expected {want}")
+        for k, n in got.items():
+            total[k] += n
+        reps[engine] = rep
+        secs = rep["forward_ms"] * 1e-3
+        print(f"tools get_flops FocalFormer3D_L {engine} ({card}): "
+              f"{rep['flops']} FLOPs and {rep['bytes']} bytes a scan "
+              f"(dense {rep['dense']['flops']} / {rep['dense']['bytes']}, "
+              f"sparse convs {rep['sparse_conv']['flops']} / "
+              f"{rep['sparse_conv']['bytes']}, K2 "
+              f"{rep['plan_rules']['bytes']} bytes); sparse FLOPs per level "
+              + ", ".join(f"{lv} {r['flops']}" for lv, r in
+                          rep["sparse_conv"]["levels"].items())
+              + f"; forward {rep['forward_ms']:.2f} ms (median of "
+              f"{TOOLS_REPEAT}, float32): "
+              f"{rep['flops'] / secs / PEAK_FLOPS['bf16']:.4f} of the bf16 "
+              f"peak, {rep['bytes'] / secs / HBM_BYTES_PER_S:.4f} of HBM's "
+              f"rate; launches {got} ({1 + TOOLS_REPEAT} forwards); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    levels = {e: {lv: r["sparse_conv"]["levels"][lv] for lv in ("L0", "L1")}
+              for e, r in reps.items()}
+    if any(v != levels["cuda"] for v in levels.values()):
+        raise RuntimeError(f"tools get_flops: L0-L1 differ between the "
+                           f"engines: {levels}")
+    cfg = get_config("FocalFormer3D_L")["model"]
+    pts, mask, _ = get_flops.make_inputs(cfg, N_POINTS, device)
+    vox = preprocess_points(cfg, pts, mask)
+    geoms = _walk(cfg, vox, False, 2)
+    rules = [conv_index(src, dst, ks, st, pad, "cuda")
+             for _, src, dst, ks, st, pad in geoms]
+    bound = _k1_scan_bound(cfg, geoms, rules)
+    sparse = reps["cuda"]["sparse_conv"]["flops"]
+    if bound.flops != sparse or sum(
+            r["flops"] for r in levels["cuda"].values()) != sparse:
+        raise RuntimeError(f"tools get_flops: cuda's sparse FLOPs {sparse} "
+                           f"against phase 4's K1 bound's {bound.flops}")
+    del pts, mask, vox, geoms, rules
+    print(f"tools get_flops ({card}): L0 and L1 count the same on every "
+          f"engine; cuda's sparse FLOPs {sparse} equal phase 4's K1 bound's "
+          f"on the same scan ({bound.flops})", flush=True)
+
+    t0 = time.perf_counter()
+    cpu, got = _get_flops([TOOLS_CPU_CONFIG, "--engine", "cuda",
+                           "--device", "cpu"])
+    if any(got.values()):
+        raise RuntimeError(f"tools get_flops on the CPU launched {got}")
+    card_rep = reps["cuda"]
+    if TOOLS_CPU_CONFIG != "FocalFormer3D_L":
+        card_rep, got = _get_flops([TOOLS_CPU_CONFIG, "--engine", "cuda"])
+        for k, n in got.items():
+            total[k] += n
+    differ, only = _count_differs(card_rep, cpu)
+    if differ:
+        raise RuntimeError(f"tools get_flops {TOOLS_CPU_CONFIG}: the card's "
+                           f"count differs from the CPU's in {differ}")
+    print(f"tools get_flops {TOOLS_CPU_CONFIG} ({card}): the card's count "
+          f"equals the CPU's op by op ({card_rep['flops']} FLOPs, "
+          f"{card_rep['bytes']} bytes, {len(card_rep['dense']['by_op'])} "
+          f"dense ops), but for F.one_hot's range check, which PyTorch runs "
+          f"on the CPU alone ([calls, FLOPs, bytes]): {only or 'none'}; the "
+          f"CPU run {time.perf_counter() - t0:.1f} s", flush=True)
+
+    for name in ("FocalFormer3D_LC", "FocalFormer3D_Waymo_L"):
+        t0 = time.perf_counter()
+        rep, got = _get_flops([name])
+        want = _per_forward("cuda", 1)
+        if got != want:
+            raise RuntimeError(f"tools get_flops {name}: launches {got}, "
+                               f"expected {want}")
+        for k, n in got.items():
+            total[k] += n
+        print(f"tools get_flops {name} ({card}): {rep['params']} "
+              f"parameters, {rep['flops']} FLOPs, {rep['bytes']} bytes; "
+              f"launches {got}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    t0 = time.perf_counter()
+    jsonl, text = f"{tmp}/work/train_log.jsonl", f"{tmp}/train_cli.log"
+    with open(jsonl) as fh:
+        recs = [r for r in map(json.loads, fh) if r["mode"] == "train"]
+    times = [r["time"] for r in recs]
+    shown = [float(f"{t:.2f}") for t in times]  # the printed lines' s/it
+    for path, want in ((jsonl, times), (text, shown)):
+        rows = analyze_logs.parse(path)
+        if ([r["s_per_it"] for r in rows] != want
+                or [r["loss"] for r in rows] != [
+                    r["loss"] if path == jsonl else float(f"{r['loss']:.4f}")
+                    for r in recs]):
+            raise RuntimeError(f"tools analyze_logs: {path} parsed as "
+                               f"{rows}")
+    _run_cli(analyze_logs.main, [jsonl, text, "--plot-out",
+                                 f"{tmp}/curves.png"],
+             log=f"{tmp}/analyze.log")
+    with open(f"{tmp}/analyze.log") as fh:
+        out = fh.read().splitlines()
+    for path, want in ((jsonl, times), (text, shown)):
+        line = (f"{path}: {len(want)} log points, avg "
+                f"{sum(want) / len(want):.3f}s/it")
+        if line not in out:
+            raise RuntimeError(f"tools analyze_logs: no line {line!r}")
+    curves = png.read_png(f"{tmp}/curves.png")
+    print(f"tools analyze_logs ({card}): {len(times)} log points in both "
+          f"logs, mean s/it as logged; the curves' PNG {curves.shape[1]} x "
+          f"{curves.shape[0]}; {time.perf_counter() - t0:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    root = f"{tmp}/nuscenes"
+    for what, flags in (("synthetic", ["--synthetic"]),
+                        ("test pipeline", ["--data-root", root]),
+                        ("train pipeline", ["--data-root", root,
+                                            "--train-pipeline"])):
+        out = f"{tmp}/browse_{what.split()[0]}.png"
+        _run_cli(browse_dataset.main, flags + ["--out", out])
+        points, boxes = browse_dataset.load_sample(
+            browse_dataset.parse_args(flags))
+        corners, inside = _check_png(out, points, boxes, what)
+        print(f"tools browse_dataset {what} ({card}): {len(points)} points "
+              f"({inside} in range), {len(boxes)} boxes; a red pixel at "
+              f"each of the {corners} corners in range", flush=True)
+    if "matplotlib" in sys.modules:
+        raise RuntimeError("tools: matplotlib was imported")
+    print(f"tools browse_dataset ({card}): {time.perf_counter() - t0:.2f} "
+          f"s, no matplotlib", flush=True)
+    print(f"tools ({card}): {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
+
 def main():
     device, card = phase_device()
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
@@ -3330,14 +3626,15 @@ def main():
     entry = phase_entry_points(tcfg, batch, device, card)
     del batch
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        dataset, root, checkpoint = phase_dataset(card, tmp)
-        torch.cuda.empty_cache()
-        probes, probe_launches = phase_probes(device)
-        torch.cuda.empty_cache()
-        variants = phase_variants(card, device, scans)
-        del scans
-        tta = phase_tta(card, device, root, checkpoint, tmp)
+    # phase 10's directory and logs, which phase 19 reads again
+    data_dir = tempfile.TemporaryDirectory()
+    dataset, root, checkpoint = phase_dataset(card, data_dir.name)
+    torch.cuda.empty_cache()
+    probes, probe_launches = phase_probes(device)
+    torch.cuda.empty_cache()
+    variants = phase_variants(card, device, scans)
+    del scans
+    tta = phase_tta(card, device, root, checkpoint, data_dir.name)
     torch.cuda.empty_cache()
     camera = phase_camera(card, device)
     torch.cuda.empty_cache()
@@ -3354,6 +3651,9 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         ddp = phase_ddp(card, device, tmp)
+    torch.cuda.empty_cache()
+    tools = phase_tools(card, device, data_dir.name)
+    data_dir.cleanup()
     jaxy = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu")]
     if jaxy:
@@ -3384,6 +3684,7 @@ def main():
         by["waymo"] = waymo[name]
         if name != "sparse_conv_zrun":
             by["ddp"] = ddp[name]
+        by["tools"] = tools[name]
     for name, st in waymo_stats.items():  # the kernels at the Waymo geometry
         stats = next(r[1] for r in rows if r[0] == name)
         stats["waymo"] = {k: st[k] for k in (

@@ -173,6 +173,13 @@ def conv_bytes_flops(feats, rules, w, out_valid):
     return nbytes, 2 * hits * c * cout, hits
 
 
+def rulebook_bytes(meta, colz, rules) -> int:
+    """K2's bytes for one rulebook: the input level's column metas and the
+    output level's sites read once, the int32 rulebook written once (it
+    does no arithmetic)."""
+    return sum(t.numel() * t.element_size() for t in (meta, colz, rules))
+
+
 PHASE_NAMES = {k1.PHASE_FULL: "full", k1.PHASE_GATHER: "gather only",
                k1.PHASE_MMA: "product only", 0: "rule loads only"}
 

@@ -151,3 +151,11 @@ def test_jax_keys_match_the_jax_package(name):
             assert (gtf is None) == (tf is None), key
             if tf is not None:
                 np.testing.assert_array_equal(gtf(idx), tf(idx), err_msg=key)
+
+
+def test_walk_covers_the_analysis_tools():
+    files = {str(f.relative_to(REPO)) for f in _port_files()}
+    pkg = "focalformer3d_tpu_torch/"
+    for mod in ("tools/get_flops.py", "tools/analyze_logs.py",
+                "tools/browse_dataset.py", "utils/png.py"):
+        assert pkg + mod in files, mod
