@@ -1,0 +1,6 @@
+"""Median ms a scan in the voxelizer (port stage voxelize)."""
+from perfbench.metrics import _read
+
+
+def read(ctx):
+    return _read.stage_ms(ctx, "stream", ("voxelize",))
