@@ -53,6 +53,7 @@ from torch import nn
 
 from ..configs import DetectorConfig
 from ..ops import voxelize as vox
+from ..utils.profiler import span
 from . import focal_decoder as fd
 from .focal_encoder import FocalEncoder
 from .resnet import FPN, ResNet
@@ -82,9 +83,10 @@ def preprocess_points(cfg: DetectorConfig, points: torch.Tensor,
     vcfg = cfg.voxel
     if not train and vcfg.max_voxels_test:
         vcfg = dataclasses.replace(vcfg, max_voxels=vcfg.max_voxels_test)
-    outs = [voxelize(vcfg, points[b], mask[b])
-            for b in range(points.shape[0])]
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    with span("voxelize"):
+        outs = [voxelize(vcfg, points[b], mask[b])
+                for b in range(points.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def _frozen_prefixes(cfg: DetectorConfig) -> List[str]:
@@ -220,14 +222,15 @@ class FocalFormer3D(nn.Module):
         "LSS splat", "BevEncode"; or, with ``cam_proj="i2p"``, "I2P" after
         the first fusion layer's projection, ``shared_conv_img`` included),
         "FocalEncoder" (the fusion layers) and "decoder". The generator
-        also draws I2P's dropout. Returns the head's dict."""
-        mark = mark or (lambda _: None)
+        also draws I2P's dropout. Each stage runs in a ``utils/profiler``
+        span of its name, which calls ``mark``; the decoder's holds the
+        spans of its heatmap stages and rounds. Returns the head's dict."""
         cfg = self.cfg
         dt = cfg.tdtype
         neck_img = None
         if cfg.input_img and img_data is not None:
-            neck_img = self.image_features(img_data)
-            mark("image backbone + FPN")
+            with span("image backbone + FPN", mark):
+                neck_img = self.image_features(img_data)
         fpn = None
         if cfg.input_pts:
             frozen = (torch.no_grad() if cfg.freeze_pts
@@ -235,22 +238,21 @@ class FocalFormer3D(nn.Module):
             with frozen:
                 feats = voxel_data.get("features")
                 if cfg.vfe_type == "HardVFE":
-                    feats = self.pts_voxel_encoder(voxel_data["voxels"],
-                                                   voxel_data["num_points"],
-                                                   voxel_data["coords"])
-                    mark("HardVFE")
+                    with span("HardVFE", mark):
+                        feats = self.pts_voxel_encoder(
+                            voxel_data["voxels"], voxel_data["num_points"],
+                            voxel_data["coords"])
                 bev = self.pts_middle_encoder(feats,
                                               voxel_data["coords"],
                                               voxel_data["voxel_mask"], mark)
-                fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
-            mark("SECOND + neck")
-        pts_feat_conv, stage_feats = self.imgpts_neck(fpn, dt, neck_img, mark,
-                                                      generator)
-        mark("FocalEncoder")
-        out = self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
-                                 gt_labels, gt_valid, generator)
-        mark("decoder")
-        return out
+                with span("SECOND + neck", mark):
+                    fpn = self.pts_neck(self.pts_backbone(bev, dt), dt)
+        with span("FocalEncoder", mark):
+            pts_feat_conv, stage_feats = self.imgpts_neck(
+                fpn, dt, neck_img, mark, generator)
+        with span("decoder", mark):
+            return self.pts_bbox_head(pts_feat_conv, stage_feats, gt_boxes,
+                                      gt_labels, gt_valid, generator)
 
     def get_bboxes(self, out: Dict[str, torch.Tensor], max_out: int = 200):
         return get_bboxes(self.cfg, out, max_out)

@@ -55,6 +55,7 @@ from ..core import box_coder as bc
 from ..core.nms import top_k_mask
 from ..ops.bilinear import grid_sample_norm
 from ..ops.points_in_boxes import points_in_boxes
+from ..utils.profiler import span
 from .deformable_decoder import DeformableDecoder
 from .layers import (FLAX_BN_MOMENTUM, ConvBN, MLP, PredictionFFN,
                      apply_bn, conv2d_nhwc, dropout, linear, sine_embed_2d)
@@ -328,8 +329,10 @@ class FocalDecoder(nn.Module):
         """lidar_feat (B, H, W, C) pts_feat_conv; stage_feats per-stage BEV
         maps (+ extra map last); in training the padded GT (B, G, 9) boxes,
         (B, G) labels and validity for the denoising groups, and the
-        generator of the dropouts and the group noise. Returns the JAX
-        head's output dict."""
+        generator of the dropouts and the group noise. Each heatmap stage
+        runs in the ``utils/profiler`` span "decoder/heatmap <i>", each
+        decoder round in "decoder/layer <r>". Returns the JAX head's
+        output dict."""
         cfg = self.cfg
         dt = cfg.tdtype
         dev = lidar_feat.device
@@ -355,50 +358,52 @@ class FocalDecoder(nn.Module):
         q_feats, q_pos, q_score, q_labels = [], [], [], []
         heatmaps, masks = [], []
         for i in range(S):
-            if i == 0 and cfg.reuse_first_heatmap:
-                dh = dense_heatmap
-            else:
-                dh = self.heatmap_head_img[str(i)](stage_feats[i], dt)
-                if i == 0:
-                    heatmaps.append(dense_heatmap)
-                    masks.append(acc_mask)
-            heatmaps.append(dh)
-            masks.append(acc_mask)
-            heat = torch.sigmoid(dh.permute(0, 3, 1, 2).detach()) * acc_mask
-            peaks = _peak_suppress(heat, cfg.nms_kernel_size,
-                                   cfg.kernel1_classes)
-            top_i = _stable_top_k(peaks.reshape(B, ncls * HW), P)
-            top_cls = torch.div(top_i, HW, rounding_mode="floor")
-            top_p = top_i % HW
+            with span(f"decoder/heatmap {i}"):
+                if i == 0 and cfg.reuse_first_heatmap:
+                    dh = dense_heatmap
+                else:
+                    dh = self.heatmap_head_img[str(i)](stage_feats[i], dt)
+                    if i == 0:
+                        heatmaps.append(dense_heatmap)
+                        masks.append(acc_mask)
+                heatmaps.append(dh)
+                masks.append(acc_mask)
+                heat = (torch.sigmoid(dh.permute(0, 3, 1, 2).detach())
+                        * acc_mask)
+                peaks = _peak_suppress(heat, cfg.nms_kernel_size,
+                                       cfg.kernel1_classes)
+                top_i = _stable_top_k(peaks.reshape(B, ncls * HW), P)
+                top_cls = torch.div(top_i, HW, rounding_mode="floor")
+                top_p = top_i % HW
 
-            feat = stage_feats[i].reshape(B, HW, C)
-            qf = torch.gather(feat, 1, top_p[..., None].expand(-1, -1, C))
-            one_hot = F.one_hot(top_cls, ncls).to(qf.dtype)
-            qf = qf + F.linear(one_hot.to(dt),
-                               self.class_encoding.weight[..., 0].to(dt),
-                               self.class_encoding.bias.to(dt))
-            heat_flat = peaks.reshape(B, ncls, HW).transpose(1, 2)
-            q_feats.append(qf)
-            q_pos.append(bev_pos[top_p])
-            q_score.append(torch.gather(
-                heat_flat, 1, top_p[..., None].expand(-1, -1, ncls)))
-            q_labels.append(top_cls.to(torch.int32))
+                feat = stage_feats[i].reshape(B, HW, C)
+                qf = torch.gather(feat, 1, top_p[..., None].expand(-1, -1, C))
+                one_hot = F.one_hot(top_cls, ncls).to(qf.dtype)
+                qf = qf + F.linear(one_hot.to(dt),
+                                   self.class_encoding.weight[..., 0].to(dt),
+                                   self.class_encoding.bias.to(dt))
+                heat_flat = peaks.reshape(B, ncls, HW).transpose(1, 2)
+                q_feats.append(qf)
+                q_pos.append(bev_pos[top_p])
+                q_score.append(torch.gather(
+                    heat_flat, 1, top_p[..., None].expand(-1, -1, ncls)))
+                q_labels.append(top_cls.to(torch.int32))
 
-            if cfg.mask_heatmap_mode == "boxcls":
-                db = self.heatmap_box_head[str(i)](stage_feats[i], dt)
-                sel = _boxcls_mask(
-                    cfg, _gather_query_boxes(db, bev_pos, top_i, ncls, HW),
-                    top_cls, bev_pos, top_i, (B, ncls, H, W))
-            elif cfg.mask_heatmap_mode == "pos":
-                sel = torch.zeros((B, HW), device=dev)
-                sel.scatter_(1, top_p, 1.0)
-                sel = sel.reshape(B, 1, H, W).expand(B, ncls, H, W)
-            else:
-                sel = torch.zeros((B, ncls * HW), device=dev)
-                sel.scatter_(1, top_i, 1.0)
-                sel = sel.reshape(B, ncls, H, W)
-            acc_mask = acc_mask * (1.0 - _dilate_mask(
-                sel, cfg.nms_kernel_size, cfg.kernel1_classes))
+                if cfg.mask_heatmap_mode == "boxcls":
+                    db = self.heatmap_box_head[str(i)](stage_feats[i], dt)
+                    sel = _boxcls_mask(
+                        cfg, _gather_query_boxes(db, bev_pos, top_i, ncls, HW),
+                        top_cls, bev_pos, top_i, (B, ncls, H, W))
+                elif cfg.mask_heatmap_mode == "pos":
+                    sel = torch.zeros((B, HW), device=dev)
+                    sel.scatter_(1, top_p, 1.0)
+                    sel = sel.reshape(B, 1, H, W).expand(B, ncls, H, W)
+                else:
+                    sel = torch.zeros((B, ncls * HW), device=dev)
+                    sel.scatter_(1, top_i, 1.0)
+                    sel = sel.reshape(B, ncls, H, W)
+                acc_mask = acc_mask * (1.0 - _dilate_mask(
+                    sel, cfg.nms_kernel_size, cfg.kernel1_classes))
 
         query_feat = torch.cat(q_feats, dim=1)  # (B, S*P, C)
         query_pos = torch.cat(q_pos, dim=1)
@@ -436,37 +441,38 @@ class FocalDecoder(nn.Module):
         rounds: List[Dict[str, torch.Tensor]] = []
         query_box = None
         for r in range(cfg.num_decoder_layers):
-            ref = query_pos / norm_wh
-            pos_embed = self.pos_embed_learned[r]
-            qpe = pos_embed(sine_embed_2d(ref), dt)
-            vals = levels
-            if cfg.bevpos:
-                vals = [
-                    v + pos_embed(sine_embed_2d(lp / norm_wh), dt).reshape(
-                        1, v.shape[1], v.shape[2], cfg.hidden)
-                    for v, lp in zip(levels, level_pos)
-                ]
-            if cfg.roi_feats and query_box is not None:
-                y = self._roi_features(levels, query_box, dt, generator)
-                query_feat = (query_feat + y).to(y.dtype)
-            query_feat = self.decoder[r](query_feat, vals, ref, qpe, dt,
-                                         attn_mask, generator)
+            with span(f"decoder/layer {r}"):
+                ref = query_pos / norm_wh
+                pos_embed = self.pos_embed_learned[r]
+                qpe = pos_embed(sine_embed_2d(ref), dt)
+                vals = levels
+                if cfg.bevpos:
+                    vals = [
+                        v + pos_embed(sine_embed_2d(lp / norm_wh), dt).reshape(
+                            1, v.shape[1], v.shape[2], cfg.hidden)
+                        for v, lp in zip(levels, level_pos)
+                    ]
+                if cfg.roi_feats and query_box is not None:
+                    y = self._roi_features(levels, query_box, dt, generator)
+                    query_feat = (query_feat + y).to(y.dtype)
+                query_feat = self.decoder[r](query_feat, vals, ref, qpe, dt,
+                                             attn_mask, generator)
 
-            res = self.prediction_heads[r](query_feat, dt)
-            if cfg.classaware_reg:
-                res = _class_slices(res, query_labels, ncls)
-            res["center"] = res["center"] + query_pos
-            query_pos = res["center"].detach()
-            if cfg.roi_based_reg and query_box is not None:
-                res["dim"] = torch.cat(
-                    [res["dim"][..., :2] + query_box[..., 3:5],
-                     res["dim"][..., 2:]], dim=-1)
-                res["rot"] = res["rot"] + query_box[..., 6:8]
-            parts = [res["center"], res["height"], res["dim"], res["rot"]]
-            if cfg.with_vel:
-                parts.append(res["vel"])
-            query_box = torch.cat(parts, dim=-1).detach()
-            rounds.append(res)
+                res = self.prediction_heads[r](query_feat, dt)
+                if cfg.classaware_reg:
+                    res = _class_slices(res, query_labels, ncls)
+                res["center"] = res["center"] + query_pos
+                query_pos = res["center"].detach()
+                if cfg.roi_based_reg and query_box is not None:
+                    res["dim"] = torch.cat(
+                        [res["dim"][..., :2] + query_box[..., 3:5],
+                         res["dim"][..., 2:]], dim=-1)
+                    res["rot"] = res["rot"] + query_box[..., 6:8]
+                parts = [res["center"], res["height"], res["dim"], res["rot"]]
+                if cfg.with_vel:
+                    parts.append(res["vel"])
+                query_box = torch.cat(parts, dim=-1).detach()
+                rounds.append(res)
 
         out = {k: torch.stack([r[k] for r in rounds], dim=1)
                for k in rounds[0]}
@@ -509,14 +515,15 @@ def get_bboxes(cfg: FocalDecoderConfig, out: Dict[str, torch.Tensor],
     def last(x):
         return x[:, -1, :num_prop]
 
-    heat = torch.sigmoid(last(out["heatmap"]))
-    one_hot = F.one_hot(out["query_labels"][:, :num_prop].long(),
-                        cfg.num_classes).to(heat.dtype)
-    score = heat * out["query_heatmap_score"][:, :num_prop] * one_hot
-    dec = bc.decode(
-        cfg.coder, score, last(out["center"]), last(out["height"]),
-        last(out["dim"]), last(out["rot"]),
-        last(out["vel"]) if cfg.with_vel else None, apply_filter=True,
-    )
-    dec["mask"] = top_k_mask(dec["scores"], dec["mask"], max_out)
-    return dec
+    with span("get_bboxes"):
+        heat = torch.sigmoid(last(out["heatmap"]))
+        one_hot = F.one_hot(out["query_labels"][:, :num_prop].long(),
+                            cfg.num_classes).to(heat.dtype)
+        score = heat * out["query_heatmap_score"][:, :num_prop] * one_hot
+        dec = bc.decode(
+            cfg.coder, score, last(out["center"]), last(out["height"]),
+            last(out["dim"]), last(out["rot"]),
+            last(out["vel"]) if cfg.with_vel else None, apply_filter=True,
+        )
+        dec["mask"] = top_k_mask(dec["scores"], dec["mask"], max_out)
+        return dec

@@ -44,6 +44,7 @@ from torch import nn
 
 from ..configs import LSSConfig
 from ..ops.local_attn import local_attention
+from ..utils.profiler import span
 from .i2p import I2P
 from .layers import BasicBlock2d, ConvBN, InvertedResidual, conv2d_nhwc
 from .lss import LiftSplatShoot
@@ -115,13 +116,13 @@ class FocalEncoderLayer(nn.Module):
         the cameras' projected features (B, Ncam, fH, fW, C), which it
         turns into the camera BEV with ``img_data``'s ``lidar2img``,
         ``img_aug`` and ``bev_aug`` (its dropout drawn from ``generator``)
-        before ``mark("I2P")``."""
+        in the span "I2P", which calls ``mark("I2P")``."""
         if self.I2P_block is not None:
-            img_feat = self.I2P_block(
-                lidar_feat, img_feat, img_data["lidar2img"],
-                img_data.get("img_aug"), img_data.get("bev_aug"), generator)
-            if mark is not None:
-                mark("I2P")
+            with span("I2P", mark):
+                img_feat = self.I2P_block(
+                    lidar_feat, img_feat, img_data["lidar2img"],
+                    img_data.get("img_aug"), img_data.get("bev_aug"),
+                    generator)
         i2p_feat = lidar_feat if img_feat is None else img_feat
         if self.iterbev == "bevfusionmb2":
             p2p = self.P_IML(lidar_feat, dtype)

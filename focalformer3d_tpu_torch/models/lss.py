@@ -29,6 +29,7 @@ from torch import nn
 
 from ..configs import LSSConfig
 from ..ops.scatter import bev_pool
+from ..utils.profiler import span
 from .layers import apply_bn, conv2d_nhwc
 
 __all__ = ["LSSConfig", "create_frustum", "frustum_geometry", "CamEncode",
@@ -178,17 +179,17 @@ class LiftSplatShoot(nn.Module):
         """img_feats (B, Ncam, fH, fW, Cin) FPN level 0 -> (bev (B, Y, X,
         out_channels), depth (B, Ncam, D, fH, fW)). ``mark(stage)``, if
         given, is called as "LSS lift", "LSS splat" and "BevEncode" end.
-        The lift and splat run in float32 whatever the input's dtype."""
-        mark = mark or (lambda _: None)
+        The lift and splat run in float32 whatever the input's dtype; each
+        of the three runs in a ``utils/profiler`` span of its name."""
         B, N = img_feats.shape[:2]
-        lifted, depth = self.camencode(img_feats.float().flatten(0, 1))
-        lifted = lifted.unflatten(0, (B, N))
-        geom = self.geometry(cam2lidar_rot.float(), cam2lidar_trans.float(),
-                             img_aug, bev_aug)
-        mark("LSS lift")
-        bev = torch.stack([splat_to_bev(self.cfg, geom[b], lifted[b])
-                           for b in range(B)])
-        mark("LSS splat")
-        bev = self.bevencode(bev)
-        mark("BevEncode")
+        with span("LSS lift", mark):
+            lifted, depth = self.camencode(img_feats.float().flatten(0, 1))
+            lifted = lifted.unflatten(0, (B, N))
+            geom = self.geometry(cam2lidar_rot.float(),
+                                 cam2lidar_trans.float(), img_aug, bev_aug)
+        with span("LSS splat", mark):
+            bev = torch.stack([splat_to_bev(self.cfg, geom[b], lifted[b])
+                               for b in range(B)])
+        with span("BevEncode", mark):
+            bev = self.bevencode(bev)
         return bev, depth.unflatten(0, (B, N))

@@ -82,6 +82,7 @@ from ..ops.sparse_conv_cuda import (apply_conv_plain, sparse_conv,
                                     sparse_conv_train)
 from ..ops.sparse_conv_zrun import build_zplan, zrun_rules
 from ..ops.sparse_conv_zrun_cuda import zrun_conv, zrun_conv_train
+from ..utils.profiler import span
 from .layers import apply_bn, bn_affine
 
 ENGINES = ("auto", "plain", "cuda", "cuda_mxu", "cuda_zrun")
@@ -322,8 +323,12 @@ class SparseEncoder(nn.Module):
         ``mark(stage)``, if given, is called as each stage ends: "index
         build" after each level's active set and rulebook (or plan), "sparse
         convs" after the convs that read them, "dense tail" after the dense
-        levels. ``levels``, if given, receives each sparse level built."""
-        mark = mark or (lambda _: None)
+        levels. Each stage runs in a ``utils/profiler`` span named by the
+        level it builds or writes: "index build/L<k>" and "sparse
+        convs/L<k>" (a strided conv's level holds two of each, its
+        downsample's and its own), conv_out's level ``len(
+        encoder_channels)``, and "dense tail". ``levels``, if given,
+        receives each sparse level built."""
         record = levels.append if levels is not None else (lambda _: None)
         engine = self._engine(features.device)
         meta_chain = engine == "cuda_mxu"
@@ -340,64 +345,64 @@ class SparseEncoder(nn.Module):
 
         n_stage = len(self.encoder_channels)
         B = features.shape[0]
-        x = torch.where(valid[..., None], features, 0.0)
-        lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
-        record(lvl)
-        index, bwd = index_of(lvl, lvl, 3, 1, 1)
-        mark("index build")
-        x = F.relu(self._sparse_conv(x, index, self.conv_input[0],
-                                     self.conv_input[1], lvl.valid, engine,
-                                     bwd))
+        with span("index build/L0", mark):
+            x = torch.where(valid[..., None], features, 0.0)
+            lvl = Level.from_voxels(coords, valid, self.sparse_shape,
+                                    meta_chain)
+            record(lvl)
+            index, bwd = index_of(lvl, lvl, 3, 1, 1)
         for i, blocks in enumerate(self.encoder_channels):
             stage = self._stage(i)
             last = i == n_stage - 1
             n_basic = len(blocks) - 1 if not last else len(blocks)
-            for j in range(n_basic):
-                x = self._basic(stage[j], x, index, lvl.valid, engine, bwd)
+            with span(f"sparse convs/L{i}", mark):
+                if i == 0:
+                    x = F.relu(self._sparse_conv(
+                        x, index, self.conv_input[0], self.conv_input[1],
+                        lvl.valid, engine, bwd))
+                for j in range(n_basic):
+                    x = self._basic(stage[j], x, index, lvl.valid, engine,
+                                    bwd)
             if last:
                 break
-            mark("sparse convs")
             pad = self.down_paddings[i]
-            out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
-            record(out)
-            index, bwd = index_of(lvl, out, 3, 2, pad)
-            mark("index build")
-            x = F.relu(self._sparse_conv(
-                x, index, stage[-1][0], stage[-1][1], out.valid, engine,
-                bwd))
+            with span(f"index build/L{i + 1}", mark):
+                out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
+                record(out)
+                index, bwd = index_of(lvl, out, 3, 2, pad)
+            with span(f"sparse convs/L{i + 1}", mark):
+                x = F.relu(self._sparse_conv(
+                    x, index, stage[-1][0], stage[-1][1], out.valid, engine,
+                    bwd))
             lvl = out
-            mark("sparse convs")
             if not meta_chain and i + 1 == dense_from:
-                sites = lvl.sites()
-                dense = torch.stack([
-                    sc.to_dense(x[b], sites[b], lvl.valid[b], lvl.shape)
-                    for b in range(B)])
-                ones = lvl.valid.new_ones((lvl.capacity, 1),
-                                          dtype=torch.float32)
-                mask = torch.stack([
-                    sc.to_dense(ones, sites[b], lvl.valid[b],
-                                lvl.shape)[..., 0] > 0 for b in range(B)])
-                bev = self._dense_tail(dense, mask, i + 1, engine)
-                mark("dense tail")
-                return bev
-            index, bwd = index_of(lvl, lvl, 3, 1, 1)
-            mark("index build")
+                with span("dense tail", mark):
+                    sites = lvl.sites()
+                    dense = torch.stack([
+                        sc.to_dense(x[b], sites[b], lvl.valid[b], lvl.shape)
+                        for b in range(B)])
+                    ones = lvl.valid.new_ones((lvl.capacity, 1),
+                                              dtype=torch.float32)
+                    mask = torch.stack([
+                        sc.to_dense(ones, sites[b], lvl.valid[b],
+                                    lvl.shape)[..., 0] > 0 for b in range(B)])
+                    return self._dense_tail(dense, mask, i + 1, engine)
+            with span(f"index build/L{i + 1}", mark):
+                index, bwd = index_of(lvl, lvl, 3, 1, 1)
 
-        mark("sparse convs")
         ks_out, st_out = (3, 1, 1), (2, 1, 1)
-        out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
-        record(out)
-        index, bwd = index_of(lvl, out, ks_out, st_out, 0)
-        mark("index build")
-        x = F.relu(self._sparse_conv(
-            x, index, self.conv_out[0], self.conv_out[1], out.valid, engine,
-            bwd))
-        sites = out.sites()
-        dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
-                                         out.shape) for b in range(B)])
-        bev = self._collapse(dense)
-        mark("sparse convs")
-        return bev
+        with span(f"index build/L{n_stage}", mark):
+            out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
+            record(out)
+            index, bwd = index_of(lvl, out, ks_out, st_out, 0)
+        with span(f"sparse convs/L{n_stage}", mark):
+            x = F.relu(self._sparse_conv(
+                x, index, self.conv_out[0], self.conv_out[1], out.valid,
+                engine, bwd))
+            sites = out.sites()
+            dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
+                                             out.shape) for b in range(B)])
+            return self._collapse(dense)
 
     @staticmethod
     def _collapse(dense):

@@ -205,7 +205,7 @@ def _inference(args, device, card):
         return model.get_bboxes(model(vox, img_data=img), 200)
 
     def sync_ms(engine, scan):
-        with T(engine, record=False) as t:
+        with T(engine) as t:
             dec = t.sync(infer(engine, scan))
         if not all(bool(torch.isfinite(dec[k]).all())
                    for k in ("bboxes", "scores")):
@@ -227,7 +227,7 @@ def _inference(args, device, card):
     pipelined = {e: [] for e in engines}
     for order in (engines, engines[::-1]):
         for engine in order:
-            with T(engine, record=False) as t:
+            with T(engine) as t:
                 for _ in range(args.samples):
                     dec = infer(engine, scan)
                 t.sync(dec)
@@ -338,7 +338,7 @@ def _train_step_times(args, device, cfg, lcfg, batch, engines, tag):
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)
             before = kernel_launches()  # the caller's counts run on
-            with T("train step", record=False) as t:
+            with T("train step") as t:
                 clock.start()
                 metrics = t.sync(step(model, opt_state, batch, gen,
                                       clock.mark))

@@ -26,6 +26,7 @@ from ..core import box_coder as bc
 from ..core import gaussian
 from ..core import losses as L
 from ..parallel import mesh
+from ..utils.profiler import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +55,8 @@ def detection_loss(cfg: FocalDecoderConfig, lcfg: LossConfig,
     """out: the head's training output; gt_boxes (B, G, 9) world boxes
     (z bottom), gt_labels (B, G), gt_valid (B, G). Returns (total loss,
     metrics); metrics also carry ``assign_iterations``, the auction's loop
-    count (one host sync each)."""
+    count (one host sync each). The matching runs in the
+    ``utils/profiler`` span "loss/assign"."""
     coder = cfg.coder
     R = cfg.num_decoder_layers
     num_prop = cfg.total_stages * cfg.num_proposals
@@ -72,9 +74,10 @@ def detection_loss(cfg: FocalDecoderConfig, lcfg: LossConfig,
             out["vel"][real] if cfg.with_vel else None)  # (B, R, Q, 7|9)
         gtb = gt_boxes[:, None].expand(B, R, G, gt_boxes.shape[-1])
         gtl = gt_labels[:, None].expand(B, R, G)
-        res = assigner_lib.hungarian_assign_3d(
-            lcfg.assigner, boxes_dec, heat.detach(), gtb, gtl,
-            gt_valid[:, None].expand(B, R, G), cfg.pc_range)
+        with span("loss/assign"):
+            res = assigner_lib.hungarian_assign_3d(
+                lcfg.assigner, boxes_dec, heat.detach(), gtb, gtl,
+                gt_valid[:, None].expand(B, R, G), cfg.pc_range)
         assigned = res["assigned_gt"]
         if cfg.gt_center_limit is not None:
             assigned = assigner_lib.apply_gt_center_limit(

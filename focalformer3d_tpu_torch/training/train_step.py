@@ -52,6 +52,7 @@ from ..models.detector import (FocalFormer3D, preprocess_points,
                                trainable_mask)
 from ..ops import plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda
 from ..parallel import mesh
+from ..utils.profiler import span
 from .losses import LossConfig, detection_loss
 from .optim import ClipAdamW, OptState
 
@@ -118,7 +119,10 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
     device) draws the dropouts, the GT-group noise and the grid mask.
     ``mark(name)``, if given, is called after each phase of ``PHASES``
     (and after ``DP_PHASE``, between "backward" and "optimizer", under a
-    process group). Metrics are the loss terms of ``detection_loss``
+    process group). Each phase runs in a ``utils/profiler`` span, which
+    calls ``mark``: "inputs" (phase "voxelize": the voxelization and the
+    grid mask), "forward", "loss", "backward", "allreduce" (``DP_PHASE``)
+    and "optimizer". Metrics are the loss terms of ``detection_loss``
     (detached), ``grad_norm`` (the global norm of the updated parameters'
     gradients before clipping; the JAX step's metric also counts frozen
     leaves' gradients) and ``assign_iterations``.
@@ -135,46 +139,47 @@ def make_train_step(cfg: DetectorConfig, lcfg: LossConfig, tx: ClipAdamW):
                    generator: Optional[torch.Generator],
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
-        mark = mark or (lambda _: None)
         model.train()
-        vox, img_data = _inputs(cfg, batch, True)
-        if img_data is not None and cfg.use_grid_mask:
-            img_data = dict(img_data)
-            img_data["imgs"] = gm.grid_mask(generator, img_data["imgs"])
-        mark("voxelize")
-        params = opt_state.params(model)
-        if not all(p.requires_grad for p in params):
-            raise ValueError("the optimizer state holds a parameter that "
-                             "the config's freeze flags freeze; make it "
-                             "with tx.init of this model's parameters")
-        with torch.enable_grad():  # whatever the caller's grad mode
-            out = model(vox, batch["gt_boxes"], batch["gt_labels"],
-                        batch["gt_valid"], generator, img_data=img_data)
-            mark("forward")
+        with span("inputs", mark, "voxelize"):
+            vox, img_data = _inputs(cfg, batch, True)
+            if img_data is not None and cfg.use_grid_mask:
+                img_data = dict(img_data)
+                img_data["imgs"] = gm.grid_mask(generator, img_data["imgs"])
+        with span("forward", mark):
+            params = opt_state.params(model)
+            if not all(p.requires_grad for p in params):
+                raise ValueError("the optimizer state holds a parameter "
+                                 "that the config's freeze flags freeze; "
+                                 "make it with tx.init of this model's "
+                                 "parameters")
+            with torch.enable_grad():  # whatever the caller's grad mode
+                out = model(vox, batch["gt_boxes"], batch["gt_labels"],
+                            batch["gt_valid"], generator, img_data=img_data)
+        with span("loss", mark), torch.enable_grad():
             loss, metrics = detection_loss(cfg.decoder, lcfg, out,
                                            batch["gt_boxes"],
                                            batch["gt_labels"],
                                            batch["gt_valid"])
-            mark("loss")
+        with span("backward", mark):
             for p in model.parameters():
                 p.grad = None
             # only the updated parameters' gradients: a frozen parameter
             # outside the no-grad branch (shared_conv_pts) requires none
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        used = [g is not None for g in grads]
-        grads = [g if g is not None else torch.zeros_like(p)
-                 for p, g in zip(params, grads)]
-        mark("backward")
+            with torch.enable_grad():
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+            used = [g is not None for g in grads]
+            grads = [g if g is not None else torch.zeros_like(p)
+                     for p, g in zip(params, grads)]
         if mesh.active():
             # the sum of the ranks' losses is the objective: sum the
             # gradients, unused ones' zeros too (the reference's
             # find_unused_parameters), so every rank updates alike
-            mesh.all_reduce_flat_(grads, "grad")
-            mark(DP_PHASE)
-        for p, g, u in zip(params, grads, used):
-            p.grad = g if u else None
-        grad_norm = tx.update(grads, opt_state, params)
-        mark("optimizer")
+            with span("allreduce", mark, DP_PHASE):
+                mesh.all_reduce_flat_(grads, "grad")
+        with span("optimizer", mark):
+            for p, g, u in zip(params, grads, used):
+                p.grad = g if u else None
+            grad_norm = tx.update(grads, opt_state, params)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm

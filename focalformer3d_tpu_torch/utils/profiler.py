@@ -1,25 +1,38 @@
-"""Section timers and device traces.
+"""Section timers, spans and stage clocks.
 
 Port of ``focalformer3d_tpu/utils/profiler.py``, the counterpart of the
 reference's ``time_utils`` profiler (projects/mmdet3d_plugin/models/utils/
-time_utils.py:32-77): a nestable context-manager timer with running
-averages in a registry. ``.sync(x)`` names the tensors (a tensor, or a
-dict / list / tuple of them) the section produced; the timer then calls
+time_utils.py:32-77). ``T`` is a nestable context-manager timer:
+``.sync(x)`` names the tensors (a tensor, or a dict / list / tuple of
+them) the section produced; the timer then calls
 ``torch.cuda.synchronize`` on their card before it stops the clock, as the
-reference does. ``device_trace`` wraps ``torch.profiler``. ``StageClock``
-splits a span into named stages by CUDA events on the card (the host clock
-on the CPU); the benchmark CLI times with both.
+reference does, and keeps the section's time in ``.ms``.
+
+``span(name, mark)`` wraps one stage of the port. While a
+``torch.profiler`` records, it opens the range ``ff3d/<name>`` on the
+profiler's timeline (the clock of the device kernels); on exit it calls
+``mark(stage)``, the caller's stage hook. With no profiler recording and
+no ``mark`` it is one shared null context: nothing else switches spans
+on. The range is a host range of function scope (``_RecordFunctionFast``),
+not a ``record_function`` of user scope: the profiler copies a user-scope
+range onto the device's timeline, from the first to the last kernel
+launched in it, where it would read as device time.
+
+``StageClock`` splits a span into named stages by CUDA events on the card
+(the host clock on the CPU); the benchmark CLI times with it and ``T``.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Iterator, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
 
-global_timer: Dict[str, Dict[str, float]] = {}
-_prefix: list = []
+PREFIX = "ff3d/"
+_NULL = contextlib.nullcontext()
 
 
 def _tensors(value: Any) -> Iterator[torch.Tensor]:
@@ -34,9 +47,8 @@ def _tensors(value: Any) -> Iterator[torch.Tensor]:
 
 
 class _Timer:
-    def __init__(self, name: str, record: bool = True):
+    def __init__(self, name: str):
         self.name = name
-        self.record = record
         self._sync_val: Any = None
         self.ms = None  # the last section's time, once it has ended
 
@@ -46,8 +58,6 @@ class _Timer:
         return value
 
     def __enter__(self):
-        _prefix.append(self.name)
-        self.key = "/".join(_prefix)
         self.t0 = time.perf_counter()
         return self
 
@@ -56,57 +66,51 @@ class _Timer:
                  if t.device.type == "cuda"}
         for dev in cards:
             torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - self.t0
-        self.ms = dt * 1e3
-        _prefix.pop()
-        if self.record:
-            e = global_timer.setdefault(self.key,
-                                        {"total": 0.0, "count": 0.0})
-            e["total"] += dt
-            e["count"] += 1
+        self.ms = (time.perf_counter() - self.t0) * 1e3
         return False
 
 
-@contextlib.contextmanager
-def _null():
-    yield None
-
-
-def T(name: str, enable: bool = True, record: bool = True):
+def T(name: str, enable: bool = True):
     """Timer factory; a null context when disabled (reference
     ``time_utils.T`` semantics)."""
-    if not enable:
-        return _null()
-    return _Timer(name, record)
+    return _Timer(name) if enable else _NULL
 
 
-def timer_summary(reset: bool = False) -> str:
-    lines = []
-    for k in sorted(global_timer):
-        e = global_timer[k]
-        avg = e["total"] / max(e["count"], 1)
-        lines.append(f"{k}: avg {avg * 1000:.2f} ms over {int(e['count'])}")
-    if reset:
-        global_timer.clear()
-    return "\n".join(lines)
+class _Span:
+    __slots__ = ("range", "mark", "stage")
+
+    def __init__(self, range_, mark, stage):
+        self.range, self.mark, self.stage = range_, mark, stage
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
+        if self.mark is not None and exc_type is None:
+            self.mark(self.stage)
+        return False
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """``torch.profiler`` over the block (host and, where there is a card,
-    its kernels); the Chrome trace is written to ``log_dir/trace.json``.
-    Yields the profiler."""
-    from pathlib import Path
+def span(name: str, mark: Optional[Callable[[str], None]] = None,
+         stage: Optional[str] = None):
+    """Context manager around one stage of the port.
 
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+    While a ``torch.profiler`` records, the block runs inside the range
+    ``ff3d/<name>``. On a normal exit ``mark(stage)`` is called, if
+    ``mark`` is given; ``stage`` defaults to ``name`` up to its first
+    ``/`` ("index build/L1" marks "index build"). A span nested in another
+    marks its own stage first, so the outer stage keeps the rest of the
+    outer block. With no profiler recording and no ``mark`` it returns a
+    shared null context and does nothing else."""
+    rec = _profiler_enabled()
+    if mark is None and not rec:
+        return _NULL
+    return _Span(_RecordFunctionFast(PREFIX + name) if rec else None, mark,
+                 stage or name.split("/", 1)[0])
 
 
 class StageClock:

@@ -16,7 +16,8 @@ Tiny_L on the CPU (engine ``plain``), 2 epochs x 2 iterations:
   raises, naming it, where there is none (the dataset branch itself:
   ``tests/test_torch_dataset_cli.py``); the CLIs turn TF32 off;
 - the prefetcher passes the cases of ``tests/test_data.py``; the
-  profiler's timer and stage clock time on the host clock;
+  profiler's stage clock times on the host clock (its timer and spans:
+  ``tests/test_torch_spans.py``);
 - ``configs.get_config`` gives JAX's loss config, training recipe, class
   names and dataset for both ported configs.
 """
@@ -317,19 +318,6 @@ def test_config_loss_train_and_names_equal_jax(name):
     assert dataclasses.asdict(t["loss"]) == dataclasses.asdict(j["loss"])
     assert tuple(t["class_names"]) == tuple(j["class_names"])
     assert t["dataset"] == j["dataset"]
-
-
-def test_profiler_timer_and_summary():
-    profiler.global_timer.clear()
-    with profiler.T("outer"):
-        with profiler.T("inner") as t:
-            t.sync({"a": torch.ones(3), "b": [torch.zeros(1)]})
-    with profiler.T("skipped", enable=False):
-        pass
-    text = profiler.timer_summary(reset=True)
-    assert "outer: avg" in text and "outer/inner: avg" in text
-    assert "skipped" not in text and not profiler.global_timer
-    assert t.ms is not None and t.ms >= 0
 
 
 def test_profiler_stage_clock():
