@@ -1466,10 +1466,17 @@ def _run_cli(main, argv, log=None):
     return result, (found[0] if found else None)
 
 
+def _kernels_only(launches):
+    """``train_step.kernel_launches``' counts of kernels, without its
+    counts of the index build's blocks."""
+    return {k: n for k, n in launches.items() if k in LAUNCH_ROWS}
+
+
 def _model_path_launches():
     from focalformer3d_tpu_torch.training.train_step import kernel_launches
 
-    return {LAUNCH_ROWS[k]: n for k, n in kernel_launches().items()}
+    return {LAUNCH_ROWS[k]: n
+            for k, n in _kernels_only(kernel_launches()).items()}
 
 
 def _phase_train_cli(work, card):
@@ -2561,7 +2568,7 @@ def phase_train_engines(card, cfg, batch, device):
         metrics = step(model, state, batch, gen, clock.mark)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = train_step.kernel_launches()
+        launches = _kernels_only(train_step.kernel_launches())
         peak = torch.cuda.max_memory_allocated() / 2**30
         vals = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in vals.items() if not math.isfinite(v)]
@@ -3280,6 +3287,7 @@ def phase_ddp(card, device, tmp):
         ranks = [torch.load(dd.result_path(tmp, engine, r),
                             weights_only=True) for r in range(TRAIN_BATCH)]
         for r in ranks:
+            r["launches"] = _kernels_only(r["launches"])
             if r["world"] != TRAIN_BATCH or r["launches"] != \
                     DDP_LAUNCHES[engine]:
                 raise RuntimeError(f"ddp {engine}: rank {r['rank']} of "

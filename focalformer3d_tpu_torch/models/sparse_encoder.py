@@ -60,6 +60,13 @@ Engines (the JAX engine each mirrors in parentheses):
   the voxels its capacity dropped, so on a scan that overflows a capacity
   the next level's active set parts from the coordinate engines'.
 
+On a card the kernel engines' index build runs as CUDA graph replays: it is
+all torch ops and the K2 kernel on static shapes (fixed capacities), so
+``SparseEncoder._index_blocks`` captures it once per input geometry, a
+graph for each "index build" span, and replays it at every later call
+(``IndexGraphs``; counted in ``INDEX_BLOCKS``). The CPU and ``plain`` run
+it eagerly.
+
 ``auto`` is ``cuda`` for tensors on a card and ``plain`` on the CPU; the other
 engines are chosen explicitly. On CPU tensors the kernel wrappers run their
 plain versions. With absolute rulebooks there are no tile windows, so the JAX
@@ -74,7 +81,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
+from ..ops import cuda_build
 from ..ops import plan_builder as pb
 from ..ops import sparse_conv as sc
 from ..ops.plan_builder_cuda import plan_rules
@@ -86,6 +95,10 @@ from ..utils.profiler import span
 from .layers import apply_bn, bn_affine
 
 ENGINES = ("auto", "plain", "cuda", "cuda_mxu", "cuda_zrun")
+# index-build blocks run on a card, by how: replayed from a CUDA graph,
+# captured into one, or run eagerly (``train_step.kernel_launches``)
+INDEX_BLOCKS = cuda_build.Launches("index_graph_replay",
+                                   "index_graph_capture", "index_eager")
 
 
 class SpConvWeight(nn.Module):
@@ -197,6 +210,13 @@ class Level:
                      torch.stack([o[4] for o in outs]),
                      coords=torch.stack([o[0] for o in outs]))
 
+    def clone(self) -> "Level":
+        """A copy in memory of its own: a replayed level lives in its
+        graphs' pool, which the next replay overwrites."""
+        return Level(self.shape, self.valid.clone(), self.meta.clone(),
+                     *(None if t is None else t.clone()
+                       for t in (self.coords, self.colz)))
+
 
 def backward_index(index: torch.Tensor, in_capacity: int, engine: str,
                    strided: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,6 +245,48 @@ def conv_index(src: Level, dst: Level, ks, stride, pad, engine: str):
         build(sc.VoxelTable(src.coords[b], src.valid[b], src.meta[b]),
               src.shape, dst.coords[b], dst.valid[b], ks, stride, pad)
         for b in range(src.valid.shape[0])])
+
+
+class IndexGraphs:
+    """The index build of one input geometry as CUDA graphs: one graph a
+    block of ``SparseEncoder._index_build``, captured in order into one
+    memory pool. The graphs read ``coords`` and ``valid`` from buffers of
+    their own; a block's level, index and backward index live in the
+    pool, where the next replay of that block overwrites them."""
+
+    def __init__(self, build: Callable, n_blocks: int, coords, valid):
+        self.coords, self.valid = coords.clone(), valid.clone()
+        cuda_build.take_captured()  # drop what no earlier capture took
+        blocks = build(self.coords, self.valid)
+        self.graphs, self.outputs, self.launches = [], [], []
+        pool = None
+        for _ in range(n_blocks):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.outputs.append(next(blocks))
+            pool = graph.pool()
+            self.graphs.append(graph)
+            self.launches.append(cuda_build.take_captured())
+            INDEX_BLOCKS.add("index_graph_capture")
+
+    def replay(self, coords, valid):
+        """Copies the inputs in, then yields each block's outputs once its
+        graph has been replayed (on the current stream)."""
+        self.coords.copy_(coords)
+        self.valid.copy_(valid)
+        for graph, out, launches in zip(self.graphs, self.outputs,
+                                        self.launches):
+            graph.replay()
+            cuda_build.add_replays(launches, 1)
+            INDEX_BLOCKS.add("index_graph_replay")
+            yield out
+
+
+def _eager_on_card(blocks):
+    for block in blocks:
+        INDEX_BLOCKS.add("index_eager")
+        yield block
 
 
 class SparseEncoder(nn.Module):
@@ -275,6 +337,9 @@ class SparseEncoder(nn.Module):
             self.encoder_layers.add_module(f"encoder_layer{s + 1}",
                                            nn.ModuleList(mods))
         self.conv_out = _conv_module((3, 1, 1), c, output_channels)
+        # input geometry -> None after its first (eager) call on a card,
+        # then its IndexGraphs
+        self._index_graphs: dict = {}
 
     def _stage(self, s: int) -> nn.ModuleList:
         return getattr(self.encoder_layers, f"encoder_layer{s + 1}")
@@ -314,6 +379,69 @@ class SparseEncoder(nn.Module):
                               bwd)
         return torch.where(m, F.relu(y + x), 0.0)
 
+    def _index_specs(self, meta_chain: bool) -> list:
+        """The index build's blocks in forward order after L0's table:
+        (kernel, stride, padding, output capacity) for a strided conv's,
+        None for a submanifold conv's. Without the meta chain a strided
+        conv into ``dense_from`` ends it."""
+        dense_from = (self.train_dense_from if self.training
+                      else self.dense_from)
+        specs = [None]
+        for i in range(len(self.encoder_channels) - 1):
+            specs.append((3, 2, self.down_paddings[i],
+                          self.capacities[i + 1]))
+            if not meta_chain and i + 1 == dense_from:
+                return specs
+            specs.append(None)
+        specs.append(((3, 1, 1), (2, 1, 1), 0, self.out_capacity))
+        return specs
+
+    def _index_build(self, coords, valid, engine: str):
+        """Yields per block of ``_index_specs`` the level its conv writes,
+        the conv's index and what its backward reads (``backward_index``,
+        in training on a kernel engine, else None). L0's table is built in
+        the first block."""
+        meta_chain = engine == "cuda_mxu"
+        want_bwd = self.training and engine != "plain"
+        lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
+        for spec in self._index_specs(meta_chain):
+            src = lvl
+            ks, stride, pad = 3, 1, 1
+            if spec is not None:
+                ks, stride, pad, capacity = spec
+                lvl = lvl.downsample(ks, stride, pad, capacity)
+            index = conv_index(src, lvl, ks, stride, pad, engine)
+            yield lvl, index, (
+                backward_index(index, src.capacity, engine, stride != 1)
+                if want_bwd else None)
+
+    def _index_blocks(self, coords, valid, engine: str):
+        """``_index_build``'s blocks, and whether they are graph replays.
+
+        On a card, a kernel engine's index build runs eagerly at the first
+        call for an input geometry (its warm-up) and is captured at the
+        second (``IndexGraphs``), which then replays it at every call. It
+        runs eagerly on the CPU, on ``plain``, inside another capture and
+        under a dispatch mode (which sees no op of a replay)."""
+        blocks = self._index_build(coords, valid, engine)
+        if engine == "plain" or coords.device.type != "cuda":
+            return blocks, False
+        if (torch.cuda.is_current_stream_capturing()
+                or _get_current_dispatch_mode() is not None):
+            return _eager_on_card(blocks), False
+        specs = tuple(self._index_specs(engine == "cuda_mxu"))
+        key = (engine, self.training, tuple(coords.shape), coords.device,
+               self.sparse_shape, specs)
+        if key not in self._index_graphs:
+            self._index_graphs[key] = None
+            return _eager_on_card(blocks), False
+        graphs = self._index_graphs[key]
+        if graphs is None:
+            graphs = self._index_graphs[key] = IndexGraphs(
+                lambda c, v: self._index_build(c, v, engine), len(specs),
+                coords, valid)
+        return graphs.replay(coords, valid), True
+
     def forward(self, features, coords, valid,
                 mark: Optional[Callable[[str], None]] = None,
                 levels: Optional[List[Level]] = None):
@@ -327,30 +455,24 @@ class SparseEncoder(nn.Module):
         level it builds or writes: "index build/L<k>" and "sparse
         convs/L<k>" (a strided conv's level holds two of each, its
         downsample's and its own), conv_out's level ``len(
-        encoder_channels)``, and "dense tail". ``levels``, if given,
-        receives each sparse level built."""
-        record = levels.append if levels is not None else (lambda _: None)
+        encoder_channels)``, and "dense tail". Each "index build" span is
+        one block of ``_index_blocks``. ``levels``, if given, receives each
+        sparse level built (a copy, where the level is a replay's)."""
         engine = self._engine(features.device)
         meta_chain = engine == "cuda_mxu"
         dense_from = (self.train_dense_from if self.training
                       else self.dense_from)
-        want_bwd = self.training and engine != "plain"
-
-        def index_of(src, dst, ks, stride, pad):
-            """The conv's index and what its backward reads."""
-            index = conv_index(src, dst, ks, stride, pad, engine)
-            bwd = (backward_index(index, src.capacity, engine, stride != 1)
-                   if want_bwd else None)
-            return index, bwd
+        built, replayed = self._index_blocks(coords, valid, engine)
+        record = (lambda _: None) if levels is None else (
+            (lambda lvl: levels.append(lvl.clone())) if replayed
+            else levels.append)
 
         n_stage = len(self.encoder_channels)
         B = features.shape[0]
         with span("index build/L0", mark):
             x = torch.where(valid[..., None], features, 0.0)
-            lvl = Level.from_voxels(coords, valid, self.sparse_shape,
-                                    meta_chain)
+            lvl, index, bwd = next(built)
             record(lvl)
-            index, bwd = index_of(lvl, lvl, 3, 1, 1)
         for i, blocks in enumerate(self.encoder_channels):
             stage = self._stage(i)
             last = i == n_stage - 1
@@ -365,16 +487,13 @@ class SparseEncoder(nn.Module):
                                     bwd)
             if last:
                 break
-            pad = self.down_paddings[i]
             with span(f"index build/L{i + 1}", mark):
-                out = lvl.downsample(3, 2, pad, self.capacities[i + 1])
-                record(out)
-                index, bwd = index_of(lvl, out, 3, 2, pad)
+                lvl, index, bwd = next(built)
+                record(lvl)
             with span(f"sparse convs/L{i + 1}", mark):
                 x = F.relu(self._sparse_conv(
-                    x, index, stage[-1][0], stage[-1][1], out.valid, engine,
+                    x, index, stage[-1][0], stage[-1][1], lvl.valid, engine,
                     bwd))
-            lvl = out
             if not meta_chain and i + 1 == dense_from:
                 with span("dense tail", mark):
                     sites = lvl.sites()
@@ -388,20 +507,18 @@ class SparseEncoder(nn.Module):
                                     lvl.shape)[..., 0] > 0 for b in range(B)])
                     return self._dense_tail(dense, mask, i + 1, engine)
             with span(f"index build/L{i + 1}", mark):
-                index, bwd = index_of(lvl, lvl, 3, 1, 1)
+                _, index, bwd = next(built)
 
-        ks_out, st_out = (3, 1, 1), (2, 1, 1)
         with span(f"index build/L{n_stage}", mark):
-            out = lvl.downsample(ks_out, st_out, 0, self.out_capacity)
-            record(out)
-            index, bwd = index_of(lvl, out, ks_out, st_out, 0)
+            lvl, index, bwd = next(built)
+            record(lvl)
         with span(f"sparse convs/L{n_stage}", mark):
             x = F.relu(self._sparse_conv(
-                x, index, self.conv_out[0], self.conv_out[1], out.valid,
+                x, index, self.conv_out[0], self.conv_out[1], lvl.valid,
                 engine, bwd))
-            sites = out.sites()
-            dense = torch.stack([sc.to_dense(x[b], sites[b], out.valid[b],
-                                             out.shape) for b in range(B)])
+            sites = lvl.sites()
+            dense = torch.stack([sc.to_dense(x[b], sites[b], lvl.valid[b],
+                                             lvl.shape) for b in range(B)])
             return self._collapse(dense)
 
     @staticmethod

@@ -87,8 +87,8 @@ def decode_rules(colz: torch.Tensor, in_capacity: int, meta: torch.Tensor,
     col = czs >> 6
     y = col // out_w
     x = col - y * out_w
-    dy = torch.arange(ky, device=dev).repeat_interleave(kx)[:, None]
-    dx = torch.arange(kx, device=dev).repeat(ky)[:, None]
+    dy, dx = sc._bev_taps(ky, kx, dev)
+    dy, dx = dy[:, None], dx[:, None]
     yi = y * sy - py + dy  # (ky*kx, V_out)
     xi = x * sx - px + dx
     bev_ok = ok0 & (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)

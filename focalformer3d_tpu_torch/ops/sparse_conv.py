@@ -44,6 +44,16 @@ def _as_triple(v) -> Tuple[int, int, int]:
     return tuple(v)  # type: ignore[return-value]
 
 
+def _bev_taps(ky: int, kx: int,
+              device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dy, dx) of the ky*kx BEV taps, dx fastest, each (ky*kx,) int64.
+    Division of one ``arange`` rather than ``repeat_interleave``, which
+    reads its output size back from the card (a host sync, and no CUDA
+    graph can capture it)."""
+    t = torch.arange(ky * kx, device=device)
+    return t // kx, t % kx
+
+
 # ---------------------------------------------------------------------------
 # two-word (64-bit) z-bitmask helpers, on int64 tensors holding uint32 values
 # ---------------------------------------------------------------------------
@@ -138,8 +148,8 @@ def _meta_from_bits(bits0, bits1) -> torch.Tensor:
     (overflow) slot gets zero bits. Takes unsigned-word tensors."""
     bits0 = bits0.clone()
     bits1 = bits1.clone()
-    bits0[-1] = 0
-    bits1[-1] = 0
+    bits0[-1].zero_()  # in place: ``[-1] = 0`` copies a host scalar in
+    bits1[-1].zero_()
     counts = _popcount(bits0) + _popcount(bits1)
     row_start = torch.cumsum(counts, 0) - counts
     return torch.stack(
@@ -176,8 +186,7 @@ def build_conv_rules(in_table: VoxelTable, in_shape, out_coords, out_valid,
     dev = out_coords.device
     oc = out_coords.to(torch.int64)
 
-    dy = torch.arange(ky, device=dev).repeat_interleave(kx)  # (ky*kx,)
-    dx = torch.arange(kx, device=dev).repeat(ky)
+    dy, dx = _bev_taps(ky, kx, dev)  # (ky*kx,)
     yi = oc[None, :, 1] * sy - py + dy[:, None]  # (ky*kx, V_out)
     xi = oc[None, :, 2] * sx - px + dx[:, None]
     bev_ok = (out_valid[None] & (yi >= 0) & (yi < H)
@@ -227,8 +236,7 @@ def transposed_conv_rules(out_meta, out_shape, in_coords, in_valid,
     dev = in_coords.device
     c = in_coords.to(torch.int64)
 
-    dy = torch.arange(ky, device=dev).repeat_interleave(kx)  # (ky*kx,)
-    dx = torch.arange(kx, device=dev).repeat(ky)
+    dy, dx = _bev_taps(ky, kx, dev)  # (ky*kx,)
     yn = c[None, :, 1] + py - dy[:, None]  # (ky*kx, V_in)
     xn = c[None, :, 2] + px - dx[:, None]
     yj = torch.div(yn, sy, rounding_mode="floor")

@@ -51,8 +51,8 @@ def build_zplan(table: sc.VoxelTable, in_shape, out_coords: torch.Tensor,
     dev = out_coords.device
     oc = out_coords.to(torch.int64)
 
-    dy = torch.arange(ky, device=dev).repeat_interleave(kx)[:, None]
-    dx = torch.arange(kx, device=dev).repeat(ky)[:, None]
+    dy, dx = sc._bev_taps(ky, kx, dev)
+    dy, dx = dy[:, None], dx[:, None]
     yi = oc[:, 1] * sy - py + dy  # (ky*kx, V_out)
     xi = oc[:, 2] * sx - px + dx
     bev_ok = out_valid & (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)

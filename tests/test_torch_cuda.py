@@ -1531,14 +1531,17 @@ def test_zrun_conv_train_vs_plain(dev, geom, cin, cout):
 
 @pytest.mark.parametrize("engine,launches", [
     ("cuda_mxu", {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8,
-                  "zrun": 0}),
+                  "zrun": 0, "index_graph_replay": 0,
+                  "index_graph_capture": 0, "index_eager": 8}),
     ("cuda_zrun", {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0,
-                   "zrun": 16}),
+                   "zrun": 16, "index_graph_replay": 0,
+                   "index_graph_capture": 0, "index_eager": 6}),
 ])
 def test_full_width_train_step_per_engine(dev, engine, launches):
     """One float32 FocalFormer3D_L training step at batch 2 on two radial
     200k-point scans on each new engine: finite losses, every parameter
-    moved, and the launches of ``train_step``'s accounting exactly."""
+    moved, and the launches of ``train_step``'s accounting exactly (a new
+    model's first step builds its index eagerly, block by block)."""
     from focalformer3d_tpu_torch.training import optim, train_step
 
     all_cfg = get_config("FocalFormer3D_L")
@@ -1672,3 +1675,188 @@ def test_two_rank_step_on_one_card_matches_world_size_1(dev, tmp_path):
     assert ranks[0]["collectives"]["grad"] == 1
     for k in ranks[0]["state"]:
         assert torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]), k
+
+
+# ---------------------------------------------------------------------------
+# the index build as CUDA graph replays (models/sparse_encoder.IndexGraphs)
+# at the FocalFormer3D_L geometry
+# ---------------------------------------------------------------------------
+
+# index-build blocks a forward, (eval, training), per engine
+INDEX_BLOCKS = {"cuda": (4, 6), "cuda_mxu": (8, 8), "cuda_zrun": (4, 6)}
+
+
+def _l_encoder(dev, engine, train):
+    from focalformer3d_tpu_torch.models.sparse_encoder import SparseEncoder
+
+    cfg = get_config("FocalFormer3D_L")["model"]
+    assert cfg.sparse_shape == (41, 1440, 1440)
+    assert cfg.capacities == (160000, 245760, 188416, 77824)
+    enc = SparseEncoder(
+        in_channels=cfg.voxel_feature_dim, sparse_shape=cfg.sparse_shape,
+        output_channels=cfg.sparse_out_channels,
+        encoder_channels=cfg.encoder_channels,
+        down_paddings=cfg.down_paddings, capacities=cfg.capacities,
+        out_capacity=cfg.out_capacity, engine=engine,
+        dense_from=cfg.sparse_dense_from_eval,
+        train_dense_from=cfg.sparse_dense_from)
+    return cfg, enc.to(dev).train(train)
+
+
+def _l_voxels(cfg, dev, seed, batch_size, train):
+    batch = synthetic.make_batch(
+        np.random.RandomState(seed), batch_size=batch_size,
+        n_points=200000, n_boxes=12, max_gts=16,
+        num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    return tdet.preprocess_points(
+        cfg, torch.from_numpy(batch["points"]).to(dev),
+        torch.from_numpy(batch["points_mask"]).to(dev), train=train)
+
+
+def _block_tensors(blocks):
+    """Copies of every tensor the index build's blocks yield: each level's
+    valid, meta and sites, each index and each backward index."""
+    out = []
+    for lvl, index, bwd in blocks:
+        out += [lvl.valid, lvl.meta, lvl.sites(), index, *(bwd or ())]
+    return [t.clone() for t in out]
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("engine,train,batch_size", [
+    ("cuda", False, 1), ("cuda", False, 4), ("cuda", True, 2),
+    ("cuda_mxu", False, 1), ("cuda_mxu", True, 2),
+    ("cuda_zrun", False, 1), ("cuda_zrun", True, 2)])
+def test_index_graph_replays_equal_the_eager_build(dev, engine, train,
+                                                   batch_size):
+    """Two different scans, each of ``batch_size`` 200k-point sweeps, in
+    turn: the first call builds the index eagerly, the second captures it,
+    every later one replays it; each call's metas, sites, valid flags,
+    rulebooks (z-run codes) and, in training, transposed rulebooks equal
+    the eager build of its own scan bit for bit (a replay on stale inputs
+    would give the other scan's). The counters and K2's launches read one
+    forward's blocks a call."""
+    from focalformer3d_tpu_torch.models.sparse_encoder import INDEX_BLOCKS \
+        as counts
+
+    cfg, enc = _l_encoder(dev, engine, train)
+    scans = [_l_voxels(cfg, dev, seed, batch_size, train) for seed in (0, 1)]
+    want = [_block_tensors(enc._index_build(v["coords"], v["voxel_mask"],
+                                            engine)) for v in scans]
+    n = INDEX_BLOCKS[engine][train]
+    assert len(want[0]) == len(want[1]) and n == len(
+        enc._index_specs(engine == "cuda_mxu"))
+    counts.reset()
+    k2.reset_launch_count()
+    for call in range(4):
+        v = scans[call % 2]
+        blocks, replayed = enc._index_blocks(v["coords"], v["voxel_mask"],
+                                             engine)
+        assert replayed == (call > 0)
+        _assert_same(_block_tensors(blocks), want[call % 2])
+    torch.cuda.synchronize()
+    assert counts.counts == {"index_eager": n, "index_graph_capture": n,
+                             "index_graph_replay": 3 * n}
+    assert k2.launch_count() == (4 * n if engine == "cuda_mxu" else 0)
+
+
+def test_levels_of_a_replay_outlive_the_next_replay(dev):
+    """A forward's ``levels=`` on a replayed index build are copies: a
+    replay on another scan leaves them as the eager forward's, and the
+    BEV of a replay equals the eager forward's bit for bit."""
+    cfg, enc = _l_encoder(dev, "cuda", False)
+    enc.load_state_dict(make_fake_state_dict(enc, 2), strict=True)
+    scans = [_l_voxels(cfg, dev, seed, 1, False) for seed in (2, 3)]
+    a, b = ((v["features"], v["coords"], v["voxel_mask"]) for v in scans)
+    with torch.no_grad():
+        eager_levels, got_levels = [], []
+        bev = enc(*a, levels=eager_levels)
+        enc(*b)
+        bev_replayed = enc(*a, levels=got_levels)
+        enc(*b)
+        enc(*b)
+    assert torch.equal(bev_replayed, bev)
+    assert len(got_levels) == len(eager_levels) == 3
+    for got, ref in zip(got_levels, eager_levels):
+        assert got.shape == ref.shape
+        _assert_same([got.valid, got.meta, got.coords],
+                     [ref.valid, ref.meta, ref.coords])
+
+
+@pytest.mark.parametrize("engine", ["cuda", "cuda_mxu", "cuda_zrun"])
+@pytest.mark.parametrize("train", [False, True])
+def test_index_build_never_syncs(dev, engine, train):
+    """The index build reads no device value on the host: its eager run
+    and its replay under ``set_sync_debug_mode("error")`` raise nothing
+    (its capture, between them, would have failed on a sync)."""
+    cfg, enc = _l_encoder(dev, engine, train)
+    v = _l_voxels(cfg, dev, 4, 2 if train else 1, train)
+    for call in range(3):
+        if call != 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in enc._index_blocks(v["coords"], v["voxel_mask"],
+                                       engine)[0]:
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_index_graph_counters_per_step_and_scan(dev):
+    """``train_step.kernel_launches``' index counters on FocalFormer3D_L:
+    three training steps at batch 2 (eager 6, then capture and replay 6,
+    then replay 6), then three eval scans (eager 4, capture and replay 4,
+    replay 4); a step's or scan's kernel launches stay as many whether its
+    index build runs eagerly or replays."""
+    from focalformer3d_tpu_torch.training import optim, train_step
+
+    all_cfg = get_config("FocalFormer3D_L")
+    cfg = all_cfg["model"]
+    m = tdet.FocalFormer3D(cfg)
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev)
+    tx = optim.make_optimizer(total_steps=10)
+    state = tx.init(m.named_parameters())
+    step = train_step.make_train_step(cfg, all_cfg["loss"], tx)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    batch = synthetic.make_batch(
+        np.random.RandomState(12), batch_size=2, n_points=200000,
+        n_boxes=24, max_gts=32, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def index_counts(run):
+        train_step.reset_kernel_launches()
+        run()
+        torch.cuda.synchronize()
+        got = train_step.kernel_launches()
+        return ({k: got.pop(k) for k in ("index_eager",
+                                         "index_graph_capture",
+                                         "index_graph_replay")}, got)
+
+    steps = [index_counts(lambda: step(m, state, b, gen)) for _ in range(3)]
+    assert [c for c, _ in steps] == [
+        {"index_eager": 6, "index_graph_capture": 0, "index_graph_replay": 0},
+        {"index_eager": 0, "index_graph_capture": 6, "index_graph_replay": 6},
+        {"index_eager": 0, "index_graph_capture": 0, "index_graph_replay": 6}]
+    assert steps[0][1] == steps[1][1] == steps[2][1]
+    m.eval()
+    pts, mask = (x.to(dev) for x in _radial(cfg, 5, 200000))
+    with torch.no_grad():
+        scans = [index_counts(lambda: m.get_bboxes(m(tdet.preprocess_points(
+            cfg, pts, mask)), 200)) for _ in range(3)]
+    assert [c for c, _ in scans] == [
+        {"index_eager": 4, "index_graph_capture": 0, "index_graph_replay": 0},
+        {"index_eager": 0, "index_graph_capture": 4, "index_graph_replay": 4},
+        {"index_eager": 0, "index_graph_capture": 0, "index_graph_replay": 4}]
+    assert scans[0][1] == scans[1][1] == scans[2][1]
+    del m, state, b
+    torch.cuda.empty_cache()

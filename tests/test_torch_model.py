@@ -292,6 +292,36 @@ def test_kernel_engine_slice_on_cpu(setup, engine):
     assert torch.isfinite(dec["scores"]).all()
 
 
+@pytest.mark.parametrize("engine", ["plain", "cuda", "cuda_mxu",
+                                    "cuda_zrun"])
+@pytest.mark.parametrize("train", [False, True])
+def test_one_index_block_per_index_build_span(setup, engine, train):
+    """The encoder's forward takes one block of ``_index_build`` in each
+    "index build" span, as many as ``_index_specs`` counts: the number of
+    graphs a card captures (``IndexGraphs``)."""
+    tcfg = setup["tcfg"]
+    enc = SparseEncoder(in_channels=5, engine=engine,
+                        dense_from=tcfg.sparse_dense_from_eval,
+                        train_dense_from=tcfg.sparse_dense_from,
+                        **_enc_kwargs(tcfg)).train(train)
+    vox = tdet.preprocess_points(tcfg, _t(setup["pts"]), _t(setup["mask"]),
+                                 train=train)
+    build, taken, marks = enc._index_build, [], []
+
+    def counted(*args):
+        for block in build(*args):
+            taken.append(block)
+            yield block
+
+    enc._index_build = counted
+    enc(vox["features"], vox["coords"], vox["voxel_mask"], mark=marks.append)
+    n = len(enc._index_specs(engine == "cuda_mxu"))
+    assert len(taken) == marks.count("index build") == n
+    assert n == {(False, False): 4, (False, True): 6,
+                 (True, False): 8, (True, True): 8}[
+        (engine == "cuda_mxu", train)]
+
+
 def test_one_state_dict_loads_into_every_engine(setup):
     """The engines add no parameters: the state dict converted from the JAX
     variables loads strictly into the model on each of them."""

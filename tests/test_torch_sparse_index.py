@@ -67,6 +67,18 @@ def test_bit_helpers():
     _eq(tsc._i32(u0), jw0)
 
 
+# (ky, kx) of the encoders' kernels (3 and conv_out's (3, 1, 1)), and more
+@pytest.mark.parametrize("ky,kx", [(3, 3), (1, 1), (1, 3), (3, 1), (2, 5)])
+def test_bev_taps_equal_the_repeat_form(ky, kx):
+    """The sync-free tap offsets equal ``arange(ky).repeat_interleave(kx)``
+    and ``arange(kx).repeat(ky)``, the form they replace."""
+    dy, dx = tsc._bev_taps(ky, kx, "cpu")
+    want_dy = torch.arange(ky).repeat_interleave(kx)
+    want_dx = torch.arange(kx).repeat(ky)
+    assert dy.dtype == want_dy.dtype and torch.equal(dy, want_dy)
+    assert dx.dtype == want_dx.dtype and torch.equal(dx, want_dx)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_table_meta(shape):
     coords, valid = _voxel_set(1, shape, 400, 512)
