@@ -1,94 +1,169 @@
 """Synthetic LiDAR scenes and camera images, the benchmark's traffic.
 
-A frozen copy of the port's ``data/synthetic.py`` (``make_scene``,
-``make_cameras``, ``render_images``, ``make_batch``): ground clutter in a
-spinning LiDAR's ring pattern plus boxes with surface points, and each
-scene's six camera images rendered from its points. The benchmark makes
-its inputs with it, so a change to the port's generator cannot change
-what the benchmark sends.
+Started as a frozen copy of the port's ``data/synthetic.py``
+(``make_scene``, ``make_cameras``, ``render_images``, ``make_batch``), so
+a change to the port's generator cannot change what the benchmark sends.
+A scene is boxes with surface points over a background; what the
+background looks like is a sensor rig (``scans/<name>.json``, named by a
+configuration's ``"scan"``), data that this one generator reads:
+
+- ``sensors``: spinning LiDARs, each with its mount height, beam
+  elevations, range (metres, or ``"corner"``: the point-cloud range's
+  corner), position on the vehicle and share of the background. Its
+  returns fall on the ground, at the ring radii where its beams below
+  ``GROUND_BEAM_DEG`` meet it (a beam that would meet it nearer than
+  ``MIN_RING_M`` hits the vehicle and returns nothing), and on clutter:
+  vertical surfaces at radii log-uniform from ``CLUTTER_MIN_M`` out to its
+  range, so density falls with range;
+- ``sweeps`` aggregated with up to ``ego_motion_m`` of ego motion between
+  them (the first sweep at the origin);
+- ``ground_z_m`` and ``clutter_z_m``: their z bands (``GROUND_SHARE`` of
+  each sensor's returns fall on the ground, the rest on clutter);
+- ``plane_z_m`` in place of sensors: a flat ground over the whole range;
+- ``objects``: the boxes' bands (bottom, size, velocity), how far their
+  centres keep from the range's border, and the point budget (``share`` of
+  the scan, split ``equal`` or by ``inverse_square`` range);
+- ``beyond_range``: ``clip`` the background onto the range's border, or
+  ``keep`` it for the voxelizer to drop, as it drops a real scan's.
+
+A z band's end is metres in the vehicle frame, or ``["floor", dz]`` /
+``["top", dz]``: dz from the point-cloud range's bottom or top. The draws
+are made in one fixed order, so a rig gives the same scan from the same
+seed (``radial.json`` and ``uniform.json`` the scans of the generator they
+replaced, bit for bit).
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 
+GROUND_BEAM_DEG = -1.0  # beams below this elevation hit the ground
+MIN_RING_M = 0.5  # a ground ring nearer than this lies under the vehicle
+GROUND_SHARE = 0.75  # of each sensor's returns; the rest hit clutter
+RING_JITTER = (0.98, 1.02)  # a ground return's radius over its ring's
+CLUTTER_MIN_M = 3.0  # the nearest clutter
+CLUTTER_SURFACES = 200  # clutter points cluster on this many surfaces
+SURFACE_OFFSET_M = 1.5  # a surface's offset, each axis, at most
+BUDGET_FLOOR_M = 5.0  # an inverse-square point budget's nearest range
+MIN_BOX_POINTS = 8  # an inverse-square budget's least points a box
 
-def _radial_background(rng, n_bg, pc_range, n_sweeps: int = 10):
-    """Spinning-LiDAR ground/clutter returns (n_bg, 3) xyz.
 
-    nuScenes capture geometry (HDL-32E, 32 beams from -30.7 to +10.7 deg,
-    sensor at ~1.84 m, 10 aggregated sweeps with ego motion): downward beams
-    hit the ground at discrete ring radii, and a clutter fraction hits
-    vertical surfaces at range-weighted radii, so point density falls ~1/r.
-    """
-    x0, y0, z0, x1, y1, z1 = pc_range
-    h = 1.84
-    rmax = float(x1) * np.sqrt(2.0)
-    elev = np.deg2rad(np.linspace(-30.67, 10.67, 32))
-    down = elev[elev < np.deg2rad(-1.0)]
-    ring_r = np.clip(h / np.tan(-down), 0.5, rmax)
+def _z(end, pc_range) -> float:
+    """A z band's end (see the module)."""
+    if isinstance(end, (int, float)):
+        return end
+    anchor, dz = end
+    if anchor not in ("floor", "top"):
+        raise ValueError(f"a z band's end is metres, ['floor', dz] or "
+                         f"['top', dz]; got {end!r}")
+    return (pc_range[2] if anchor == "floor" else pc_range[5]) + dz
 
-    n_ground = int(n_bg * 0.75)
-    n_clutter = n_bg - n_ground
 
-    ego = rng.uniform(-2.0, 2.0, (n_sweeps, 2)).astype(np.float32)
+def _band(band, pc_range):
+    return _z(band[0], pc_range), _z(band[1], pc_range)
+
+
+def _reach(sensor: dict, pc_range):
+    """A sensor's range in metres: ``"corner"`` is the point-cloud range's
+    corner."""
+    r = sensor["range_m"]
+    if r == "corner":
+        return float(pc_range[3]) * np.sqrt(2.0)
+    return np.float64(r)
+
+
+def _counts(n: int, shares: Sequence[float]):
+    """``n`` split by ``shares``; the last takes what is left."""
+    counts = [int(n * s) for s in shares[:-1]]
+    return counts + [n - sum(counts)]
+
+
+def _sensor_background(rng, n_bg, pc_range, rig: dict):
+    """Ground rings and clutter of each of the rig's sensors, (n_bg, 3)."""
+    n_sweeps, motion = rig["sweeps"], rig["ego_motion_m"]
+    ego = rng.uniform(-motion, motion, (n_sweeps, 2)).astype(np.float32)
     ego[0] = 0.0
-    sweep = rng.randint(0, n_sweeps, n_ground)
-    ring = ring_r[rng.randint(0, len(ring_r), n_ground)].astype(np.float32)
-    ring *= rng.uniform(0.98, 1.02, n_ground).astype(np.float32)
-    theta = rng.uniform(-np.pi, np.pi, n_ground).astype(np.float32)
-    gx = ring * np.cos(theta) + ego[sweep, 0]
-    gy = ring * np.sin(theta) + ego[sweep, 1]
-    gz = rng.uniform(-2.1, -1.9, n_ground).astype(np.float32)
-    ground = np.stack([gx, gy, gz], -1)
+    sensors = rig["sensors"]
+    parts = []
+    for s, n_s in zip(sensors, _counts(n_bg, [s["share"] for s in sensors])):
+        px, py = s["position_m"]
+        rmax = _reach(s, pc_range)
+        elev = np.deg2rad(np.linspace(*s["elevation_deg"], s["beams"]))
+        down = elev[elev < np.deg2rad(GROUND_BEAM_DEG)]
+        ring_r = s["height_m"] / np.tan(-down)
+        ring_r = np.minimum(ring_r[ring_r >= MIN_RING_M], rmax)
 
-    # vertical structure clustered into ~200 surfaces, so columns stack in z
-    u = rng.uniform(0, 1, n_clutter).astype(np.float32)
-    rc = 3.0 * (rmax / 3.0) ** u
-    tc = rng.uniform(-np.pi, np.pi, n_clutter).astype(np.float32)
-    surf = rng.randint(0, 200, n_clutter)
-    soff = rng.uniform(-1.5, 1.5, (200, 2)).astype(np.float32)
-    cx = rc * np.cos(tc) + soff[surf, 0]
-    cy = rc * np.sin(tc) + soff[surf, 1]
-    cz = rng.uniform(z0 + 2.8, z1, n_clutter).astype(np.float32)
-    clutter = np.stack([cx, cy, cz], -1)
+        n_ground = int(n_s * GROUND_SHARE)
+        n_clutter = n_s - n_ground
 
-    bg = np.concatenate([ground, clutter], 0).astype(np.float32)
-    np.clip(bg[:, 0], x0, x1 - 1e-3, out=bg[:, 0])
-    np.clip(bg[:, 1], y0, y1 - 1e-3, out=bg[:, 1])
-    return bg
+        sweep = rng.randint(0, n_sweeps, n_ground)
+        ring = ring_r[rng.randint(0, len(ring_r), n_ground)].astype(
+            np.float32)
+        ring *= rng.uniform(*RING_JITTER, n_ground).astype(np.float32)
+        theta = rng.uniform(-np.pi, np.pi, n_ground).astype(np.float32)
+        gx = ring * np.cos(theta) + ego[sweep, 0] + px
+        gy = ring * np.sin(theta) + ego[sweep, 1] + py
+        gz = rng.uniform(*_band(rig["ground_z_m"], pc_range),
+                         n_ground).astype(np.float32)
+        parts.append(np.stack([gx, gy, gz], -1))
+
+        # vertical structure clustered into surfaces, so columns stack in z
+        u = rng.uniform(0, 1, n_clutter).astype(np.float32)
+        rc = CLUTTER_MIN_M * (rmax / CLUTTER_MIN_M) ** u
+        tc = rng.uniform(-np.pi, np.pi, n_clutter).astype(np.float32)
+        surf = rng.randint(0, CLUTTER_SURFACES, n_clutter)
+        soff = rng.uniform(-SURFACE_OFFSET_M, SURFACE_OFFSET_M,
+                           (CLUTTER_SURFACES, 2)).astype(np.float32)
+        cx = rc * np.cos(tc) + soff[surf, 0] + px
+        cy = rc * np.sin(tc) + soff[surf, 1] + py
+        cz = rng.uniform(*_band(rig["clutter_z_m"], pc_range),
+                         n_clutter).astype(np.float32)
+        parts.append(np.stack([cx, cy, cz], -1))
+    return np.concatenate(parts, 0).astype(np.float32)
 
 
-def make_scene(rng: np.random.RandomState, n_points: int = 30000,
-               n_boxes: int = 12, num_classes: int = 10,
-               pc_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
-               point_dim: int = 5, mode: str = "uniform"):
-    """Returns (points (N, D), gt_boxes (G, 9), gt_labels (G,)).
+def _plane_background(rng, n_bg, pc_range, rig: dict):
+    """A flat ground over the whole range, (n_bg, 3)."""
+    x0, y0, _, x1, y1, _ = pc_range
+    return np.stack([
+        rng.uniform(x0, x1, n_bg),
+        rng.uniform(y0, y1, n_bg),
+        rng.uniform(*_band(rig["plane_z_m"], pc_range), n_bg),
+    ], -1).astype(np.float32)
 
-    mode='uniform': ground-plane clutter over the full range. mode='radial':
-    LiDAR beam-model background with ring structure and 1/r density, the
-    scan ``bench.py`` times.
-    """
+
+def make_scene(rng: np.random.RandomState, n_points: int, n_boxes: int,
+               num_classes: int, pc_range, point_dim: int, rig: dict):
+    """Returns (points (N, D), gt_boxes (G, 9), gt_labels (G,)) of one scan
+    of ``rig`` (see the module)."""
     x0, y0, z0, x1, y1, z1 = pc_range
-    margin = 0.1 * (x1 - x0)
+    obj = rig["objects"]
+    margin = obj["centre_margin"] * (x1 - x0)
+    v = obj["velocity_m_s"]
     boxes = np.zeros((n_boxes, 9), np.float32)
     boxes[:, 0] = rng.uniform(x0 + margin, x1 - margin, n_boxes)
     boxes[:, 1] = rng.uniform(y0 + margin, y1 - margin, n_boxes)
-    boxes[:, 2] = rng.uniform(-2.0, -1.0, n_boxes)
-    boxes[:, 3] = rng.uniform(1.5, 5.0, n_boxes)
-    boxes[:, 4] = rng.uniform(1.0, 2.5, n_boxes)
-    boxes[:, 5] = rng.uniform(1.0, 2.5, n_boxes)
+    boxes[:, 2] = rng.uniform(*_band(obj["bottom_z_m"], pc_range), n_boxes)
+    boxes[:, 3] = rng.uniform(*obj["length_m"], n_boxes)
+    boxes[:, 4] = rng.uniform(*obj["width_m"], n_boxes)
+    boxes[:, 5] = rng.uniform(*obj["height_m"], n_boxes)
     boxes[:, 6] = rng.uniform(-np.pi, np.pi, n_boxes)
-    boxes[:, 7:9] = rng.uniform(-2, 2, (n_boxes, 2))
+    boxes[:, 7:9] = rng.uniform(-v, v, (n_boxes, 2))
     labels = rng.randint(0, num_classes, n_boxes).astype(np.int32)
 
-    n_obj = n_points // 2 if mode == "uniform" else n_points // 5
-    if mode == "radial":
+    n_obj = int(n_points * obj["share"])
+    if obj["budget"] == "inverse_square":
         # per-box point budget ~1/r^2, as a real scanner sees
         rr = np.hypot(boxes[:, 0], boxes[:, 1])
-        wts = 1.0 / np.maximum(rr, 5.0) ** 2
-        pers = np.maximum((n_obj * wts / wts.sum()).astype(int), 8)
-    else:
+        wts = 1.0 / np.maximum(rr, BUDGET_FLOOR_M) ** 2
+        pers = np.maximum((n_obj * wts / wts.sum()).astype(int),
+                          MIN_BOX_POINTS)
+    elif obj["budget"] == "equal":
         pers = np.full(n_boxes, n_obj // n_boxes)
+    else:
+        raise ValueError(f"object budget {obj['budget']!r}: "
+                         f"'inverse_square' or 'equal'")
     obj_pts = []
     for b in range(n_boxes):
         per = int(pers[b])
@@ -103,14 +178,16 @@ def make_scene(rng: np.random.RandomState, n_points: int = 30000,
     obj_pts = np.concatenate(obj_pts, 0)
 
     n_bg = n_points - len(obj_pts)
-    if mode == "radial":
-        bg = _radial_background(rng, n_bg, pc_range)
+    if "sensors" in rig:
+        bg = _sensor_background(rng, n_bg, pc_range, rig)
     else:
-        bg = np.stack([
-            rng.uniform(x0, x1, n_bg),
-            rng.uniform(y0, y1, n_bg),
-            rng.uniform(-2.2, -1.8, n_bg),
-        ], -1).astype(np.float32)
+        bg = _plane_background(rng, n_bg, pc_range, rig)
+    if rig["beyond_range"] == "clip":
+        np.clip(bg[:, 0], x0, x1 - 1e-3, out=bg[:, 0])
+        np.clip(bg[:, 1], y0, y1 - 1e-3, out=bg[:, 1])
+    elif rig["beyond_range"] != "keep":
+        raise ValueError(f"beyond_range {rig['beyond_range']!r}: 'clip' or "
+                         f"'keep'")
 
     xyz = np.concatenate([obj_pts, bg], 0)
     extra = rng.uniform(0, 1, (n_points, point_dim - 3)).astype(np.float32)
@@ -173,22 +250,22 @@ def render_images(points: np.ndarray, lidar2img: np.ndarray,
     return np.clip(imgs, 0, 1)
 
 
-def make_batch(rng: np.random.RandomState, batch_size: int = 2,
+def make_batch(rng: np.random.RandomState, rig: dict, batch_size: int = 2,
                n_points: int = 30000, n_boxes: int = 12, max_gts: int = 32,
                num_classes: int = 10,
                pc_range=(-54.0, -54.0, -5.0, 54.0, 54.0, 3.0),
                point_dim: int = 5, with_images: bool = False,
-               n_cams: int = 6, img_hw=(448, 800), mode: str = "uniform"):
-    """Batch of scenes: points (B, N, D), points_mask (B, N), and padded
-    ground truth gt_boxes (B, G, 9), gt_labels, gt_valid; ``with_images``
-    adds each scene's camera rig and rendered images: imgs (B, Ncam, H, W,
-    3), lidar2img (B, Ncam, 4, 4) and identity img_aug (B, Ncam, 4, 4) and
-    bev_aug (B, 4, 4)."""
+               n_cams: int = 6, img_hw=(448, 800)):
+    """Batch of scenes of ``rig`` (see the module): points (B, N, D),
+    points_mask (B, N), and padded ground truth gt_boxes (B, G, 9),
+    gt_labels, gt_valid; ``with_images`` adds each scene's camera rig and
+    rendered images: imgs (B, Ncam, H, W, 3), lidar2img (B, Ncam, 4, 4) and
+    identity img_aug (B, Ncam, 4, 4) and bev_aug (B, 4, 4)."""
     pts, masks, gts, gls, gvs = [], [], [], [], []
     imgs, l2is = [], []
     for _ in range(batch_size):
         p, b, l = make_scene(rng, n_points, n_boxes, num_classes, pc_range,
-                             point_dim, mode)
+                             point_dim, rig)
         pts.append(p)
         masks.append(np.ones(n_points, bool))
         gb = np.zeros((max_gts, 9), np.float32)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .data import synthetic
+from .spec import load_rig
 
 BOX_KEYS = ("bboxes", "scores", "labels", "mask")
 ITEM = "perfbench.item"
@@ -52,14 +53,14 @@ def seeds(seed: int) -> Seeds:
 
 def make_pool(traffic: dict, config: dict, cfg, rng: np.random.RandomState,
               device: torch.device) -> Dict[str, torch.Tensor]:
-    """``pool`` scans (and their cameras for a camera config), stacked on
-    the device."""
+    """``pool`` scans of the configuration's rig (``"scan"``; and their
+    cameras for a camera config), stacked on the device."""
     b = synthetic.make_batch(
-        rng, batch_size=traffic["pool"], n_points=config["points"],
-        n_boxes=traffic["gt_boxes"], max_gts=traffic["max_gts"],
-        num_classes=cfg.decoder.num_classes,
-        pc_range=cfg.voxel.point_cloud_range, mode=config["scan"],
-        with_images=cfg.input_img, n_cams=config.get("cameras", 0),
+        rng, load_rig(config["scan"]), batch_size=traffic["pool"],
+        n_points=config["points"], n_boxes=traffic["gt_boxes"],
+        max_gts=traffic["max_gts"], num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, with_images=cfg.input_img,
+        n_cams=config.get("cameras", 0),
         img_hw=tuple(config.get("img_scale", (1, 1))))
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 

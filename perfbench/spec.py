@@ -1,13 +1,15 @@
 """What ``BENCHMARK.json`` and the files it names say about one cell.
 
 A cell names a configuration (``configs/<name>.json`` by the config's
-``file``) and a traffic mix (``traffic/<name>.json``); the harness finds
-both by name, so a later cell needs only new files and entries. Every
-file is read relative to the working directory, the checkout's root. The
-configuration file states the model as it is run: the port's config name,
-its sizes (checked against the port's and the reference's config), the
-voxel caps it is run with (set on both), the precision of each part, and
-the limits of the comparison that decides ``correct``.
+``file``) and a traffic mix (``traffic/<name>.json``); the configuration
+names its scans' sensor rig (``"scan"``: ``scans/<name>.json``). The
+harness finds each by name, so a later cell needs only new files and
+entries. Every file is read relative to the working directory, the
+checkout's root. The configuration file states the model as it is run:
+the port's config name, its sizes (checked against the port's and the
+reference's config), the voxel caps it is run with (set on both), the
+precision of each part, and the limits of the comparison that decides
+``correct``.
 """
 from __future__ import annotations
 
@@ -43,7 +45,11 @@ CHECKED = {
     "num_proposals": ("decoder", "num_proposals"),
     "num_decoder_layers": ("decoder", "num_decoder_layers"),
     "multistage_heatmap": ("decoder", "multistage_heatmap"),
+    "reuse_first_heatmap": ("decoder", "reuse_first_heatmap"),
     "num_heads": ("decoder", "num_heads"),
+    "code_size": ("decoder", "code_size"),
+    "vfe_type": ("vfe_type",),
+    "vfe_channels": ("vfe_channels",),
 }
 # stated key -> path, set on the config as the benchmark runs it
 SET = {
@@ -84,6 +90,16 @@ def load_cell(workload: str) -> Cell:
     return Cell(workload, int(w["chips"]), config, traffic,
                 [m for m in bench["end_to_end"] if _listed(m, workload)],
                 [m for m in bench["per_layer"] if _listed(m, workload)])
+
+
+def load_rig(name: str) -> Dict[str, Any]:
+    """The sensor rig ``scans/<name>.json`` (``data/synthetic.py``);
+    ValueError for a name that has no file."""
+    path = PKG / "scans" / f"{name}.json"
+    if not path.is_file():
+        have = sorted(p.stem for p in (PKG / "scans").glob("*.json"))
+        raise ValueError(f"no scan rig {name!r} (rigs: {have})")
+    return json.loads(path.read_text())
 
 
 def _get(obj, path):

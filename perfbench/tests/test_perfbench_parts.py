@@ -168,27 +168,35 @@ def test_weights_are_seeded_and_scaled():
     assert int(a["b.bn.num_batches_tracked"]) == 100
 
 
-def test_work_count_follows_the_precision_map():
+@pytest.mark.parametrize("model,rig,part", [
+    ("Tiny_L", tiny.REPO / "perfbench" / "scans" / "radial.json",
+     "pts_backbone"),
+    ("Tiny_Waymo_L", tiny.HERE / "waymo_tiny.json", "pts_voxel_encoder")])
+def test_work_count_follows_the_precision_map(model, rig, part):
+    """A part the map states in float32 (the HardVFE, which computes in
+    float32, for the Waymo path) is counted at float32's peak."""
     from perfbench.reference.ff3d.configs import get_config
     from perfbench.reference.ff3d.models.detector import (FocalFormer3D,
                                                           preprocess_points)
     from perfbench.data import synthetic
     import numpy as np
 
-    cfg = get_config("Tiny_L")["model"]
+    cfg = get_config(model)["model"]
     model = FocalFormer3D(cfg).eval()
     model.load_state_dict(make_state_dict(
         {k: v.shape for k, v in model.state_dict().items()}, 1,
         torch.device("cpu")))
-    b = synthetic.make_batch(np.random.RandomState(0), 1, 1500, 6, 24, 4,
-                             cfg.voxel.point_cloud_range, mode="radial")
+    b = synthetic.make_batch(np.random.RandomState(0),
+                             json.loads(rig.read_text()), 1, 1500, 6, 24,
+                             cfg.decoder.num_classes,
+                             cfg.voxel.point_cloud_range)
     vox = preprocess_points(cfg, torch.from_numpy(b["points"]),
                             torch.from_numpy(b["points_mask"]))
     name = next(iter(work.PEAKS))
     pk = work.PEAKS[name]
     bf = work.count(model, lambda: model(vox), {"*": "bfloat16"}, name)
     mixed = work.count(model, lambda: model(vox),
-                       {"*": "bfloat16", "pts_backbone": "float32"}, name)
+                       {"*": "bfloat16", part: "float32"}, name)
     assert bf["flops"] == pytest.approx(mixed["flops"])
     assert bf["seconds_at_peak"] == pytest.approx(
         bf["flops"] / pk["bfloat16"])
@@ -268,6 +276,68 @@ def test_a_new_cell_and_metric_need_only_new_files(tmp_path):
                 {"latency_p50_ms", "latency_p95_ms", "setup_s"})
         assert want <= set(line["metrics"])
     assert line["metrics"]["dummy_count.stream"]["value"] == 6.0
+
+
+def _run_cell(root, workload, trace_on, seed):
+    r = subprocess.run(
+        [sys.executable, "-m", "perfbench.run", "--workload", workload,
+         "--seed", str(seed), "--seconds", "1", "--trace", str(trace_on),
+         "--device", "cpu"],
+        capture_output=True, text=True, env=ENV, cwd=root, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_a_waymo_path_cell_needs_only_new_files(tmp_path):
+    """Tiny_Waymo_L (HardVFE, code size 8, a reused first heatmap stage)
+    on its own rig, traffic and metric: files the repo lacks and entries
+    in ``BENCHMARK.json``. It runs correct untraced and traced, and its
+    control fails a limit that the program keeps."""
+    root = tiny.write_waymo_root(tmp_path / "checkout")
+    for path in (tiny.REPO / "perfbench").rglob("*"):
+        rel = path.relative_to(tiny.REPO)
+        if path.is_file() and not {"tests", "__pycache__", ".cache"} & set(
+                rel.parts):
+            assert (root / rel).read_bytes() == path.read_bytes(), rel
+    untraced = _run_cell(root, tiny.WAYMO_CELL, 0, 2**31 + 777)
+    assert untraced["correct"] and untraced["failed"] == 0
+    assert set(untraced["metrics"]) == {"latency_p50_ms", "latency_p95_ms",
+                                        "setup_s"}
+    traced = _run_cell(root, tiny.WAYMO_CELL, 1, 2**31 + 778)
+    assert traced["correct"]
+    assert traced["metrics"][tiny.WAYMO_METRIC]["value"] > 0
+    r = subprocess.run(
+        [sys.executable, "-m", "perfbench.calibrate", "--workload",
+         tiny.WAYMO_CELL, "--seeds", "21", "--control", "1", "--seconds",
+         "1", "--device", "cpu"],
+        capture_output=True, text=True, env=ENV, cwd=root, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rows = {x["reading"]: x for x in map(json.loads, r.stdout.splitlines())
+            if "reading" in x}
+    limits = json.loads((tiny.HERE / "Tiny_Waymo_L.json").read_text())[
+        "limits"]["infer"]
+    assert not [k for k in limits if rows["program"][k] > limits[k]]
+    assert [k for k in limits if rows["control"][k] > limits[k]]
+
+
+@pytest.mark.parametrize("stated", [
+    {"vfe_type": "HardSimpleVFE"}, {"code_size": 10},
+    {"vfe_channels": [32]}, {"reuse_first_heatmap": False}])
+def test_a_wrong_statement_raises(stated):
+    """A configuration that names FocalFormer3D_Waymo_L and states what it
+    is not raises, against the port's config and the reference's."""
+    from focalformer3d_tpu_torch.configs import get_config as port_config
+    from perfbench.reference.ff3d.configs import get_config as ref_config
+    from perfbench.spec import as_run
+
+    right = {"model": "FocalFormer3D_Waymo_L", "vfe_type": "HardVFE",
+             "vfe_channels": [64], "code_size": 8,
+             "reuse_first_heatmap": True, "multistage_heatmap": 2}
+    for get_config in (port_config, ref_config):
+        cfg = get_config("FocalFormer3D_Waymo_L")["model"]
+        as_run(cfg, right)
+        with pytest.raises(ValueError, match=next(iter(stated))):
+            as_run(cfg, {**right, **stated})
 
 
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")

@@ -1,7 +1,8 @@
 """Tiny cells for the CPU tests: ``BENCHMARK.json``'s cells on the port's
 ``Tiny_L`` (and a six-camera ``Tiny_LC`` registered in both the port's and
-the reference's config registries), with their own limits, set from CPU
-readings like the cells' own (``calibrate.py``)."""
+the reference's config registries), and a Waymo-path cell on
+``Tiny_Waymo_L`` made of new files alone, with their own limits, set from
+CPU readings like the cells' own (``calibrate.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -61,4 +62,45 @@ def copy_benchmark(root: Path) -> Path:
                     ignore=shutil.ignore_patterns("__pycache__", ".cache",
                                                   "tests"))
     shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
+    return root
+
+
+WAYMO_CELL = "Waymo.stream"
+WAYMO_METRIC = "hardvfe_ms.stream"
+
+
+def write_waymo_root(root: Path) -> Path:
+    """A checkout (``copy_benchmark``) with one more cell that new files
+    and entries alone make: ``Tiny_Waymo_L`` (HardVFE, code size 8, a
+    reused first heatmap stage) on the Waymo rig scaled to its range
+    (``waymo_tiny``), a traffic mix, and a per-layer metric of the
+    HardVFE's stage."""
+    copy_benchmark(root)
+    pb = root / "perfbench"
+    shutil.copy(HERE / "Tiny_Waymo_L.json", pb / "configs")
+    shutil.copy(HERE / "waymo_tiny.json", pb / "scans")
+    (pb / "traffic" / "stream_waymo_tiny.json").write_text(json.dumps(
+        {**json.loads((pb / "traffic" / "stream_L.json").read_text()),
+         "rate_hz": 6.0, "pool": 4, "check_items": 2}))
+    (pb / "metrics" / f"{WAYMO_METRIC}.py").write_text(
+        "from perfbench.metrics import _read\n\n\n"
+        "def read(ctx):\n"
+        "    return _read.stage_ms(ctx, 'stream', ('HardVFE',))\n")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({
+        "name": "Tiny_Waymo_L", "source": "tests",
+        "file": "perfbench/configs/Tiny_Waymo_L.json", "reduced": [],
+        "why": "a test's Waymo-path configuration"})
+    bench["workloads"].append({
+        "name": WAYMO_CELL, "config": "Tiny_Waymo_L",
+        "traffic": "stream_waymo_tiny", "chips": 1,
+        "why": "a test's Waymo-path cell"})
+    for m in bench["end_to_end"]:
+        if m["name"].startswith("latency"):
+            m["workloads"].append(WAYMO_CELL)
+    bench["per_layer"].append({
+        "name": WAYMO_METRIC, "unit": "ms", "better": "lower",
+        "source": "program_span", "layer": "HardVFE (models/vfe.py)",
+        "moves": "latency_p50_ms", "workloads": [WAYMO_CELL]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
