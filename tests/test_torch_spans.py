@@ -11,9 +11,15 @@ CPU at Tiny_L's size:
 - with no profiler recording and no ``mark`` a span site is the shared
   null context: a Tiny_L inference and training step run with the range
   constructors and CUDA events replaced by ones that raise;
+- at FocalFormer3D_Waymo_L's structure (Tiny_Waymo_L's widths, two
+  fusion layers, three heatmap stages) an inference opens ``ff3d/HardVFE``
+  and ``ff3d/decoder/heatmap 0``, ``1`` and ``2``, the window's stage
+  split (``perfbench.loops.EventClock``) holds ``HardVFE``, and
+  ``perfbench.spans`` gives each of those spans the launches issued in it;
 - ``T`` times a section and waits for what it names.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -29,6 +35,7 @@ from focalformer3d_tpu_torch.training.train_step import (PHASES,
                                                          make_train_step)
 from focalformer3d_tpu_torch.utils import profiler
 from focalformer3d_tpu_torch.utils.ref_keys import make_fake_state_dict
+from perfbench import loops, spans
 
 torch.set_num_threads(2)
 
@@ -225,6 +232,71 @@ def test_training_step_spans_nest_and_mark_its_phases(tiny):
     assert {n for n in names if n.startswith("index build/")} == {
         f"index build/L{k}" for k in range(4)}
     assert "get_bboxes" not in names
+
+
+def _waymo_setup():
+    """Tiny_Waymo_L with FocalFormer3D_Waymo_L's structure: two
+    ``bevfusionmb2`` fusion layers, two heatmap stages and the reused
+    first."""
+    m = configs.get_config("Tiny_Waymo_L")["model"]
+    cfg = dataclasses.replace(m, neck_layers=2, decoder=dataclasses.replace(
+        m.decoder, multistage_heatmap=2))
+    batch = synthetic.make_batch(
+        np.random.RandomState(0), batch_size=1, n_points=1500, n_boxes=3,
+        max_gts=6, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    model = FocalFormer3D(cfg)
+    model.load_state_dict(make_fake_state_dict(model, seed=3), strict=True)
+    return cfg, model, batch
+
+
+def _on_a_card(prof):
+    """The profile's events, and what a card's profile adds that the CPU's
+    lacks: at the start of each aten op that a span or the item calls
+    itself, the launch that would issue its kernel, and that kernel on
+    the device timeline."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    extra = []
+    for e in events:
+        parent = e.cpu_parent.name if e.cpu_parent is not None else ""
+        if e.name.startswith("aten::") and (
+                parent == loops.ITEM or parent.startswith(profiler.PREFIX)):
+            at = types.SimpleNamespace(start=e.time_range.start,
+                                       end=e.time_range.start)
+            extra += [types.SimpleNamespace(name="cudaLaunchKernel",
+                                            device_type=DeviceType.CPU,
+                                            time_range=at),
+                      types.SimpleNamespace(name=e.name,
+                                            device_type=DeviceType.CUDA,
+                                            time_range=e.time_range)]
+    return types.SimpleNamespace(events=lambda: events + extra)
+
+
+def test_waymo_structure_spans_the_hardvfe_and_three_heatmap_stages():
+    cfg, model, batch = _waymo_setup()
+    assert cfg.decoder.total_stages == 3 and cfg.vfe_type == "HardVFE"
+    clock = loops.EventClock(torch.device("cpu"))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function(loops.ITEM):
+            _infer(cfg, model, batch, clock.mark)
+    assert list(clock.split()) == [
+        "HardVFE", "index build", "sparse convs", "dense tail",
+        "SECOND + neck", "FocalEncoder", "decoder"]
+    ranges = _ranges(prof)
+    parents = {r[2]: _parent(ranges, k) for k, r in enumerate(ranges)}
+    new = ["HardVFE"] + [f"decoder/heatmap {i}" for i in range(3)]
+    assert parents["HardVFE"] is None
+    for i in range(3):
+        assert parents[f"decoder/heatmap {i}"] == "decoder"
+    assert "decoder/heatmap 3" not in parents
+    got = spans.analyse(_on_a_card(prof))
+    assert got["items"] == 1
+    for name in new:
+        assert got["spans"][name]["launches"] > 0, name
+        assert got["spans"][name]["syncs"] == 0, name
 
 
 def test_section_timer_waits_and_times():
