@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.msda import msda_sample
-from .layers import dropout, linear
+from .layers import dropout, filled, linear
 
 
 class MSDeformAttention(nn.Module):
@@ -52,8 +52,9 @@ class MSDeformAttention(nn.Module):
         attn = torch.softmax(attn.reshape(B, Q, nH, L * P), dim=-1)
         attn = attn.reshape(B, Q, nH, L, P)
         values = [linear(v, self.value_proj, dtype) for v in value_levels]
-        norm = torch.tensor([[v.shape[2], v.shape[1]] for v in value_levels],
-                            dtype=torch.float32, device=query.device)
+        norm = filled([n for v in value_levels for n in (v.shape[2],
+                                                        v.shape[1])],
+                      query.device).reshape(len(value_levels), 2)
         loc = (reference_points[:, :, None, None, None, :]
                + offsets / norm[None, None, None, :, None, :])
         out = msda_sample(values, loc, attn, nH)

@@ -36,6 +36,14 @@ wide, and each query reads the slice of its label before the RoI box is
 added. Inputs and outputs keep the JAX layouts: BEV
 maps (B, H, W, C); per-round outputs (B, rounds, Q, d).
 
+On a card at eval without grad every shape in the head is static, so the
+forward runs as CUDA graph replays from a geometry's second call: a graph
+a block of ``_blocks`` (the dense heatmap, each heatmap stage, the queries
+and value levels, each round, the output stack), replayed in its span, the
+returned dict copied out of the graphs' pool (``_block_runs``,
+``utils/graphs``; counted in ``DECODER_BLOCKS``). Its constants are device
+fills (``layers.filled``), so the head reads no device value on the host.
+
 Top-k ties: after peak suppression many cells are exactly 0, and
 ``torch.topk`` does not promise an order among equal values, so proposals
 come from a stable descending sort (ties to the lower flat index, as
@@ -43,6 +51,7 @@ come from a stable descending sort (ties to the lower flat index, as
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -53,12 +62,15 @@ from torch import nn
 from ..configs import FocalDecoderConfig
 from ..core import box_coder as bc
 from ..core.nms import top_k_mask
+from ..ops import cuda_build
 from ..ops.bilinear import grid_sample_norm
 from ..ops.points_in_boxes import points_in_boxes
+from ..utils import graphs
 from ..utils.profiler import span
 from .deformable_decoder import DeformableDecoder
 from .layers import (FLAX_BN_MOMENTUM, ConvBN, MLP, PredictionFFN,
-                     apply_bn, conv2d_nhwc, dropout, linear, sine_embed_2d)
+                     apply_bn, conv2d_nhwc, dropout, filled, linear,
+                     sine_embed_2d)
 
 # shape of the reference checkpoint's bev_pos buffer (a 180 x 180 grid)
 REF_BEV_POS_SHAPE = (1, 32400, 2)
@@ -66,6 +78,11 @@ MASK_MODES = ("poscls", "pos", "boxcls")
 # the dense box heads' regression per class (``boxcls``), whatever the
 # code size: centre offset 2, height 1, dims 3, sin / cos 2, velocity 2
 BOX_DIM = 10
+# head blocks on a card, by how: replayed from a CUDA graph, captured into
+# one, or run eagerly (``train_step.kernel_launches``)
+DECODER_BLOCKS = cuda_build.Launches("decoder_graph_replay",
+                                     "decoder_graph_capture",
+                                     "decoder_eager")
 
 
 def _bev_pos(H: int, W: int, scale: float, device) -> torch.Tensor:
@@ -158,8 +175,9 @@ def _boxcls_mask(cfg, qb, top_cls, bev_pos, top_i, shape):
         cls_cell = torch.where(idx >= 0, top_cls[b][idx.clamp(min=0)],
                                ncls)
         selb = F.one_hot(cls_cell, ncls + 1)[:, :ncls].float()
-        selp = torch.zeros(ncls * HW, device=qb.device)
-        selp[top_i[b]] = 1.0
+        # a scatter: ``selp[top_i[b]] = 1.0`` syncs on a card
+        selp = torch.zeros(ncls * HW, device=qb.device).scatter_(
+            0, top_i[b], 1.0)
         sel.append(torch.maximum(selb.T, selp.reshape(ncls, HW)))
     return torch.stack(sel).reshape(B, ncls, H, W)
 
@@ -234,6 +252,8 @@ class FocalDecoder(nn.Module):
         # carried for reference checkpoints only; positions are recomputed
         # from the BEV size at every forward, as on the JAX side
         self.register_buffer("bev_pos", torch.zeros(REF_BEV_POS_SHAPE))
+        # the eval head's CUDA graphs by geometry (``_block_runs``)
+        self._graphs = graphs.GraphCache(DECODER_BLOCKS, "decoder")
 
     def _grid_points(self, boxes_std):
         """RoI grid points (..., R*R, 2): world xy inside each box."""
@@ -257,8 +277,7 @@ class FocalDecoder(nn.Module):
             qb[..., 8:10] if cfg.with_vel else None,
         )
         gp = self._grid_points(std)
-        pcr = torch.tensor(cfg.pc_range, dtype=torch.float32,
-                           device=qb.device)
+        pcr = filled(cfg.pc_range, qb.device)
         gn = ((gp - pcr[:2]) / (pcr[3:5] - pcr[:2]) * 2.0 - 1.0).clamp(-2, 2)
         roi = torch.cat([
             torch.stack([grid_sample_norm(v[b], gn[b]) for b in range(B)])
@@ -300,7 +319,7 @@ class FocalDecoder(nn.Module):
                     & (torch.linalg.norm(noise, dim=-1)
                        < cfg.add_gt_pos_boxnoise_thresh))
         labels = torch.where(positive & gvalid, gl, ncls).to(torch.int32)
-        pcr = torch.tensor(cfg.pc_range, dtype=torch.float32, device=dev)
+        pcr = filled(cfg.pc_range, dev)
         cx = torch.clamp(centers[..., 0], pcr[0] + 1e-6, pcr[3] - 1e-5)
         cyy = torch.clamp(centers[..., 1], pcr[1] + 1e-6, pcr[4] - 1e-5)
         gx = ((cx - pcr[0]) / (pcr[3] - pcr[0]) * W).to(torch.int32)
@@ -319,6 +338,12 @@ class FocalDecoder(nn.Module):
         return (gqf * vmask, bev_pos[p] * vmask, gqs * vmask, labels,
                 gvalid)
 
+    def _apply(self, *args, **kwargs):
+        # the graphs read the parameters' storage, which a move or a cast
+        # replaces
+        self._graphs.clear()
+        return super()._apply(*args, **kwargs)
+
     def forward(self, lidar_feat: torch.Tensor,
                 stage_feats: List[torch.Tensor],
                 gt_boxes: Optional[torch.Tensor] = None,
@@ -329,10 +354,85 @@ class FocalDecoder(nn.Module):
         """lidar_feat (B, H, W, C) pts_feat_conv; stage_feats per-stage BEV
         maps (+ extra map last); in training the padded GT (B, G, 9) boxes,
         (B, G) labels and validity for the denoising groups, and the
-        generator of the dropouts and the group noise. Each heatmap stage
-        runs in the ``utils/profiler`` span "decoder/heatmap <i>", each
-        decoder round in "decoder/layer <r>". Returns the JAX head's
-        output dict."""
+        generator of the dropouts and the group noise. Runs the blocks of
+        ``_blocks``, each heatmap stage in the ``utils/profiler`` span
+        "decoder/heatmap <i>" and each decoder round in "decoder/layer
+        <r>" (``_block_spans``), as CUDA graph replays where
+        ``_block_runs`` says. Returns the JAX head's output dict."""
+        maps = self._maps(stage_feats)
+        runs, replayed = self._block_runs(lidar_feat, maps, gt_boxes,
+                                          gt_labels, gt_valid, generator)
+        for name in self._block_spans():
+            with span(name) if name else contextlib.nullcontext():
+                out = next(runs)
+        if replayed:  # the replay's outputs live in the graphs' pool
+            out = {k: v.clone() for k, v in out.items()}
+        return out
+
+    def _maps(self, stage_feats: Sequence[torch.Tensor]
+              ) -> List[torch.Tensor]:
+        """The maps the head reads beside lidar_feat: the heatmap stages'
+        own, then the extra map. Where the neck has more fusion layers
+        than the head has heatmap stages (the DeformFormer3D Waymo configs:
+        two layers, one stage) the stages read the deepest maps, where
+        JAX's head asserts (ROADMAP.md Queue 3)."""
+        cfg = self.cfg
+        stage_feats = list(stage_feats)
+        extra = [stage_feats.pop(-1)] if cfg.extra_feat else []
+        reuse = int(cfg.reuse_first_heatmap)
+        n_maps = cfg.total_stages - reuse
+        maps = stage_feats[max(len(stage_feats) - n_maps, 0):]
+        if len(maps) != n_maps:
+            raise ValueError(f"{len(maps) + reuse} stage maps for "
+                             f"{cfg.total_stages} stages")
+        return maps + extra
+
+    def _block_spans(self) -> List[Optional[str]]:
+        """The span of each block of ``_blocks``; None for the blocks
+        between the sub-spans: the dense heatmap before the stages, the
+        queries (and denoising groups) and value levels before the rounds,
+        the output stack after them."""
+        cfg = self.cfg
+        return ([None]
+                + [f"decoder/heatmap {i}" for i in range(cfg.total_stages)]
+                + [None]
+                + [f"decoder/layer {r}"
+                   for r in range(cfg.num_decoder_layers)]
+                + [None])
+
+    def _block_runs(self, lidar_feat, maps, gt_boxes, gt_labels, gt_valid,
+                    generator):
+        """The blocks of ``_blocks``, and whether they are graph replays.
+
+        On a card at eval without grad every shape in the head is static,
+        so the head runs eagerly at a geometry's first call (its warm-up),
+        is captured at its second, a CUDA graph a block, and replays at
+        every later call (``utils/graphs``). It runs eagerly on the CPU, in
+        training or with the denoising groups' GT given, with grad
+        enabled, inside another capture and under a dispatch mode."""
+        inputs = (lidar_feat, *maps)
+
+        def build(*t):
+            return self._blocks(t[0], t[1:], gt_boxes, gt_labels, gt_valid,
+                                generator)
+
+        if lidar_feat.device.type != "cuda":
+            return build(*inputs), False
+        if (self.training or gt_boxes is not None or torch.is_grad_enabled()
+                or graphs.must_run_eagerly()):
+            return self._graphs.eager(build(*inputs)), False
+        cfg = self.cfg
+        key = (self.training, torch.is_inference_mode_enabled(),
+               lidar_feat.device, cfg.tdtype,
+               tuple((t.shape, t.dtype) for t in inputs),
+               cfg.num_proposals, cfg.total_stages, cfg.num_decoder_layers)
+        return self._graphs.run(key, build, len(self._block_spans()),
+                                inputs)
+
+    def _blocks(self, lidar_feat, maps, gt_boxes, gt_labels, gt_valid,
+                generator):
+        """The forward in the blocks of ``_block_spans``: yields None after
+        each block but the last, the output dict after the last."""
         cfg = self.cfg
         dt = cfg.tdtype
         dev = lidar_feat.device
@@ -340,70 +440,65 @@ class FocalDecoder(nn.Module):
         ncls, S, P, HW = cfg.num_classes, cfg.total_stages, \
             cfg.num_proposals, H * W
 
-        stage_feats = list(stage_feats)
-        extra = stage_feats.pop(-1) if cfg.extra_feat else None
-        # more fusion layers than heatmap stages (the DeformFormer3D Waymo
-        # configs: two layers, one stage): the stages read the deepest
-        # maps, where JAX's head asserts (ROADMAP.md Queue 3)
-        n_maps = S - int(cfg.reuse_first_heatmap)
-        stage_feats = stage_feats[max(len(stage_feats) - n_maps, 0):]
+        extra = maps[-1] if cfg.extra_feat else None
+        stage_feats = list(maps[:len(maps) - int(cfg.extra_feat)])
         if cfg.reuse_first_heatmap:
             stage_feats = [lidar_feat] + stage_feats
-        if len(stage_feats) != S:
-            raise ValueError(f"{len(stage_feats)} stage maps for {S} stages")
         bev_pos = _bev_pos(H, W, 1.0, dev)
         dense_heatmap = self.heatmap_head(lidar_feat, dt)  # (B, H, W, ncls)
 
         acc_mask = torch.ones((B, ncls, H, W), device=dev)
         q_feats, q_pos, q_score, q_labels = [], [], [], []
         heatmaps, masks = [], []
+        yield None
+
         for i in range(S):
-            with span(f"decoder/heatmap {i}"):
-                if i == 0 and cfg.reuse_first_heatmap:
-                    dh = dense_heatmap
-                else:
-                    dh = self.heatmap_head_img[str(i)](stage_feats[i], dt)
-                    if i == 0:
-                        heatmaps.append(dense_heatmap)
-                        masks.append(acc_mask)
-                heatmaps.append(dh)
-                masks.append(acc_mask)
-                heat = (torch.sigmoid(dh.permute(0, 3, 1, 2).detach())
-                        * acc_mask)
-                peaks = _peak_suppress(heat, cfg.nms_kernel_size,
-                                       cfg.kernel1_classes)
-                top_i = _stable_top_k(peaks.reshape(B, ncls * HW), P)
-                top_cls = torch.div(top_i, HW, rounding_mode="floor")
-                top_p = top_i % HW
+            if i == 0 and cfg.reuse_first_heatmap:
+                dh = dense_heatmap
+            else:
+                dh = self.heatmap_head_img[str(i)](stage_feats[i], dt)
+                if i == 0:
+                    heatmaps.append(dense_heatmap)
+                    masks.append(acc_mask)
+            heatmaps.append(dh)
+            masks.append(acc_mask)
+            heat = (torch.sigmoid(dh.permute(0, 3, 1, 2).detach())
+                    * acc_mask)
+            peaks = _peak_suppress(heat, cfg.nms_kernel_size,
+                                   cfg.kernel1_classes)
+            top_i = _stable_top_k(peaks.reshape(B, ncls * HW), P)
+            top_cls = torch.div(top_i, HW, rounding_mode="floor")
+            top_p = top_i % HW
 
-                feat = stage_feats[i].reshape(B, HW, C)
-                qf = torch.gather(feat, 1, top_p[..., None].expand(-1, -1, C))
-                one_hot = F.one_hot(top_cls, ncls).to(qf.dtype)
-                qf = qf + F.linear(one_hot.to(dt),
-                                   self.class_encoding.weight[..., 0].to(dt),
-                                   self.class_encoding.bias.to(dt))
-                heat_flat = peaks.reshape(B, ncls, HW).transpose(1, 2)
-                q_feats.append(qf)
-                q_pos.append(bev_pos[top_p])
-                q_score.append(torch.gather(
-                    heat_flat, 1, top_p[..., None].expand(-1, -1, ncls)))
-                q_labels.append(top_cls.to(torch.int32))
+            feat = stage_feats[i].reshape(B, HW, C)
+            qf = torch.gather(feat, 1, top_p[..., None].expand(-1, -1, C))
+            one_hot = F.one_hot(top_cls, ncls).to(qf.dtype)
+            qf = qf + F.linear(one_hot.to(dt),
+                               self.class_encoding.weight[..., 0].to(dt),
+                               self.class_encoding.bias.to(dt))
+            heat_flat = peaks.reshape(B, ncls, HW).transpose(1, 2)
+            q_feats.append(qf)
+            q_pos.append(bev_pos[top_p])
+            q_score.append(torch.gather(
+                heat_flat, 1, top_p[..., None].expand(-1, -1, ncls)))
+            q_labels.append(top_cls.to(torch.int32))
 
-                if cfg.mask_heatmap_mode == "boxcls":
-                    db = self.heatmap_box_head[str(i)](stage_feats[i], dt)
-                    sel = _boxcls_mask(
-                        cfg, _gather_query_boxes(db, bev_pos, top_i, ncls, HW),
-                        top_cls, bev_pos, top_i, (B, ncls, H, W))
-                elif cfg.mask_heatmap_mode == "pos":
-                    sel = torch.zeros((B, HW), device=dev)
-                    sel.scatter_(1, top_p, 1.0)
-                    sel = sel.reshape(B, 1, H, W).expand(B, ncls, H, W)
-                else:
-                    sel = torch.zeros((B, ncls * HW), device=dev)
-                    sel.scatter_(1, top_i, 1.0)
-                    sel = sel.reshape(B, ncls, H, W)
-                acc_mask = acc_mask * (1.0 - _dilate_mask(
-                    sel, cfg.nms_kernel_size, cfg.kernel1_classes))
+            if cfg.mask_heatmap_mode == "boxcls":
+                db = self.heatmap_box_head[str(i)](stage_feats[i], dt)
+                sel = _boxcls_mask(
+                    cfg, _gather_query_boxes(db, bev_pos, top_i, ncls, HW),
+                    top_cls, bev_pos, top_i, (B, ncls, H, W))
+            elif cfg.mask_heatmap_mode == "pos":
+                sel = torch.zeros((B, HW), device=dev)
+                sel.scatter_(1, top_p, 1.0)
+                sel = sel.reshape(B, 1, H, W).expand(B, ncls, H, W)
+            else:
+                sel = torch.zeros((B, ncls * HW), device=dev)
+                sel.scatter_(1, top_i, 1.0)
+                sel = sel.reshape(B, ncls, H, W)
+            acc_mask = acc_mask * (1.0 - _dilate_mask(
+                sel, cfg.nms_kernel_size, cfg.kernel1_classes))
+            yield None
 
         query_feat = torch.cat(q_feats, dim=1)  # (B, S*P, C)
         query_pos = torch.cat(q_pos, dim=1)
@@ -436,43 +531,44 @@ class FocalDecoder(nn.Module):
             levels.append(self.dconv2(levels[-1], dt))
             level_pos.append(_bev_pos(H // 2, W // 2, 2.0, dev))
             level_pos.append(_bev_pos(H // 4, W // 4, 4.0, dev))
-        norm_wh = torch.tensor([W, H], dtype=torch.float32, device=dev)
+        norm_wh = filled((W, H), dev)
+        yield None
 
         rounds: List[Dict[str, torch.Tensor]] = []
         query_box = None
         for r in range(cfg.num_decoder_layers):
-            with span(f"decoder/layer {r}"):
-                ref = query_pos / norm_wh
-                pos_embed = self.pos_embed_learned[r]
-                qpe = pos_embed(sine_embed_2d(ref), dt)
-                vals = levels
-                if cfg.bevpos:
-                    vals = [
-                        v + pos_embed(sine_embed_2d(lp / norm_wh), dt).reshape(
-                            1, v.shape[1], v.shape[2], cfg.hidden)
-                        for v, lp in zip(levels, level_pos)
-                    ]
-                if cfg.roi_feats and query_box is not None:
-                    y = self._roi_features(levels, query_box, dt, generator)
-                    query_feat = (query_feat + y).to(y.dtype)
-                query_feat = self.decoder[r](query_feat, vals, ref, qpe, dt,
-                                             attn_mask, generator)
+            ref = query_pos / norm_wh
+            pos_embed = self.pos_embed_learned[r]
+            qpe = pos_embed(sine_embed_2d(ref), dt)
+            vals = levels
+            if cfg.bevpos:
+                vals = [
+                    v + pos_embed(sine_embed_2d(lp / norm_wh), dt).reshape(
+                        1, v.shape[1], v.shape[2], cfg.hidden)
+                    for v, lp in zip(levels, level_pos)
+                ]
+            if cfg.roi_feats and query_box is not None:
+                y = self._roi_features(levels, query_box, dt, generator)
+                query_feat = (query_feat + y).to(y.dtype)
+            query_feat = self.decoder[r](query_feat, vals, ref, qpe, dt,
+                                         attn_mask, generator)
 
-                res = self.prediction_heads[r](query_feat, dt)
-                if cfg.classaware_reg:
-                    res = _class_slices(res, query_labels, ncls)
-                res["center"] = res["center"] + query_pos
-                query_pos = res["center"].detach()
-                if cfg.roi_based_reg and query_box is not None:
-                    res["dim"] = torch.cat(
-                        [res["dim"][..., :2] + query_box[..., 3:5],
-                         res["dim"][..., 2:]], dim=-1)
-                    res["rot"] = res["rot"] + query_box[..., 6:8]
-                parts = [res["center"], res["height"], res["dim"], res["rot"]]
-                if cfg.with_vel:
-                    parts.append(res["vel"])
-                query_box = torch.cat(parts, dim=-1).detach()
-                rounds.append(res)
+            res = self.prediction_heads[r](query_feat, dt)
+            if cfg.classaware_reg:
+                res = _class_slices(res, query_labels, ncls)
+            res["center"] = res["center"] + query_pos
+            query_pos = res["center"].detach()
+            if cfg.roi_based_reg and query_box is not None:
+                res["dim"] = torch.cat(
+                    [res["dim"][..., :2] + query_box[..., 3:5],
+                     res["dim"][..., 2:]], dim=-1)
+                res["rot"] = res["rot"] + query_box[..., 6:8]
+            parts = [res["center"], res["height"], res["dim"], res["rot"]]
+            if cfg.with_vel:
+                parts.append(res["vel"])
+            query_box = torch.cat(parts, dim=-1).detach()
+            rounds.append(res)
+            yield None
 
         out = {k: torch.stack([r[k] for r in rounds], dim=1)
                for k in rounds[0]}
@@ -484,7 +580,7 @@ class FocalDecoder(nn.Module):
         if groups is not None:
             out["gt_valid_mask"] = groups[4]
             out["gt_query_labels"] = groups[3]
-        return out
+        yield out
 
 
 def _class_slices(res: Dict[str, torch.Tensor], labels: torch.Tensor,

@@ -18,7 +18,7 @@ statistics and updates the running ones as flax does.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -102,6 +102,18 @@ def linear(x: torch.Tensor, lin: nn.Module,
     dt = dtype or x.dtype
     b = lin.bias.to(dt) if lin.bias is not None else None
     return F.linear(x.to(dt), lin.weight.to(dt), b)
+
+
+def filled(values: Sequence[float], device) -> torch.Tensor:
+    """A float32 vector of ``values`` on ``device``, written there one fill
+    a value: ``torch.tensor`` of a Python list is a blocking copy from
+    pageable host memory on a card, a host sync that no CUDA graph can
+    capture. The values round to float32 as ``torch.tensor`` rounds
+    them."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 def dropout(x: torch.Tensor, rate: float,

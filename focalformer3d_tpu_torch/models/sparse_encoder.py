@@ -64,7 +64,7 @@ On a card the kernel engines' index build runs as CUDA graph replays: it is
 all torch ops and the K2 kernel on static shapes (fixed capacities), so
 ``SparseEncoder._index_blocks`` captures it once per input geometry, a
 graph for each "index build" span, and replays it at every later call
-(``IndexGraphs``; counted in ``INDEX_BLOCKS``). The CPU and ``plain`` run
+(``utils/graphs``; counted in ``INDEX_BLOCKS``). The CPU and ``plain`` run
 it eagerly.
 
 ``auto`` is ``cuda`` for tensors on a card and ``plain`` on the CPU; the other
@@ -81,7 +81,6 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from ..ops import cuda_build
 from ..ops import plan_builder as pb
@@ -91,6 +90,7 @@ from ..ops.sparse_conv_cuda import (apply_conv_plain, sparse_conv,
                                     sparse_conv_train)
 from ..ops.sparse_conv_zrun import build_zplan, zrun_rules
 from ..ops.sparse_conv_zrun_cuda import zrun_conv, zrun_conv_train
+from ..utils import graphs
 from ..utils.profiler import span
 from .layers import apply_bn, bn_affine
 
@@ -247,48 +247,6 @@ def conv_index(src: Level, dst: Level, ks, stride, pad, engine: str):
         for b in range(src.valid.shape[0])])
 
 
-class IndexGraphs:
-    """The index build of one input geometry as CUDA graphs: one graph a
-    block of ``SparseEncoder._index_build``, captured in order into one
-    memory pool. The graphs read ``coords`` and ``valid`` from buffers of
-    their own; a block's level, index and backward index live in the
-    pool, where the next replay of that block overwrites them."""
-
-    def __init__(self, build: Callable, n_blocks: int, coords, valid):
-        self.coords, self.valid = coords.clone(), valid.clone()
-        cuda_build.take_captured()  # drop what no earlier capture took
-        blocks = build(self.coords, self.valid)
-        self.graphs, self.outputs, self.launches = [], [], []
-        pool = None
-        for _ in range(n_blocks):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.outputs.append(next(blocks))
-            pool = graph.pool()
-            self.graphs.append(graph)
-            self.launches.append(cuda_build.take_captured())
-            INDEX_BLOCKS.add("index_graph_capture")
-
-    def replay(self, coords, valid):
-        """Copies the inputs in, then yields each block's outputs once its
-        graph has been replayed (on the current stream)."""
-        self.coords.copy_(coords)
-        self.valid.copy_(valid)
-        for graph, out, launches in zip(self.graphs, self.outputs,
-                                        self.launches):
-            graph.replay()
-            cuda_build.add_replays(launches, 1)
-            INDEX_BLOCKS.add("index_graph_replay")
-            yield out
-
-
-def _eager_on_card(blocks):
-    for block in blocks:
-        INDEX_BLOCKS.add("index_eager")
-        yield block
-
-
 class SparseEncoder(nn.Module):
     def __init__(self, in_channels: int = 5,
                  sparse_shape: Sequence[int] = (41, 1440, 1440),
@@ -337,9 +295,8 @@ class SparseEncoder(nn.Module):
             self.encoder_layers.add_module(f"encoder_layer{s + 1}",
                                            nn.ModuleList(mods))
         self.conv_out = _conv_module((3, 1, 1), c, output_channels)
-        # input geometry -> None after its first (eager) call on a card,
-        # then its IndexGraphs
-        self._index_graphs: dict = {}
+        # the index build's CUDA graphs by input geometry
+        self._index_graphs = graphs.GraphCache(INDEX_BLOCKS, "index")
 
     def _stage(self, s: int) -> nn.ModuleList:
         return getattr(self.encoder_layers, f"encoder_layer{s + 1}")
@@ -420,27 +377,20 @@ class SparseEncoder(nn.Module):
 
         On a card, a kernel engine's index build runs eagerly at the first
         call for an input geometry (its warm-up) and is captured at the
-        second (``IndexGraphs``), which then replays it at every call. It
+        second (``utils/graphs``), which then replays it at every call. It
         runs eagerly on the CPU, on ``plain``, inside another capture and
         under a dispatch mode (which sees no op of a replay)."""
-        blocks = self._index_build(coords, valid, engine)
         if engine == "plain" or coords.device.type != "cuda":
-            return blocks, False
-        if (torch.cuda.is_current_stream_capturing()
-                or _get_current_dispatch_mode() is not None):
-            return _eager_on_card(blocks), False
+            return self._index_build(coords, valid, engine), False
+        if graphs.must_run_eagerly():
+            return self._index_graphs.eager(
+                self._index_build(coords, valid, engine)), False
         specs = tuple(self._index_specs(engine == "cuda_mxu"))
         key = (engine, self.training, tuple(coords.shape), coords.device,
                self.sparse_shape, specs)
-        if key not in self._index_graphs:
-            self._index_graphs[key] = None
-            return _eager_on_card(blocks), False
-        graphs = self._index_graphs[key]
-        if graphs is None:
-            graphs = self._index_graphs[key] = IndexGraphs(
-                lambda c, v: self._index_build(c, v, engine), len(specs),
-                coords, valid)
-        return graphs.replay(coords, valid), True
+        return self._index_graphs.run(
+            key, lambda c, v: self._index_build(c, v, engine), len(specs),
+            (coords, valid))
 
     def forward(self, features, coords, valid,
                 mark: Optional[Callable[[str], None]] = None,

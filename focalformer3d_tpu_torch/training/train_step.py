@@ -50,6 +50,7 @@ from ..configs import DetectorConfig
 from ..models import grid_mask as gm
 from ..models.detector import (FocalFormer3D, preprocess_points,
                                trainable_mask)
+from ..models.focal_decoder import DECODER_BLOCKS
 from ..models.sparse_encoder import INDEX_BLOCKS
 from ..ops import plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda
 from ..parallel import mesh
@@ -76,12 +77,16 @@ def kernel_launches() -> Dict[str, int]:
     ``plan`` (``ops/plan_builder_cuda``) and K3 ``zrun``
     (``ops/sparse_conv_zrun_cuda``); then the sparse encoder's index-build
     blocks on a card (``sparse_encoder.INDEX_BLOCKS``):
-    ``index_graph_replay``, ``index_graph_capture`` and ``index_eager``."""
+    ``index_graph_replay``, ``index_graph_capture`` and ``index_eager``;
+    then the head's blocks on a card (``focal_decoder.DECODER_BLOCKS``):
+    ``decoder_graph_replay``, ``decoder_graph_capture`` and
+    ``decoder_eager``."""
     out = {k: sparse_conv_cuda.launch_count(k)
            for k in ("forward", "dx", "wgrad")}
     out["plan"] = plan_builder_cuda.launch_count()
     out["zrun"] = sparse_conv_zrun_cuda.launch_count()
     out.update(INDEX_BLOCKS.counts)
+    out.update(DECODER_BLOCKS.counts)
     return out
 
 
@@ -89,6 +94,7 @@ def reset_kernel_launches() -> None:
     for mod in (plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda):
         mod.reset_launch_count()
     INDEX_BLOCKS.reset()
+    DECODER_BLOCKS.reset()
 
 
 def _img_data_from_batch(batch: Dict[str, torch.Tensor]

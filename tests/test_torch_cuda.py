@@ -40,6 +40,11 @@ ends it: dW at (128, 128) with 27 and 3 taps (``cuda_mxu``'s L3 and
 conv_out) against ``wgrad_plain``, ``zrun_conv_train`` against autograd
 through its plain version (1e-3), and one full-width FocalFormer3D_L step
 on ``cuda_mxu`` and on ``cuda_zrun`` with ``train_step``'s launch counts.
+The CUDA graph replays close it: the index build's against its eager
+build, and the eval head's (FocalFormer3D_L at batch 1 and 4,
+_Waymo_L, ``boxcls``, _Waymo15_L's ``classaware_reg``) against the eager
+head, bit for bit, with no host sync, across ``load_state_dict``, and
+eager in training or with grad.
 """
 import dataclasses
 
@@ -1532,16 +1537,21 @@ def test_zrun_conv_train_vs_plain(dev, geom, cin, cout):
 @pytest.mark.parametrize("engine,launches", [
     ("cuda_mxu", {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8,
                   "zrun": 0, "index_graph_replay": 0,
-                  "index_graph_capture": 0, "index_eager": 8}),
+                  "index_graph_capture": 0, "index_eager": 8,
+                  "decoder_graph_replay": 0, "decoder_graph_capture": 0,
+                  "decoder_eager": 7}),
     ("cuda_zrun", {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0,
                    "zrun": 16, "index_graph_replay": 0,
-                   "index_graph_capture": 0, "index_eager": 6}),
+                   "index_graph_capture": 0, "index_eager": 6,
+                   "decoder_graph_replay": 0, "decoder_graph_capture": 0,
+                   "decoder_eager": 7}),
 ])
 def test_full_width_train_step_per_engine(dev, engine, launches):
     """One float32 FocalFormer3D_L training step at batch 2 on two radial
     200k-point scans on each new engine: finite losses, every parameter
     moved, and the launches of ``train_step``'s accounting exactly (a new
-    model's first step builds its index eagerly, block by block)."""
+    model's first step builds its index eagerly, block by block; a
+    training head always runs eagerly, its 7 blocks)."""
     from focalformer3d_tpu_torch.training import optim, train_step
 
     all_cfg = get_config("FocalFormer3D_L")
@@ -1814,7 +1824,9 @@ def test_index_graph_counters_per_step_and_scan(dev):
     three training steps at batch 2 (eager 6, then capture and replay 6,
     then replay 6), then three eval scans (eager 4, capture and replay 4,
     replay 4); a step's or scan's kernel launches stay as many whether its
-    index build runs eagerly or replays."""
+    index build runs eagerly or replays. The head's counters: eager 7 a
+    training step, and at eval eager 7, then capture and replay 7, then
+    replay 7."""
     from focalformer3d_tpu_torch.training import optim, train_step
 
     all_cfg = get_config("FocalFormer3D_L")
@@ -1833,21 +1845,26 @@ def test_index_graph_counters_per_step_and_scan(dev):
         pc_range=cfg.voxel.point_cloud_range, mode="radial")
     b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
+    head = ("decoder_eager", "decoder_graph_capture", "decoder_graph_replay")
+
     def index_counts(run):
         train_step.reset_kernel_launches()
         run()
         torch.cuda.synchronize()
         got = train_step.kernel_launches()
+        heads.append(tuple(got.pop(k) for k in head))
         return ({k: got.pop(k) for k in ("index_eager",
                                          "index_graph_capture",
                                          "index_graph_replay")}, got)
 
+    heads = []
     steps = [index_counts(lambda: step(m, state, b, gen)) for _ in range(3)]
     assert [c for c, _ in steps] == [
         {"index_eager": 6, "index_graph_capture": 0, "index_graph_replay": 0},
         {"index_eager": 0, "index_graph_capture": 6, "index_graph_replay": 6},
         {"index_eager": 0, "index_graph_capture": 0, "index_graph_replay": 6}]
     assert steps[0][1] == steps[1][1] == steps[2][1]
+    assert heads == [(7, 0, 0)] * 3
     m.eval()
     pts, mask = (x.to(dev) for x in _radial(cfg, 5, 200000))
     with torch.no_grad():
@@ -1858,5 +1875,184 @@ def test_index_graph_counters_per_step_and_scan(dev):
         {"index_eager": 0, "index_graph_capture": 4, "index_graph_replay": 4},
         {"index_eager": 0, "index_graph_capture": 0, "index_graph_replay": 4}]
     assert scans[0][1] == scans[1][1] == scans[2][1]
+    assert heads[3:] == [(7, 0, 0), (0, 7, 7), (0, 0, 7)]
     del m, state, b
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the eval head as CUDA graph replays (models/focal_decoder._block_runs) at
+# the published widths
+# ---------------------------------------------------------------------------
+
+def _head_inputs(dev, name, batch_size, seeds=(0, 1), **delta):
+    """The bf16 detector ``name`` (its decoder's fields changed by
+    ``delta``) on the card with seeded weights, its head's graphs dropped,
+    and the head's arguments on radial 200k-point scans, ``batch_size`` a
+    call, one call a seed: (head, [(lidar_feat, stage_feats)])."""
+    from focalformer3d_tpu_torch.configs import with_compute_dtype
+
+    base = get_config(name)["model"]
+    cfg = with_compute_dtype(dataclasses.replace(
+        base, decoder=dataclasses.replace(base.decoder, **delta)),
+        "bfloat16")
+    m = tdet.FocalFormer3D(cfg).eval()
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev)
+    head = m.pts_bbox_head
+    args = []
+    hook = head.register_forward_pre_hook(lambda mod, a: args.append(
+        (a[0].clone(), [t.clone() for t in a[1]])))
+    with torch.no_grad():
+        for seed in seeds:
+            batch = synthetic.make_batch(
+                np.random.RandomState(seed), batch_size=batch_size,
+                n_points=200000, n_boxes=12, max_gts=16,
+                num_classes=cfg.decoder.num_classes,
+                pc_range=cfg.voxel.point_cloud_range, mode="radial")
+            m(tdet.preprocess_points(
+                cfg, torch.from_numpy(batch["points"]).to(dev),
+                torch.from_numpy(batch["points_mask"]).to(dev)))
+    hook.remove()
+    head._graphs.clear()
+    return head, args
+
+
+def _eager_head(head, lidar_feat, stage_feats):
+    """The head's blocks run through eagerly, past its graphs: copies of
+    the output dict."""
+    with torch.no_grad():
+        out = list(head._blocks(lidar_feat, head._maps(stage_feats), None,
+                                None, None, None))[-1]
+    return {k: v.clone() for k, v in out.items()}
+
+
+def _assert_same_dict(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+def _head_counts():
+    from focalformer3d_tpu_torch.models.focal_decoder import DECODER_BLOCKS
+
+    torch.cuda.synchronize()
+    return dict(DECODER_BLOCKS.counts)
+
+
+@pytest.mark.parametrize("name,batch_size,n", [
+    ("FocalFormer3D_L", 1, 7), ("FocalFormer3D_L", 4, 7),
+    ("FocalFormer3D_Waymo_L", 1, 8)])
+def test_head_replays_equal_the_eager_head(dev, name, batch_size, n):
+    """Two scans' head inputs in turn, four calls: the first runs eagerly,
+    the second captures (a graph a block of ``_block_spans``), the others
+    replay. Every returned dict equals the eager head's on its own inputs
+    bit for bit, read after the last call: a replay on stale inputs would
+    give the other scan's, and a dict left in the graphs' pool would hold
+    the last call's. The counters read one forward's blocks a call; a
+    replay launches no model-path kernel."""
+    from focalformer3d_tpu_torch.models.focal_decoder import DECODER_BLOCKS
+    from focalformer3d_tpu_torch.training import train_step
+
+    head, args = _head_inputs(dev, name, batch_size)
+    assert len(head._block_spans()) == n
+    want = [_eager_head(head, *a) for a in args]
+    assert not torch.equal(want[0]["dense_heatmap"], want[1]["dense_heatmap"])
+    train_step.reset_kernel_launches()
+    outs = []
+    with torch.no_grad():
+        for call in range(4):
+            outs.append(head(*args[call % 2]))
+    assert _head_counts() == {"decoder_eager": n, "decoder_graph_capture": n,
+                              "decoder_graph_replay": 3 * n}
+    got = train_step.kernel_launches()
+    assert all(got[k] == 0 for k in got if k not in DECODER_BLOCKS.counts)
+    for call, out in enumerate(outs):
+        _assert_same_dict(out, want[call % 2])
+        assert out["dense_heatmap"].shape[:2] == (batch_size,
+                                                  head.cfg.total_stages)
+
+
+def test_head_replay_reads_the_loaded_weights(dev):
+    """FocalFormer3D_L's head, captured, then ``load_state_dict`` of other
+    weights: the next call replays (the graphs read the parameters in
+    place) and equals the eager head on the new weights bit for bit."""
+    head, args = _head_inputs(dev, "FocalFormer3D_L", 1, seeds=(0,))
+    with torch.no_grad():
+        for _ in range(2):
+            old = head(*args[0])
+    head.load_state_dict(make_fake_state_dict(head, 5), strict=True)
+    want = _eager_head(head, *args[0])
+    n = len(head._block_spans())
+    before = _head_counts()
+    with torch.no_grad():
+        got = head(*args[0])
+    after = _head_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "decoder_eager": 0, "decoder_graph_capture": 0,
+        "decoder_graph_replay": n}
+    _assert_same_dict(got, want)
+    assert not torch.equal(got["dense_heatmap"], old["dense_heatmap"])
+
+
+def test_head_in_training_or_with_grad_stays_eager(dev):
+    """A captured head runs eagerly with grad enabled, with the GT given,
+    and in training mode (``decoder_eager`` counts their blocks); at eval
+    without grad it replays again."""
+    head, args = _head_inputs(dev, "FocalFormer3D_L", 1, seeds=(0,))
+    lidar_feat, stage_feats = args[0]
+    n = len(head._block_spans())
+    B = lidar_feat.shape[0]
+    gt = (torch.zeros((B, 4, 9), device=dev),
+          torch.zeros((B, 4), dtype=torch.int32, device=dev),
+          torch.zeros((B, 4), dtype=torch.bool, device=dev))
+    with torch.no_grad():
+        for _ in range(2):
+            head(lidar_feat, stage_feats)
+    before = _head_counts()
+    out = head(lidar_feat, stage_feats)
+    assert out["heatmap"].requires_grad
+    with torch.no_grad():
+        head(lidar_feat, stage_feats, *gt)
+        head.train()
+        try:
+            head(lidar_feat, stage_feats)
+        finally:
+            head.eval()
+        head(lidar_feat, stage_feats)
+    after = _head_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "decoder_eager": 3 * n, "decoder_graph_capture": 0,
+        "decoder_graph_replay": n}
+
+
+@pytest.mark.parametrize("name,delta", [
+    ("FocalFormer3D_L", {}),
+    ("FocalFormer3D_L", dict(mask_heatmap_mode="boxcls", heatmap_box=True)),
+    ("FocalFormer3D_Waymo15_L", {})])
+def test_head_never_syncs_and_each_mode_replays(dev, name, delta):
+    """The eval head reads no device value on the host: its eager call and
+    its replays under ``set_sync_debug_mode("error")`` raise nothing (the
+    capture between them would have failed on a sync). The ``boxcls`` mask
+    mode (its dense box heads and points-in-boxes masks) and
+    ``classaware_reg`` (FocalFormer3D_Waymo15_L) capture too, and every
+    call equals the eager head bit for bit."""
+    head, args = _head_inputs(dev, name, 1, seeds=(0,), **delta)
+    assert head.cfg.classaware_reg == (name == "FocalFormer3D_Waymo15_L")
+    want = _eager_head(head, *args[0])
+    n = len(head._block_spans())
+    before = _head_counts()
+    with torch.no_grad():
+        for call in range(4):
+            if call != 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = head(*args[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            _assert_same_dict(out, want)
+    after = _head_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "decoder_eager": n, "decoder_graph_capture": n,
+        "decoder_graph_replay": 3 * n}
