@@ -1,6 +1,6 @@
 // Baseline JPEG writer for test fixtures and the written camera directory
-// of chip_smoke.py: 8-bit YCbCr with 4:2:0 sampling (grayscale for one
-// channel), JFIF header, the quantisation tables of ITU-T
+// of data/synthetic_dirs.py: 8-bit YCbCr with 4:2:0 sampling (grayscale for
+// one channel), JFIF header, the quantisation tables of ITU-T
 // T.81 Annex K scaled by libjpeg's quality rule (jcparam.c), the Annex K
 // Huffman tables, edge-replicated padding to whole MCUs. Nothing on the
 // data path uses it: it lets a machine without Pillow write the JPEGs that

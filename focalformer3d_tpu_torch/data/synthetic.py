@@ -8,8 +8,9 @@ so both packages give equal arrays for one seed
 (``tests/test_torch_voxelize.py``; the camera batch in
 ``tests/test_torch_camera_model.py``).
 
-The port adds what a written camera directory needs (``chip_smoke.py``'s
-``write_nuscenes(cameras=True)`` and the tests' fixtures): the
+The port adds what a written camera directory needs
+(``data/synthetic_dirs.write_nuscenes(cameras=True)`` and the tests'
+fixtures): the
 ``make_cameras`` ring as a nuScenes info holds it (``ring_camera_infos``)
 and camera frames with a textured background under the splats
 (``camera_frames``), which ``data/image_io.encode_jpeg`` writes.

@@ -13,10 +13,11 @@ The sampling is ``F.grid_sample(align_corners=False, padding_mode=
 (``ops/bilinear.py`` here) with four gathers and their weights: one kernel
 a camera instead of about fifty elementwise passes over (P, C) tensors
 (3.2 against 20.6 ms for six cameras at full width on an NVIDIA H100 80GB
-HBM3, ``chip_smoke.py`` phase 15's inputs). Memory: at full width a sample
-has Z x H x W = 10 x 180 x 180 = 324 000 grid points and six cameras; the
-cameras are sampled one after the other into one running sum, so a sample
-holds a few (324 000, C) float32 tensors at a time, not (6, 324 000, C).
+HBM3, on a radial 200k-point scan and its six 448 x 800 cameras). Memory:
+at full width a sample has Z x H x W = 10 x 180 x 180 = 324 000 grid
+points and six cameras; the cameras are sampled one after the other into
+one running sum, so a sample holds a few (324 000, C) float32 tensors at a
+time, not (6, 324 000, C).
 
 The module computes in float32 whatever the LiDAR map's dtype (the JAX
 module's ``nn.Dense`` layers take no dtype, so flax promotes to their

@@ -328,12 +328,13 @@ def route_for(c: int, c_out: int) -> int:
     """The instruction route production K1 takes at kernel widths (C, Cout):
     ``wgmma`` from C = 64 on, ``mma.sync`` below.
 
-    Measured on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` prints
-    both routes' times per conv geometry of a radial 200k-point scan and of
-    a training batch of two; the P2 probe prints kernel A's rate per route
-    at K1's widths). A route's worth is its product rate at the width
-    divided by the share of (group, tap) pairs its skipping leaves: 64-row
-    groups for wgmma, 16-row strips for mma.sync.
+    Measured on an NVIDIA H100 80GB HBM3 at 700 W: both routes' times per
+    conv geometry of a radial 200k-point scan and of a training batch of
+    two, below; the P2 probe prints kernel A's rate per route at K1's
+    widths. The card test ``test_k1_at_every_conv_of_a_full_scan`` holds
+    both routes at every conv of that scan. A route's worth is its product
+    rate at the width divided by the share of (group, tap) pairs its
+    skipping leaves: 64-row groups for wgmma, 16-row strips for mma.sync.
 
     - C = Cout = 16: kernel A runs 18.7 (wgmma) against 19.9 TFLOP/s
       (mma.sync), the shares on the scan are 0.87 against 0.69, and K1

@@ -12,5 +12,6 @@ version on either device), and ``main()``:
     python -m focalformer3d_tpu_torch.tools.micro_gather_kernel
 
 runs the probe at its full size on the card and raises when there is none.
-``chip_smoke.py`` runs all nine. Nothing runs at import.
+``tests/test_torch_cuda.py`` runs all nine at both sizes. Nothing runs at
+import.
 """

@@ -11,8 +11,8 @@ rank), and prints the global loss:
     dryrun_ddp(2): loss=... OK
 
 gloo, since NCCL takes one rank a card and these ranks share one. The
-worker (``one_step`` under ``--worker``) is also what the tests and
-``chip_smoke.py`` spawn, on the CPU or two ranks on one card. On the card
+worker (``one_step`` under ``--worker``) is also what the tests spawn, on
+the CPU or two ranks on one card. On the card
 it runs one untimed step first, so that the step it times and keeps pays
 no first call's costs.
 It reads the global batch and the denoising groups' noise from an ``.npz``
@@ -275,8 +275,9 @@ def compare_to_floor(got: dict, ref: dict, reversed_: dict) -> dict:
     kernel engine. The loss is one number: on a kernel engine what the
     reversed batch moves it by changes threefold from one call to the
     next, and the same step on the same batch moves it by as much between
-    calls, so twice one such reading is no bound (``PERF.md``, PR 16). How far each fault of ``FAULTS`` moves the
-    measures is ``chip_smoke.py`` phase 18's to show. Returns each
+    calls, so twice one such reading is no bound (``PERF.md``). Each fault
+    of ``FAULTS`` fails it at full width on the card (the card test
+    ``test_full_width_two_rank_step_holds_the_floor``). Returns each
     measure, its tolerance and ``ok``."""
     out = {}
     loss_tol = LOSS_TOL if ref["engine"] == "plain" else BF16_ROUNDOFF

@@ -26,8 +26,8 @@ line with the exact integers. The count has three parts:
 - ``sparse_conv``: each sparse conv of the encoder counted from its
   rulebook, per level (a conv belongs to the level it reads; ``conv_out``
   apart): FLOPs 2 x hits x C_in x C_out, a hit being a rule that reads an
-  input row at a valid output site; bytes by ``_common.conv_bytes_flops``,
-  the model by which ``chip_smoke.py`` bounds K1. On ``cuda_zrun`` the
+  input row at a valid output site; bytes by ``_common.conv_bytes_flops``
+  (each operand read once, the output written once). On ``cuda_zrun`` the
   hits are counted on the absolute rulebook that the level's z-run codes
   encode, so a level counts the same on every engine.
 - ``plan_rules``: K2's rulebooks on ``cuda_mxu``, bytes by
@@ -37,7 +37,9 @@ One scan counts the same on the card and the CPU but for what PyTorch
 itself runs on one device only: on the CPU ``F.one_hot`` checks its
 input's range (an ``aten.min``, an ``aten.max`` and two
 ``aten._local_scalar_dense``), which on the card it skips; the decoder's
-one-hot calls add those to a count on the CPU.
+one-hot calls add those to a count on the CPU. ``count_differs`` holds
+two reports of one scan, the card's and the CPU's, to that
+(``tests/test_torch_cuda.py::test_get_flops_on_card_counts_as_the_cpu``).
 
 Both counting modes are suspended inside each conv
 (``SparseEncoder._sparse_conv``, weight folding included) and inside K2
@@ -76,6 +78,9 @@ IMG_KEYS = ("imgs", "lidar2img", "img_aug", "bev_aug")
 NO_BYTES = {"aten._unsafe_view", "aten.empty", "aten.empty_like",
             "aten.empty_strided", "aten.new_empty",
             "aten.new_empty_strided"}
+# what PyTorch runs for one forward on the CPU alone: F.one_hot checks its
+# classes' range there (a min, a max and two item()s a call), not on a card
+CPU_ONLY_OPS = ("aten.min", "aten.max", "aten._local_scalar_dense")
 
 
 def _aliases(func) -> bool:
@@ -281,6 +286,33 @@ def time_forward(model, cfg, points, mask, img, repeat: int
             times.append((time.perf_counter() - t0) * 1e3)
             del out
     return statistics.median(times) if times else None
+
+
+def count_differs(card: dict, cpu: dict):
+    """What differs between two reports of one scan, the card's and the
+    CPU's: the totals, each dense op by name ([calls, FLOPs, bytes]), each
+    sparse level, K2; the ops of ``CPU_ONLY_OPS`` that only the CPU's count
+    holds are set apart and must be ``F.one_hot``'s range check (a min and
+    a max a call, two item()s). Returns (what differs, the CPU-only ops'
+    rows)."""
+    ops_a, ops_b = card["dense"]["by_op"], cpu["dense"]["by_op"]
+    only = {op: ops_b[op] for op in CPU_ONLY_OPS
+            if op in ops_b and op not in ops_a}
+    out = [] if card["flops"] == cpu["flops"] else ["flops"]
+    if card["bytes"] != cpu["bytes"] - sum(r[2] for r in only.values()):
+        out.append("bytes")
+    out += [f"{op} {ops_a.get(op)} against {ops_b.get(op)}"
+            for op in sorted(set(ops_a) | set(ops_b))
+            if op not in only and ops_a.get(op) != ops_b.get(op)]
+    calls = {op: only.get(op, [0])[0] for op in CPU_ONLY_OPS}
+    if only and not (calls["aten.min"] == calls["aten.max"] > 0 and
+                     calls["aten._local_scalar_dense"]
+                     == 2 * calls["aten.min"]):
+        out.append(f"CPU-only ops {only} are not one_hot's range check")
+    for part in ("sparse_conv", "plan_rules"):
+        if card[part] != cpu[part]:
+            out.append(part)
+    return out, only
 
 
 def parse_args(argv: Optional[List[str]] = None):

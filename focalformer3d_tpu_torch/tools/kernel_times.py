@@ -4,16 +4,19 @@ checkout of the repo.
     python -m focalformer3d_tpu_torch.tools.kernel_times --root DIR [--tag T]
         [--kernels k3_dw|gather|widen]
 
-Imports ``chip_smoke`` and ``focalformer3d_tpu_torch`` from the checkout at
-``DIR`` (the repo itself, or an older commit unpacked beside it), so two
-versions of the kernels are timed by the same clock, at the same shapes and
-on the same inputs as ``chip_smoke.py`` gives them: K3 at the five conv
-geometries of engine ``cuda_zrun`` on the radial 200k-point scan (seed 0),
-through ``zrun_conv`` with bias; dW at every conv of the training batch
-(two radial scans, seed 10, engine ``cuda``) through ``conv_wgrad``. Every
-time is ``tools/_common.time_ms`` of this checkout (10 calls replayed from a
-CUDA graph: the device's time per call). Prints one line per geometry and
-one JSON object with the per-scan and per-step sums.
+Imports ``focalformer3d_tpu_torch`` from the checkout at ``DIR`` (the repo
+itself, or an older commit unpacked beside it), so two versions of the
+kernels are timed by the same clock, at the same shapes and on the same
+inputs, which this module builds with the checkout's package: K3 at the
+five conv geometries of engine ``cuda_zrun`` on the radial 200k-point scan
+(seed 0), through ``zrun_conv`` with bias; dW at every conv of the
+training batch (two radial scans, seed 10, engine ``cuda``) through
+``conv_wgrad``. Every time is ``tools/_common.time_ms`` of this checkout
+(10 calls replayed from a CUDA graph: the device's time per call). Prints
+the card's name and power limit, one line per geometry and one JSON object
+with the per-scan and per-step sums. ``tests/test_torch_cuda.py`` holds
+the kernels at every conv of the same scans with the same input builders
+(``radial_scan``, ``walk``, ``convs``, ``rand_conv``, ``train_batch``).
 
 ``--kernels gather`` times kernel B instead (``ops/micro_gather.py`` of the
 checkout) at every case of the probes P6 and P7, on the inputs their
@@ -40,21 +43,105 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
+N_POINTS = 200_000  # a radial scan, the benchmark's L.stream size
+TRAIN_SEED = 10
+TRAIN_BATCH = 2
 
-def _import(root: Path):
+
+def _import(root: Path) -> None:
+    """Drop this checkout's package from ``sys.modules`` and import the
+    one at ``root`` in its place."""
     sys.path.insert(0, str(root))
     for name in [m for m in sys.modules
-                 if m == "chip_smoke" or m.startswith("focalformer3d_tpu_torch")]:
+                 if m.startswith("focalformer3d_tpu_torch")]:
         del sys.modules[name]
-    smoke = importlib.import_module("chip_smoke")
-    if not Path(smoke.__file__).resolve().is_relative_to(root):
-        raise RuntimeError(f"chip_smoke came from {smoke.__file__}, not {root}")
-    return smoke
+    pkg = importlib.import_module("focalformer3d_tpu_torch")
+    if not Path(pkg.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"focalformer3d_tpu_torch came from "
+                           f"{pkg.__file__}, not {root}")
 
 
-def k3_times(smoke, device):
+def radial_scan(cfg, seed: int, device, n_points: int = N_POINTS):
+    """(points, points_mask) of one radial scan of ``cfg``'s range."""
+    from focalformer3d_tpu_torch.data import synthetic
+
+    batch = synthetic.make_batch(
+        np.random.RandomState(seed), batch_size=1, n_points=n_points,
+        n_boxes=24, max_gts=32, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    return (torch.from_numpy(batch["points"]).to(device),
+            torch.from_numpy(batch["points_mask"]).to(device))
+
+
+def train_batch(cfg, device, n_points: int = N_POINTS) -> dict:
+    """The training batch: two radial scans with their GT boxes."""
+    from focalformer3d_tpu_torch.data import synthetic
+
+    batch = synthetic.make_batch(
+        np.random.RandomState(TRAIN_SEED), batch_size=TRAIN_BATCH,
+        n_points=n_points, n_boxes=24, max_gts=32,
+        num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial")
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def walk(cfg, vox, meta_chain: bool, n_levels: int, batch: int = 1):
+    """The encoder's index chain on the first ``batch`` samples of a scan
+    batch, levels 0 .. n_levels - 1: [(name, src level, dst level, kernel,
+    stride, padding)], subm then down per level, conv_out after the last
+    stage."""
+    from focalformer3d_tpu_torch.models.sparse_encoder import Level
+
+    lvl = Level.from_voxels(vox["coords"][:batch],
+                            vox["voxel_mask"][:batch],
+                            tuple(cfg.sparse_shape), meta_chain)
+    geoms = []
+    for i in range(n_levels):
+        geoms.append((f"L{i} subm", lvl, lvl, 3, 1, 1))
+        if i == len(cfg.encoder_channels) - 1:
+            nxt = lvl.downsample((3, 1, 1), (2, 1, 1), 0, cfg.out_capacity)
+            geoms.append(("conv_out", lvl, nxt, (3, 1, 1), (2, 1, 1), 0))
+        else:
+            pad = cfg.down_paddings[i]
+            nxt = lvl.downsample(3, 2, pad, cfg.capacities[i + 1])
+            geoms.append((f"down{i}", lvl, nxt, 3, 2, pad))
+        lvl = nxt
+    return geoms
+
+
+def convs(cfg, geoms):
+    """[(name, geometry index, C, Cout, convs per scan)] of a chain."""
+    ch, n_stage = cfg.encoder_channels, len(cfg.encoder_channels)
+    out = []
+    for g, (name, *_rest) in enumerate(geoms):
+        if name.endswith("subm"):
+            i = int(name[1])
+            n_basic = len(ch[i]) - (i < n_stage - 1)
+            if i == 0:
+                out.append(("conv_input", g, cfg.voxel_feature_dim,
+                            ch[0][0], 1))
+            out.append((name, g, ch[i][0], ch[i][0], 2 * n_basic))
+        elif name == "conv_out":
+            out.append((name, g, ch[-1][-1], cfg.sparse_out_channels, 1))
+        else:
+            i = int(name[4])
+            out.append((name, g, ch[i][-2], ch[i][-1], 1))
+    return out
+
+
+def rand_conv(gen, device, v_in: int, c: int, k: int, cout: int):
+    """bf16 features and weights (He-scaled) and an f32 bias."""
+    feats = torch.randn(1, v_in, c, device=device, generator=gen)
+    w = (torch.randn(k, c, cout, device=device, generator=gen)
+         * (2.0 / (k * c)) ** 0.5)
+    bias = torch.randn(cout, device=device, generator=gen)
+    return feats.to(torch.bfloat16), w.to(torch.bfloat16), bias
+
+
+def k3_times(device):
     from focalformer3d_tpu_torch.configs import get_config, with_compute_dtype
     from focalformer3d_tpu_torch.models.detector import preprocess_points
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
@@ -64,16 +151,16 @@ def k3_times(smoke, device):
     cfg = get_config("FocalFormer3D_L")["model"]
     cfg = with_compute_dtype(dataclasses.replace(cfg, sparse_engine="cuda"),
                              "bfloat16")
-    vox = preprocess_points(cfg, *smoke._scan(cfg, 0, device))
-    geoms = smoke._walk(cfg, vox, False, 2)
+    vox = preprocess_points(cfg, *radial_scan(cfg, 0, device))
+    geoms = walk(cfg, vox, False, 2)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     rows, total = {}, 0.0
-    for name, g, c, cout, n in smoke._convs(cfg, geoms):
+    for name, g, c, cout, n in convs(cfg, geoms):
         _, src, dst, ks, st, pad = geoms[g]
         codes = conv_index(src, dst, ks, st, pad, "cuda_zrun")
-        feats, w, bias = smoke._rand_conv(gen, device, src.capacity, c,
-                                          3 * codes.shape[1], cout)
+        feats, w, bias = rand_conv(gen, device, src.capacity, c,
+                                   3 * codes.shape[1], cout)
         ms = _common.time_ms(device, lambda: k3.zrun_conv(
             feats, codes, w, dst.valid, bias))[0]
         rows[name] = ms
@@ -82,7 +169,7 @@ def k3_times(smoke, device):
     return rows, total
 
 
-def wgrad_times(smoke, device):
+def wgrad_times(device):
     from focalformer3d_tpu_torch.configs import get_config
     from focalformer3d_tpu_torch.models.detector import preprocess_points
     from focalformer3d_tpu_torch.models.sparse_encoder import conv_index
@@ -91,15 +178,15 @@ def wgrad_times(smoke, device):
 
     cfg = dataclasses.replace(get_config("FocalFormer3D_L")["model"],
                               sparse_engine="cuda")
-    batch = smoke._train_batch(cfg, device)
+    batch = train_batch(cfg, device)
     vox = preprocess_points(cfg, batch["points"], batch["points_mask"],
                             train=True)
     B = vox["coords"].shape[0]
-    geoms = smoke._walk(cfg, vox, False, cfg.sparse_dense_from, batch=B)
+    geoms = walk(cfg, vox, False, cfg.sparse_dense_from, batch=B)
     gen = torch.Generator(device=device)
     gen.manual_seed(2)
     rows, total = {}, 0.0
-    for name, g, c, cout, n in smoke._convs(cfg, geoms):
+    for name, g, c, cout, n in convs(cfg, geoms):
         _, src, dst, ks, st, pad = geoms[g]
         rules = conv_index(src, dst, ks, st, pad, "cuda")
         x = torch.where(src.valid[..., None], torch.randn(
@@ -337,8 +424,14 @@ def main():
                     default="k3_dw")
     args = ap.parse_args()
     root = args.root.resolve()
-    smoke = _import(root)
-    device = smoke.phase_device()
+    _import(root)
+    from focalformer3d_tpu_torch.tools.benchmark import card_info
+    from focalformer3d_tpu_torch.tools.train import resolve_device
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    device = resolve_device("cuda")  # TF32 off
+    print(card_info(device), flush=True)
     torch.set_grad_enabled(False)
     if args.kernels == "gather":
         print(json.dumps({"tag": args.tag, "root": str(root),
@@ -348,8 +441,8 @@ def main():
         print(json.dumps({"tag": args.tag, "root": str(root),
                           "widen": widen_times(device)}), flush=True)
         return
-    k3_rows, k3_total = k3_times(smoke, device)
-    dw_rows, dw_total = wgrad_times(smoke, device)
+    k3_rows, k3_total = k3_times(device)
+    dw_rows, dw_total = wgrad_times(device)
     print(json.dumps({"tag": args.tag, "root": str(root),
                       "k3_ms_per_scan": k3_total, "k3": k3_rows,
                       "wgrad_ms_per_step": dw_total, "wgrad": dw_rows}),

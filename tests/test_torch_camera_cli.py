@@ -21,7 +21,7 @@ I2P in place of the LSS (as ``FocalFormer3D_LC_Proj``):
   branch (``img_backbone``, ``img_neck``, ``imgpts_neck.cam_lss``) bit for
   bit and nothing else;
 - a camera config on a nuScenes directory with cameras (six 90 x 160
-  JPEGs a sample, ``chip_smoke.write_nuscenes(cameras=True)``) trains: LC
+  JPEGs a sample, ``synthetic_dirs.write_nuscenes(cameras=True)``) trains: LC
   and LC_Proj, one step each, with finite losses, reading every camera
   through the port's decoder.
 """
@@ -239,11 +239,10 @@ def test_camera_config_on_a_dataset_raises(registered, tmp_path, name):
     step at batch 1, a finite loss, the six cameras of each drawn sample
     decoded (the first batch, drawn as JAX draws it to initialise, and the
     step's)."""
-    import chip_smoke
-    from focalformer3d_tpu_torch.data import image_io
+    from focalformer3d_tpu_torch.data import image_io, synthetic_dirs
 
     cfg_all = tconfigs.get_config("Tiny_L")
-    chip_smoke.write_nuscenes(
+    synthetic_dirs.write_nuscenes(
         tmp_path, seed=6, samples=2, points=1500, sweeps=1,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=4, cameras=True,

@@ -10,7 +10,7 @@ with ``data/image_io`` (its own JPEG decoder and Pillow's geometry,
   1600 x 900 cameras;
 - ``NuScenesDataset(with_images=True).get_sample`` through the train and
   the test pipeline, and ``collate``, on a 2-sample directory with six
-  90 x 160 cameras (``chip_smoke.write_nuscenes(cameras=True)``): images,
+  90 x 160 cameras (``synthetic_dirs.write_nuscenes(cameras=True)``): images,
   ``lidar2img``, ``img_aug``, ``bev_aug``, points and boxes bit for bit;
 - the test CLI with ``--tta`` on a tiny LC config with
   ``FocalFormer3D_LC_TTA``'s ``tta`` (3 scales x the double flip, 12
@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from focalformer3d_tpu.core.merge_augs import tta_augs as jax_tta_augs
 from focalformer3d_tpu.data import nuscenes as jnusc
 from focalformer3d_tpu.data import pipelines as jpl
@@ -42,7 +41,7 @@ from focalformer3d_tpu.models import lss as jlss
 from focalformer3d_tpu.ops import voxelize as jvox
 from focalformer3d_tpu.training import train_step as jts
 from focalformer3d_tpu_torch import configs as tconfigs
-from focalformer3d_tpu_torch.data import image_io
+from focalformer3d_tpu_torch.data import image_io, synthetic_dirs
 from focalformer3d_tpu_torch.data import nuscenes as tnusc
 from focalformer3d_tpu_torch.data import pipelines as tpl
 from focalformer3d_tpu_torch.data import transforms as TT
@@ -138,7 +137,7 @@ def test_scale_normalize_pad_equal_jax(scales):
 
 def _write(root, samples=2):
     cfg_all = tconfigs.get_config("Tiny_L")
-    chip_smoke.write_nuscenes(
+    synthetic_dirs.write_nuscenes(
         root, seed=4, samples=samples, points=1500, sweeps=2,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=4, cameras=True,

@@ -45,23 +45,41 @@ build, and the eval head's (FocalFormer3D_L at batch 1 and 4,
 _Waymo_L, ``boxcls``, _Waymo15_L's ``classaware_reg``) against the eager
 head, bit for bit, with no host sync, across ``load_state_dict``, and
 eager in training or with grad.
+
+This file is the port's only card gate. The last sections hold the port
+at the benchmark's sizes (a radial 200k-point FocalFormer3D_L scan, 180k
+for _Waymo_L; ``tools/kernel_times.py`` builds the inputs): K2, K1 and K3
+at every conv of a scan and the training convs at every conv of a batch of
+two against their plain versions, the full-width BEV on each engine
+against the plain engine, the Waymo configs' scans, the train, benchmark
+and get_flops CLIs, the CLIs on written nuScenes, camera and Waymo
+directories at a real sample's size (``data/synthetic_dirs.py``), the
+frozen camera steps, and data parallelism at full width over two gloo
+ranks on the card, each with its exact launch counts.
 """
 import dataclasses
+import json
+import os
+import socket
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from focalformer3d_tpu_torch.configs import get_config
-from focalformer3d_tpu_torch.data import synthetic
+from focalformer3d_tpu_torch.data import synthetic, synthetic_dirs
 from focalformer3d_tpu_torch.models import detector as tdet
-from focalformer3d_tpu_torch.models.sparse_encoder import backward_index
+from focalformer3d_tpu_torch.models.sparse_encoder import (backward_index,
+                                                           conv_index)
 from focalformer3d_tpu_torch.ops import plan_builder as tpb
 from focalformer3d_tpu_torch.ops import plan_builder_cuda as k2
 from focalformer3d_tpu_torch.ops import sparse_conv as tsc
 from focalformer3d_tpu_torch.ops import sparse_conv_cuda as k1
 from focalformer3d_tpu_torch.ops import sparse_conv_zrun as tzr
 from focalformer3d_tpu_torch.ops import sparse_conv_zrun_cuda as k3
+from focalformer3d_tpu_torch.tools import kernel_times as kt
+from focalformer3d_tpu_torch.training import train_step
 from focalformer3d_tpu_torch.utils.ref_keys import make_fake_state_dict
 
 pytestmark = pytest.mark.cuda
@@ -72,6 +90,21 @@ GEOMS = {
     "down_p011": (3, 2, (0, 1, 1)),
     "conv_out": ((3, 1, 1), (2, 1, 1), 0),
 }
+ENGINES = ("cuda", "cuda_mxu", "cuda_zrun")
+# (K1, K2, K3) launches per eval scan on each kernel engine
+LAUNCHES_PER_SCAN = {"cuda": (11, 0, 0), "cuda_mxu": (21, 8, 0),
+                     "cuda_zrun": (0, 0, 11)}
+KERNELS = ("forward", "dx", "wgrad", "plan", "zrun")
+# K1 forward / dx / dW, K2 and K3 launches of a FocalFormer3D_L training
+# step: 16 sparse convs up to the dense boundary L3 (conv_input's features
+# take no dx); ``cuda_mxu`` is all-sparse, 21
+STEP_LAUNCHES = {
+    "plain": dict.fromkeys(KERNELS, 0),
+    "cuda": {"forward": 16, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 0},
+    "cuda_mxu": {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8, "zrun": 0},
+    "cuda_zrun": {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 16}}
+# points of a full-size radial scan: the benchmark cells' sizes
+FULL = {"FocalFormer3D_L": 200000, "FocalFormer3D_Waymo_L": 180000}
 
 
 @pytest.fixture
@@ -81,6 +114,32 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _kernel_launches():
+    """K1 forward / dx / dW, K2 and K3 launches since
+    ``train_step.reset_kernel_launches``."""
+    got = train_step.kernel_launches()
+    return {k: got[k] for k in KERNELS}
+
+
+def _eval_launches(engine, passes):
+    """What ``passes`` eval scans launch on ``engine``."""
+    fwd, plan, zrun = LAUNCHES_PER_SCAN[engine]
+    return {"forward": fwd * passes, "dx": 0, "wgrad": 0,
+            "plan": plan * passes, "zrun": zrun * passes}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_log(work):
+    """The train records of a work dir's ``train_log.jsonl``."""
+    with open(f"{work}/train_log.jsonl") as fh:
+        return [r for r in map(json.loads, fh) if r["mode"] == "train"]
 
 
 def _voxels(seed, n=5000, cap=6000):
@@ -378,7 +437,7 @@ def test_train_step_on_card_matches_cpu(dev):
     the GT-group noise is one draw, handed to both, so the two steps see
     the same numbers."""
     from focalformer3d_tpu_torch.models import focal_decoder as tfd
-    from focalformer3d_tpu_torch.training import losses, optim, train_step
+    from focalformer3d_tpu_torch.training import losses, optim
 
     cfg = get_config("Tiny_L")["model"]
     cfg = dataclasses.replace(cfg, sparse_engine="cuda",
@@ -689,17 +748,19 @@ def test_sparse_conv_probe_modes(dev, geom, cin, cout):
     assert k1.launch_count("probe") == n0 + 4
 
 
-@pytest.mark.parametrize("name", [
-    "micro_mxu_probe", "micro_dotshape", "micro_dotshape2",
-    "micro_kernel_v2", "micro_pallas_attr", "micro_gather_kernel",
-    "micro_gather2", "micro_batch_grid", "micro_meta9"])
-def test_probe_runs_small_on_card(dev, name):
-    """Every probe at its small size on the card: all checks pass, and
-    every kernel case has its time and its plain version's."""
+PROBES = ("micro_mxu_probe", "micro_dotshape", "micro_dotshape2",
+          "micro_kernel_v2", "micro_pallas_attr", "micro_gather_kernel",
+          "micro_gather2", "micro_batch_grid", "micro_meta9")
+
+
+def _probe_rows(dev, name, size):
+    """A probe's rows at ``size``: all checks pass (each kernel case held
+    against its plain version), and every kernel case has its time and
+    its plain version's."""
     import importlib
 
     mod = importlib.import_module(f"focalformer3d_tpu_torch.tools.{name}")
-    rows = mod.run(dev, "small")
+    rows = mod.run(dev, size)
     assert rows and all(r["ok"] for r in rows), [
         r["case"] for r in rows if not r["ok"]]
     for r in rows:
@@ -707,6 +768,20 @@ def test_probe_runs_small_on_card(dev, name):
             assert r["ms"] > 0 and r["plain_ms"] > 0
         else:
             assert r["library_ms"] > 0
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_runs_small_on_card(dev, name):
+    """Every probe at its small size on the card (``_probe_rows``)."""
+    _probe_rows(dev, name, "small")
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_runs_full_on_card(dev, name):
+    """Every probe at its full size, the original's shapes
+    (``_probe_rows``)."""
+    _probe_rows(dev, name, "full")
+    torch.cuda.empty_cache()
 
 
 def test_probe_timing_counts_graph_replays(dev):
@@ -1080,8 +1155,6 @@ def test_freeze_pts_step_on_card(dev):
     forward at the eval boundary's 11 convs per step and no dx or dW, and
     leave every point-branch parameter and batch-norm statistic (with
     ``imgpts_neck.shared_conv_pts``) bit-identical while the head moves."""
-    from focalformer3d_tpu_torch.training import train_step
-
     cfg, lcfg, tx, m, state, b = _tiny_freeze_setup(dev, True)
     before = {k: v.clone() for k, v in m.state_dict().items()}
     step = train_step.make_train_step(cfg, lcfg, tx)
@@ -1110,7 +1183,6 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     restored into a fresh card model: parameters, buffers, moments and the
     step bit for bit, all on the card."""
     from focalformer3d_tpu_torch.training import checkpoint as ckpt
-    from focalformer3d_tpu_torch.training import train_step
 
     cfg, lcfg, tx, m, state, b = _tiny_freeze_setup(dev, False)
     train_step.make_train_step(cfg, lcfg, tx)(m, state, b, None)
@@ -1157,15 +1229,14 @@ def _top_boxes_close(got, ref, k=50, tol=1e-2):
 
 def test_test_cli_on_card_matches_cpu(dev, tmp_path):
     """The test CLI (Tiny_L, random weights from a seed) on a directory of
-    ``chip_smoke.write_nuscenes``: engine ``cuda`` on the card (K1, 11
+    ``synthetic_dirs.write_nuscenes``: engine ``cuda`` on the card (K1, 11
     launches a sample) against ``--device cpu`` on the plain engine, the
     best 50 boxes of each sample (all 32 that Tiny_L keeps) within 1e-2
     (``_top_boxes_close``)."""
-    import chip_smoke
     from focalformer3d_tpu_torch.tools import test as test_cli
 
     cfg_all = get_config("Tiny_L")
-    chip_smoke.write_nuscenes(
+    synthetic_dirs.write_nuscenes(
         tmp_path, seed=3, samples=2, points=1500, sweeps=2,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=4)
@@ -1191,7 +1262,6 @@ def test_test_cli_on_a_camera_directory_matches_cpu(dev, tmp_path,
     ``cuda`` on the card (K1, 11 launches a sample) against ``--device
     cpu`` on the plain engine, the best 50 boxes of each sample within 1e-2
     (``_top_boxes_close``, as for Tiny_L)."""
-    import chip_smoke
     from focalformer3d_tpu_torch import configs as tconfigs
     from focalformer3d_tpu_torch.data import image_io
     from focalformer3d_tpu_torch.tools import test as test_cli
@@ -1199,7 +1269,7 @@ def test_test_cli_on_a_camera_directory_matches_cpu(dev, tmp_path,
 
     monkeypatch.setitem(tconfigs._REGISTRY, "Tiny_LC", _tiny_lc)
     cfg_all = get_config("Tiny_L")
-    chip_smoke.write_nuscenes(
+    synthetic_dirs.write_nuscenes(
         tmp_path, seed=3, samples=2, points=1500, sweeps=2,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=4, cameras=True,
@@ -1224,6 +1294,38 @@ def test_test_cli_on_a_camera_directory_matches_cpu(dev, tmp_path,
 # dynamic voxelization, DeformFormer3D_L and the TTA merge
 # ---------------------------------------------------------------------------
 
+def _voxel_abs_sums(vcfg, points, mask):
+    """float64 sum of |x| over each kept voxel's points, (max_voxels, D)
+    in CSR order: the scale of a voxel mean's float32 rounding."""
+    from focalformer3d_tpu_torch.ops.voxelize import (INT32_MAX,
+                                                      _linear_key,
+                                                      point_voxel_coords)
+
+    coords, valid = point_voxel_coords(vcfg, points, mask)
+    key = _linear_key(coords, valid, vcfg.grid_size)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    sums = torch.zeros((len(uniq), points.shape[1]), dtype=torch.float64)
+    sums.index_add_(0, inv, points.abs().double())
+    sums = sums[uniq != INT32_MAX][:vcfg.max_voxels]
+    out = torch.zeros((vcfg.max_voxels, points.shape[1]), dtype=torch.float64)
+    out[:len(sums)] = sums
+    return out
+
+
+def _decided(cands, cfg, margin=1e-5):
+    """True where no two valid class-offset candidates have a BEV IoU
+    within ``margin`` of the NMS or the vote threshold (on the CPU): there
+    two correct IoUs may decide differently."""
+    from focalformer3d_tpu_torch.core.iou import boxes_iou_bev
+
+    b, _, lab, v = (torch.from_numpy(x) for x in cands)
+    b = b[v].clone()
+    b[:, 0] += lab[v].to(b.dtype) * (2.0 * 200.0)
+    iou = boxes_iou_bev(b, b)
+    return not any(bool(((iou - t).abs() <= margin).any())
+                   for t in (cfg.nms_thresh, cfg.vote_iou))
+
+
 def _radial(cfg, seed, n):
     batch = synthetic.make_batch(
         np.random.RandomState(seed), batch_size=1, n_points=n, n_boxes=12,
@@ -1241,8 +1343,6 @@ def test_dynamic_voxelize_on_card_matches_cpu(dev, max_voxels):
     order)."""
     from focalformer3d_tpu_torch.ops.voxelize import dynamic_voxelize
 
-    import chip_smoke
-
     cfg = get_config("DeformFormer3D_L_dynamic")["model"]
     vcfg = dataclasses.replace(cfg.voxel, max_voxels=max_voxels)
     pts, mask = (x[0] for x in _radial(cfg, 5, 60000))
@@ -1252,36 +1352,61 @@ def test_dynamic_voxelize_on_card_matches_cpu(dev, max_voxels):
         assert torch.equal(got[k].cpu(), ref[k]), k
     n = int(ref["voxel_mask"].sum())
     assert (n == max_voxels) == (max_voxels == 5000)
-    bound = 2 * 2.0 ** -23 * chip_smoke._voxel_abs_sums(vcfg, pts, mask)
+    bound = 2 * 2.0 ** -23 * _voxel_abs_sums(vcfg, pts, mask)
     err = (got["features"].cpu().double() - ref["features"].double()).abs()
     assert bool((err <= bound).all()), float(err.max())
 
 
-@pytest.mark.parametrize("engine,counts", [
-    ("cuda", (11, 0, 0)), ("cuda_mxu", (21, 8, 0)), ("cuda_zrun", (0, 0, 11))])
-def test_deformformer3d_l_scan_on_card(dev, engine, counts):
-    """DeformFormer3D_L at full width, bf16, one radial 200k-point scan per
-    engine: FocalFormer3D_L's launches per scan (its encoder), 200 queries
-    with finite boxes and scores, 1-200 kept."""
+def _scans_on_card(dev, name, engine, n_points, seeds):
+    """``name`` at full width, bf16, seeded weights, on ``engine``: one
+    radial scan of ``n_points`` a seed, in turn (a third call replays the
+    index build and the head), each through ``preprocess_points`` -> model
+    -> ``get_bboxes``: the head's queries (200 a heatmap stage) with finite
+    boxes and scores, 1-200 kept; FocalFormer3D_L's launches per scan (its
+    encoder) exactly."""
     from focalformer3d_tpu_torch.configs import with_compute_dtype
 
     cfg = with_compute_dtype(dataclasses.replace(
-        get_config("DeformFormer3D_L")["model"], sparse_engine=engine),
-        "bfloat16")
+        get_config(name)["model"], sparse_engine=engine), "bfloat16")
     m = tdet.FocalFormer3D(cfg).eval()
     m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
     m = m.to(dev)
-    pts, mask = (x.to(dev) for x in _radial(cfg, 0, 200000))
-    for k in (k1, k2, k3):
-        k.reset_launch_count()
-    with torch.no_grad():
-        dec = m.get_bboxes(m(tdet.preprocess_points(cfg, pts, mask)), 200)
-    assert (k1.launch_count(), k2.launch_count(), k3.launch_count()) \
-        == counts
-    assert dec["bboxes"].shape == (1, 200, 9)
-    assert torch.isfinite(dec["bboxes"]).all()
-    assert torch.isfinite(dec["scores"]).all()
-    assert 0 < int(dec["mask"].sum()) <= 200
+    train_step.reset_kernel_launches()
+    for seed in seeds:
+        pts, mask = (x.to(dev) for x in _radial(cfg, seed, n_points))
+        with torch.no_grad():
+            dec = m.get_bboxes(m(tdet.preprocess_points(cfg, pts, mask)),
+                               200)
+        queries = cfg.decoder.num_proposals * cfg.decoder.total_stages
+        dim = 9 if cfg.decoder.with_vel else 7
+        assert dec["bboxes"].shape == (1, queries, dim)
+        assert torch.isfinite(dec["bboxes"]).all()
+        assert torch.isfinite(dec["scores"]).all()
+        assert 0 < int(dec["mask"].sum()) <= 200
+    assert _kernel_launches() == _eval_launches(engine, len(seeds))
+
+
+@pytest.mark.parametrize("name,engine", [
+    ("DeformFormer3D_L", "cuda"), ("DeformFormer3D_L", "cuda_mxu"),
+    ("DeformFormer3D_L", "cuda_zrun"), ("DeformFormer3D_L_dynamic", "cuda")])
+def test_deformformer3d_l_scan_on_card(dev, name, engine):
+    """DeformFormer3D_L (the single-stage head) and _dynamic (dynamic
+    voxelization) on one radial 200k-point scan per engine
+    (``_scans_on_card``)."""
+    _scans_on_card(dev, name, engine, 200000, (0,))
+
+
+@pytest.mark.parametrize("name,engine", [
+    ("FocalFormer3D_Waymo_L", "cuda"), ("FocalFormer3D_Waymo_L", "cuda_mxu"),
+    ("FocalFormer3D_Waymo_L", "cuda_zrun"),
+    ("FocalFormer3D_Waymo15_L", "cuda_mxu"),
+    ("DeformFormer3D_Waymo_L", "cuda_mxu")])
+def test_waymo_configs_on_card(dev, name, engine):
+    """The Waymo configs (the HardVFE, the 1536 x 1536 grid; _Waymo15_L's
+    class-aware heads; DeformFormer3D_Waymo_L's single stage) on three
+    radial 180k-point frames in turn (``_scans_on_card``): 7-value
+    boxes."""
+    _scans_on_card(dev, name, engine, 180000, (0, 1, 2))
 
 
 def test_tta_merge_on_card_matches_cpu(dev):
@@ -1290,8 +1415,6 @@ def test_tta_merge_on_card_matches_cpu(dev):
     within 1e-5 of each value's magnitude; the seeded candidates have no
     valid pair within 1e-5 of an IoU threshold (asserted first)."""
     from focalformer3d_tpu_torch.core import merge_augs as ma
-
-    import chip_smoke
 
     rng = np.random.RandomState(8)
     n, objects = 600, 150
@@ -1310,8 +1433,8 @@ def test_tta_merge_on_card_matches_cpu(dev):
     valid = np.zeros((4, n), bool)
     valid[:, :200] = True  # the eval step keeps max_out 200 of each pass
     cfg = ma.TTAConfig(num_classes=10)
-    assert chip_smoke._decided((boxes.reshape(-1, 9), scores.reshape(-1),
-                                labels.reshape(-1), valid.reshape(-1)), cfg)
+    assert _decided((boxes.reshape(-1, 9), scores.reshape(-1),
+                     labels.reshape(-1), valid.reshape(-1)), cfg)
     cpu = [torch.from_numpy(x) for x in (boxes, scores, labels, valid)]
     ref = ma.merge_aug_boxes(cfg, *cpu)
     got = ma.merge_aug_boxes(cfg, *(x.to(dev) for x in cpu))
@@ -1326,8 +1449,6 @@ def test_tta_merge_on_card_matches_cpu(dev):
 def test_deformformer3d_cli_entry_points_on_card(tmp_path, dev):
     """The train CLI (``--synthetic``, one step) and the benchmark CLI
     (two scans on ``cuda``) on DeformFormer3D_L, on the card."""
-    import json
-
     from focalformer3d_tpu_torch.tools import benchmark
     from focalformer3d_tpu_torch.tools import train as train_cli
 
@@ -1368,15 +1489,19 @@ def _camera_run(cfg, model, batch):
         return model(vox, img_data=img)
 
 
-def test_tiny_lc_on_card_matches_cpu_plain(dev):
-    """The tiny LC model (``tests/test_torch_camera_cli.py``, float32) on
-    engine ``cuda`` against the same weights on the CPU's plain engine:
-    the LSS camera BEV within 1e-4 (float32 throughout; ``index_add_`` in
-    atomic order), the head outputs within 1e-2 of scale (K1's bf16
-    operands, as the Tiny_L slice)."""
-    from test_torch_camera_cli import _tiny_lc
+@pytest.mark.parametrize("make,block", [
+    ("_tiny_lc", "imgpts_neck.cam_lss"),
+    ("_tiny_lc_proj", "imgpts_neck.fusion_blocks.0.I2P_block")])
+def test_tiny_lc_on_card_matches_cpu_plain(dev, make, block):
+    """The tiny LC and LC_Proj models (``tests/test_torch_camera_cli.py``,
+    float32) on engine ``cuda`` against the same weights on the CPU's
+    plain engine: the camera block's output (the LSS BEV; I2P's decorated
+    LiDAR map) within 1e-4 (float32 throughout; ``index_add_`` in atomic
+    order, I2P's grid and projection in float64), the head outputs within
+    1e-2 of scale (K1's bf16 operands, as the Tiny_L slice)."""
+    import test_torch_camera_cli
 
-    cfg = _tiny_lc()["model"]
+    cfg = getattr(test_torch_camera_cli, make)()["model"]
     cpu_cfg = dataclasses.replace(cfg, sparse_engine="plain")
     ref_m = tdet.FocalFormer3D(cpu_cfg).eval()
     ref_m.load_state_dict(make_fake_state_dict(ref_m, 0), strict=True)
@@ -1385,8 +1510,9 @@ def test_tiny_lc_on_card_matches_cpu_plain(dev):
     m = m.eval().to(dev)
     bevs = {}
     for name, mod in (("cpu", ref_m), ("card", m)):
-        mod.imgpts_neck.cam_lss.register_forward_hook(
-            lambda _m, a, out, name=name: bevs.update({name: out[0]}))
+        mod.get_submodule(block).register_forward_hook(
+            lambda _m, a, out, name=name: bevs.update(
+                {name: out[0] if isinstance(out, tuple) else out}))
     batch = _camera_batch(cfg, 0, 3000)
     ref = _camera_run(cpu_cfg, ref_m, batch)
     got = _camera_run(m.cfg, m, {k: v.to(dev) for k, v in batch.items()})
@@ -1403,13 +1529,15 @@ def test_tiny_lc_on_card_matches_cpu_plain(dev):
 
 @pytest.mark.parametrize("engine", ["cuda", "cuda_mxu", "cuda_zrun"])
 def test_lc_launches_equal_the_lidar_models(dev, engine):
-    """FocalFormer3D_LC at full width (bf16, one radial 200k-point scan and
-    its six 448 x 800 cameras) launches per scan exactly what
-    FocalFormer3D_L launches on the same scan: its point branch."""
+    """FocalFormer3D_LC and _LC_Proj at full width (bf16, one radial
+    200k-point scan and its six 448 x 800 cameras) launch per scan exactly
+    what FocalFormer3D_L launches on the same scan, its point branch:
+    ``LAUNCHES_PER_SCAN``; finite boxes, 200 kept."""
     from focalformer3d_tpu_torch.configs import with_compute_dtype
 
     counts = {}
-    for name in ("FocalFormer3D_L", "FocalFormer3D_LC"):
+    for name in ("FocalFormer3D_L", "FocalFormer3D_LC",
+                 "FocalFormer3D_LC_Proj"):
         cfg = with_compute_dtype(dataclasses.replace(
             get_config(name)["model"], sparse_engine=engine), "bfloat16")
         m = tdet.FocalFormer3D(cfg).eval()
@@ -1426,8 +1554,7 @@ def test_lc_launches_equal_the_lidar_models(dev, engine):
         assert int(dec["mask"].sum()) == 200
         del m, out
         torch.cuda.empty_cache()
-    assert counts["FocalFormer3D_LC"] == counts["FocalFormer3D_L"]
-    assert sum(counts["FocalFormer3D_L"]) > 0
+    assert set(counts.values()) == {LAUNCHES_PER_SCAN[engine]}
 
 
 def test_camera_only_launches_no_kernel(dev):
@@ -1534,25 +1661,15 @@ def test_zrun_conv_train_vs_plain(dev, geom, cin, cout):
     assert torch.all(res["kernel"][1][0][~valid] == 0)
 
 
-@pytest.mark.parametrize("engine,launches", [
-    ("cuda_mxu", {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8,
-                  "zrun": 0, "index_graph_replay": 0,
-                  "index_graph_capture": 0, "index_eager": 8,
-                  "decoder_graph_replay": 0, "decoder_graph_capture": 0,
-                  "decoder_eager": 7}),
-    ("cuda_zrun", {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0,
-                   "zrun": 16, "index_graph_replay": 0,
-                   "index_graph_capture": 0, "index_eager": 6,
-                   "decoder_graph_replay": 0, "decoder_graph_capture": 0,
-                   "decoder_eager": 7}),
-])
-def test_full_width_train_step_per_engine(dev, engine, launches):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_full_width_train_step_per_engine(dev, engine):
     """One float32 FocalFormer3D_L training step at batch 2 on two radial
-    200k-point scans on each new engine: finite losses, every parameter
-    moved, and the launches of ``train_step``'s accounting exactly (a new
-    model's first step builds its index eagerly, block by block; a
-    training head always runs eagerly, its 7 blocks)."""
-    from focalformer3d_tpu_torch.training import optim, train_step
+    200k-point scans on each kernel engine: finite losses, every parameter
+    and batch-norm running mean moved, and the launches of
+    ``train_step``'s accounting exactly (``STEP_LAUNCHES``; a new model's
+    first step builds its index eagerly, block by block; a training head
+    always runs eagerly, its 7 blocks)."""
+    from focalformer3d_tpu_torch.training import optim
 
     all_cfg = get_config("FocalFormer3D_L")
     cfg = dataclasses.replace(all_cfg["model"], sparse_engine=engine)
@@ -1563,7 +1680,7 @@ def test_full_width_train_step_per_engine(dev, engine, launches):
     m = tdet.FocalFormer3D(cfg)
     m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
     m = m.to(dev)
-    before = {k: v.detach().clone() for k, v in m.named_parameters()}
+    before = {k: v.detach().clone() for k, v in m.state_dict().items()}
     tx = optim.make_optimizer(total_steps=10)
     state = tx.init(m.named_parameters())
     gen = torch.Generator(device=dev)
@@ -1573,10 +1690,16 @@ def test_full_width_train_step_per_engine(dev, engine, launches):
     met = train_step.make_train_step(cfg, all_cfg["loss"], tx)(m, state, b,
                                                                gen)
     torch.cuda.synchronize()
-    assert train_step.kernel_launches() == launches
+    assert train_step.kernel_launches() == {
+        **STEP_LAUNCHES[engine], "index_graph_replay": 0,
+        "index_graph_capture": 0, "index_eager": INDEX_BLOCKS[engine][1],
+        "decoder_graph_replay": 0, "decoder_graph_capture": 0,
+        "decoder_eager": 7}
     assert all(np.isfinite(float(v)) for v in met.values())
-    still = [k for k, p in m.named_parameters()
-             if torch.equal(p.detach(), before[k])]
+    after = m.state_dict()
+    still = [k for k in [n for n, _ in m.named_parameters()]
+             + [n for n in after if n.endswith("running_mean")]
+             if torch.equal(after[k], before[k])]
     assert not still, still[:5]
     del m, state, b
     torch.cuda.empty_cache()
@@ -1622,16 +1745,15 @@ def test_hard_voxelize_and_hard_vfe_on_card_match_cpu(dev):
 
 def test_test_cli_on_a_waymo_directory_matches_cpu(dev, tmp_path):
     """The test CLI (Tiny_Waymo_L, random weights from a seed) on a
-    directory of ``chip_smoke.write_waymo``: engine ``cuda`` on the card
+    directory of ``synthetic_dirs.write_waymo``: engine ``cuda`` on the card
     (K1, 11 launches a frame) against ``--device cpu`` on the plain
     engine, the best 50 boxes of each frame (all 32 that Tiny_Waymo_L
     keeps) within 1e-2 (``_top_boxes_close``, as for Tiny_L), the same
     ground truth with its LEVEL_2-only flags, and finite L1 / L2 metrics."""
-    import chip_smoke
     from focalformer3d_tpu_torch.tools import test as test_cli
 
     cfg_all = get_config("Tiny_Waymo_L")
-    chip_smoke.write_waymo(
+    synthetic_dirs.write_waymo(
         tmp_path, seed=3, frames=2, points=3000,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=6)
@@ -1662,9 +1784,10 @@ def test_two_rank_step_on_one_card_matches_world_size_1(dev, tmp_path):
     world-size-1 step at batch 2, tensor by tensor at
     ``tests/test_torch_train_step.py``'s tolerances
     (``dryrun_ddp.compare``); the ranks end with the same parameters bit
-    for bit. ``chip_smoke.py`` phase 18 runs ``plain`` and the kernel
-    engines at full width, where a change of the sums' order alone flips
-    bf16 roundings and top-k picks, against the reversed batch's floor."""
+    for bit. ``test_full_width_two_rank_step_holds_the_floor`` runs
+    ``plain`` and the kernel engines at full width, where a change of the
+    sums' order alone flips bf16 roundings and top-k picks, against the
+    reversed batch's floor."""
     from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
 
     cfg = get_config("Tiny_L")["model"]
@@ -1827,7 +1950,7 @@ def test_index_graph_counters_per_step_and_scan(dev):
     index build runs eagerly or replays. The head's counters: eager 7 a
     training step, and at eval eager 7, then capture and replay 7, then
     replay 7."""
-    from focalformer3d_tpu_torch.training import optim, train_step
+    from focalformer3d_tpu_torch.training import optim
 
     all_cfg = get_config("FocalFormer3D_L")
     cfg = all_cfg["model"]
@@ -1953,7 +2076,6 @@ def test_head_replays_equal_the_eager_head(dev, name, batch_size, n):
     the last call's. The counters read one forward's blocks a call; a
     replay launches no model-path kernel."""
     from focalformer3d_tpu_torch.models.focal_decoder import DECODER_BLOCKS
-    from focalformer3d_tpu_torch.training import train_step
 
     head, args = _head_inputs(dev, name, batch_size)
     assert len(head._block_spans()) == n
@@ -2056,3 +2178,709 @@ def test_head_never_syncs_and_each_mode_replays(dev, name, delta):
     assert {k: after[k] - before[k] for k in after} == {
         "decoder_eager": n, "decoder_graph_capture": n,
         "decoder_graph_replay": 3 * n}
+
+
+# ---------------------------------------------------------------------------
+# the kernels at every conv of a full-size scan and training batch
+# ---------------------------------------------------------------------------
+
+def _full_scan(dev, name):
+    """``name``'s bf16 config on engine ``cuda`` and the voxels of its
+    radial scan (seed 0) at the benchmark's size (``FULL``)."""
+    from focalformer3d_tpu_torch.configs import with_compute_dtype
+
+    cfg = with_compute_dtype(dataclasses.replace(
+        get_config(name)["model"], sparse_engine="cuda"), "bfloat16")
+    return cfg, tdet.preprocess_points(
+        cfg, *kt.radial_scan(cfg, 0, dev, FULL[name]))
+
+
+@pytest.mark.parametrize("name", list(FULL))
+def test_k2_rulebooks_at_every_conv_of_a_full_scan(dev, name):
+    """K2's rulebooks at every conv of ``cuda_mxu``'s meta chain on a
+    full-size radial scan (FocalFormer3D_L; _Waymo_L on its 1536 x 1536
+    grid) equal ``decode_rules`` and ``build_conv_rules`` exactly."""
+    cfg, vox = _full_scan(dev, name)
+    for conv, src, dst, ks, st, pad in kt.walk(
+            cfg, vox, True, len(cfg.encoder_channels)):
+        args = (src.meta, dst.colz, src.capacity, ks, st, pad, src.shape,
+                dst.shape[2])
+        got = k2.plan_rules(*args)[0]
+        table = tsc.VoxelTable(src.sites()[0], src.valid[0], src.meta[0])
+        assert torch.equal(got, tpb.decode_rules(
+            dst.colz[0], src.capacity, src.meta[0], *args[3:])), conv
+        assert torch.equal(got, tsc.build_conv_rules(
+            table, src.shape, dst.sites()[0], dst.valid[0], ks, st,
+            pad)), conv
+
+
+@pytest.mark.parametrize("name", list(FULL))
+def test_k1_at_every_conv_of_a_full_scan(dev, name):
+    """K1 at the convs of ``cuda`` (torch-op rulebooks, L0-L1) and the
+    four more of ``cuda_mxu`` (K2's rulebooks: L2, L3, conv_out) on a
+    full-size radial scan, at the model's widths: within 1e-3 of the plain
+    version's scale on production's route and on the other one (the phase
+    probe in full mode); two runs equal bit for bit."""
+    cfg, vox = _full_scan(dev, name)
+    coord = kt.walk(cfg, vox, False, 2)
+    mxu = kt.walk(cfg, vox, True, len(cfg.encoder_channels))
+    jobs = [(c, coord, "cuda") for c in kt.convs(cfg, coord)]
+    jobs += [(c, mxu, "cuda_mxu") for c in kt.convs(cfg, mxu)
+             if c[1] >= len(coord)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for (conv, g, c, cout, _), geoms, engine in jobs:
+        _, src, dst, ks, st, pad = geoms[g]
+        rules = conv_index(src, dst, ks, st, pad, engine)
+        feats, w, bias = kt.rand_conv(gen, dev, src.capacity, c,
+                                      rules.shape[1], cout)
+        args = (feats, rules, w, dst.valid, bias)
+        ref = k1.apply_conv_plain(feats.float(), rules, w.float(), dst.valid,
+                                  bias)
+        got = k1.sparse_conv(*args)
+        assert torch.equal(got, k1.sparse_conv(*args)), conv
+        assert _rel(got, ref) <= 1e-3, conv
+        other = 1 - k1.route_for(*k1.kernel_widths(c, cout))
+        assert _rel(k1.sparse_conv_probe(*args, route=other), ref) <= 1e-3, \
+            conv
+
+
+@pytest.mark.parametrize("name", list(FULL))
+def test_k3_at_every_conv_of_a_full_scan(dev, name):
+    """K3 at every conv of ``cuda_zrun`` (L0-L1) on a full-size radial
+    scan, at the model's widths: within 1e-3 of its plain version's scale
+    on both routes; two runs equal bit for bit."""
+    cfg, vox = _full_scan(dev, name)
+    geoms = kt.walk(cfg, vox, False, 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for conv, g, c, cout, _ in kt.convs(cfg, geoms):
+        _, src, dst, ks, st, pad = geoms[g]
+        codes = conv_index(src, dst, ks, st, pad, "cuda_zrun")
+        feats, w, bias = kt.rand_conv(gen, dev, src.capacity, c,
+                                      3 * codes.shape[1], cout)
+        args = (feats, codes, w, dst.valid, bias)
+        ref = tzr.apply_conv_zrun_plain(feats.float(), codes, w.float(),
+                                        dst.valid, bias)
+        assert torch.equal(k3.zrun_conv(*args), k3.zrun_conv(*args)), conv
+        for route in k1.ROUTE_NAMES:
+            assert _rel(k3.zrun_conv(*args, route=route), ref) <= 1e-3, (
+                conv, route)
+
+
+@pytest.mark.parametrize("name,engine", [
+    ("FocalFormer3D_L", "cuda"), ("FocalFormer3D_L", "cuda_mxu"),
+    ("FocalFormer3D_L", "cuda_zrun"), ("FocalFormer3D_Waymo_L", "cuda")])
+def test_training_convs_at_every_conv_of_a_full_batch(dev, name, engine):
+    """Every sparse conv of a float32 training batch (two radial full-size
+    scans, the training voxel cap) on ``engine``: ``cuda`` and
+    ``cuda_zrun`` up to the training dense boundary L3, ``cuda_mxu`` every
+    level and conv_out. The engine's differentiable conv
+    (``sparse_conv_train`` on the rulebook and its transpose;
+    ``zrun_conv_train`` on the z-run codes) against autograd through
+    ``apply_conv_bf16_plain`` on the rulebook it reads: output, dx and dW
+    within 1e-3 of scale (conv_input takes a dx only where its features
+    train, the Waymo HardVFE's); dW's two runs equal bit for bit."""
+    cfg = dataclasses.replace(get_config(name)["model"], sparse_engine=engine)
+    batch = kt.train_batch(cfg, dev, FULL[name])
+    vox = tdet.preprocess_points(cfg, batch["points"], batch["points_mask"],
+                                 train=True)
+    B = vox["coords"].shape[0]
+    mxu = engine == "cuda_mxu"
+    geoms = kt.walk(cfg, vox, mxu, len(cfg.encoder_channels) if mxu
+                    else cfg.sparse_dense_from, batch=B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for conv, g, c, cout, _ in kt.convs(cfg, geoms):
+        _, src, dst, ks, st, pad = geoms[g]
+        index = conv_index(src, dst, ks, st, pad, engine)
+        rules, rules_t = backward_index(index, src.capacity, engine, st != 1)
+        K = rules.shape[1]
+        x = torch.where(src.valid[..., None], torch.randn(
+            B, src.capacity, c, device=dev, generator=gen), 0.0)
+        w = (torch.randn(K, c, cout, device=dev, generator=gen)
+             * (2.0 / (K * c)) ** 0.5)
+        cot = torch.where(dst.valid[..., None], torch.randn(
+            B, dst.capacity, cout, device=dev, generator=gen), 0.0)
+        need_dx = cfg.vfe_type == "HardVFE" or conv != "conv_input"
+        res = {}
+        for side in ("kernel", "plain"):
+            xx = x.clone().requires_grad_(need_dx)
+            ww = w.clone().requires_grad_(True)
+            with torch.enable_grad():
+                if side == "plain":
+                    y = k1.apply_conv_bf16_plain(xx, rules, ww, dst.valid)
+                elif engine == "cuda_zrun":
+                    y = k3.zrun_conv_train(xx, index, rules, rules_t, ww,
+                                           dst.valid)
+                else:
+                    y = k1.sparse_conv_train(xx, rules, rules_t, ww,
+                                             dst.valid)
+                y.backward(cot)
+            res[side] = (y.detach(), xx.grad, ww.grad)
+        for what, got, ref in zip(("out", "dx", "dW"), res["kernel"],
+                                  res["plain"]):
+            assert (got is None) == (ref is None) == (what == "dx"
+                                                      and not need_dx)
+            if got is not None:
+                assert _rel(got, ref) <= 1e-3, (conv, what)
+        xb = x.bfloat16()
+        assert torch.equal(k1.conv_wgrad(xb, cot, rules),
+                           k1.conv_wgrad(xb, cot, rules)), conv
+
+
+@pytest.mark.parametrize("name", list(FULL))
+def test_full_width_bev_matches_the_plain_engine(dev, name):
+    """The encoder's BEV of the full-width bf16 model on a full-size
+    radial scan on each kernel engine against the plain engine with the
+    same weights (dense from the eval boundary; the all-sparse
+    ``cuda_mxu`` against dense from L4): within 1e-2 of scale."""
+    from focalformer3d_tpu_torch.models.sparse_encoder import SparseEncoder
+
+    cfg, vox = _full_scan(dev, name)
+    m = tdet.FocalFormer3D(cfg).eval()
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev)
+    enc = m.pts_middle_encoder
+    plain = SparseEncoder(
+        in_channels=cfg.voxel_feature_dim, sparse_shape=cfg.sparse_shape,
+        output_channels=cfg.sparse_out_channels,
+        encoder_channels=cfg.encoder_channels,
+        down_paddings=cfg.down_paddings, capacities=cfg.capacities,
+        out_capacity=cfg.out_capacity, engine="plain").to(dev).eval()
+    plain.load_state_dict(enc.state_dict(), strict=True)
+    ref = {}
+    with torch.no_grad():
+        feats = (m.pts_voxel_encoder(vox["voxels"], vox["num_points"])
+                 if cfg.vfe_type == "HardVFE" else vox["features"])
+        args = (feats, vox["coords"], vox["voxel_mask"])
+        for engine in ENGINES:
+            enc.engine = engine
+            dense_from = 4 if engine == "cuda_mxu" \
+                else cfg.sparse_dense_from_eval
+            if dense_from not in ref:
+                plain.dense_from = dense_from
+                ref[dense_from] = plain(*args)
+            assert _rel(enc(*args), ref[dense_from]) <= 1e-2, engine
+
+
+# ---------------------------------------------------------------------------
+# the CLIs at full width: train, benchmark, get_flops
+# ---------------------------------------------------------------------------
+
+def test_train_cli_keeps_last_and_resumes_on_card(dev, tmp_path):
+    """The train CLI on FocalFormer3D_L (``--synthetic``, 2 epochs of 2
+    steps at batch 2, ``--keep-last 1``), called with TF32 allowed, as a
+    process of its own starts: it turns TF32 off, logs four finite losses
+    and keeps ``epoch_2`` alone; a second call resumes at epoch 2, step 4,
+    with the parameters, buffers and moments bit for bit."""
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    argv = ["FocalFormer3D_L", "--synthetic", "--epochs", "2",
+            "--iters-per-epoch", "2", "--keep-last", "1", "--log-interval",
+            "1", "--batch-size", "2", "--work-dir", str(tmp_path),
+            "--no-tensorboard"]
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    for f in flags:
+        f.allow_tf32 = True
+    run = train_cli.main(argv)
+    assert not any(f.allow_tf32 for f in flags)
+    losses = [r["loss"] for r in _train_log(tmp_path)]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert ckpt.list_epochs(str(tmp_path)) == [2]
+    again = train_cli.main(argv)
+    assert run.opt_state.count == again.opt_state.count == 4
+    assert again.start_epoch == 2
+    got = again.model.state_dict()
+    for k, v in run.model.state_dict().items():
+        assert torch.equal(got[k], v), k
+    for a, b in zip(run.opt_state.mu + run.opt_state.nu,
+                    again.opt_state.mu + again.opt_state.nu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("argv", [
+    ["FocalFormer3D_L", "--samples", "3", "--warmup", "1"],
+    ["FocalFormer3D_L", "--train", "--samples", "2", "--batch-size", "2"],
+    ["FocalFormer3D_Waymo_L", "--samples", "3", "--warmup", "1",
+     "--n-points", "180000", "--big-batch", "0"]],
+    ids=["inference", "train", "waymo"])
+def test_benchmark_cli_on_card(dev, capsys, argv):
+    """The benchmark CLI on the three kernel engines prints one JSON line
+    with a finite time per engine; at inference a stage split and each
+    level's occupancy per engine after it (_Waymo_L's split holds its
+    ``HardVFE`` stage)."""
+    from focalformer3d_tpu_torch.tools import benchmark
+
+    benchmark.main([*argv, "--engines", ",".join(ENGINES)])
+    out = capsys.readouterr().out.splitlines()
+    recs = [json.loads(x) for x in out if x.startswith("{")]
+    assert len(recs) == 1 and sorted(recs[0]["engines"]) == sorted(ENGINES)
+    key = "ms_per_step" if "--train" in argv else "ms_per_scan"
+    assert all(np.isfinite(r[key]["median"])
+               for r in recs[0]["engines"].values())
+    if "--train" not in argv:
+        split = [x for x in out if x.startswith("stage split")]
+        assert len(split) == 3 and len(
+            [x for x in out if x.startswith("occupancy")]) == 3
+        assert all(("HardVFE" in x) == (argv[0] == "FocalFormer3D_Waymo_L")
+                   for x in split)
+
+
+def test_get_flops_on_card_counts_as_the_cpu(dev):
+    """``tools/get_flops`` on FocalFormer3D_L (its float32 config, the JAX
+    tool's 200k-point scan) on each kernel engine, a counted forward and a
+    timed one: each forward the engine's launches a scan; L0 and L1 count
+    the same on every engine; on ``cuda`` the sparse FLOPs equal 2 x hits
+    x C x Cout over the scan's convs, hits counted on their rulebooks, and
+    the card's count equals ``--device cpu``'s op by op but for
+    ``F.one_hot``'s range check (``get_flops.count_differs``).
+    FocalFormer3D_LC and _Waymo_L count on the card with ``cuda``'s
+    launches."""
+    from focalformer3d_tpu_torch.tools import get_flops
+
+    reps = {}
+    for engine in ENGINES:
+        train_step.reset_kernel_launches()
+        reps[engine] = get_flops.main(["FocalFormer3D_L", "--engine", engine,
+                                       "--repeat", "1"])
+        assert _kernel_launches() == _eval_launches(engine, 2)
+        assert reps[engine]["forward_ms"] > 0
+    levels = {e: {lv: r["sparse_conv"]["levels"][lv] for lv in ("L0", "L1")}
+              for e, r in reps.items()}
+    assert levels["cuda_mxu"] == levels["cuda_zrun"] == levels["cuda"]
+    cfg = get_config("FocalFormer3D_L")["model"]
+    pts, mask, _ = get_flops.make_inputs(cfg, 200000, dev)
+    geoms = kt.walk(cfg, tdet.preprocess_points(cfg, pts, mask), False, 2)
+    flops = 0
+    for _, g, c, cout, n in kt.convs(cfg, geoms):
+        _, src, dst, ks, st, pad = geoms[g]
+        rules = conv_index(src, dst, ks, st, pad, "cuda")
+        hits = int(((rules < src.capacity) & dst.valid[:, None]).sum())
+        flops += n * 2 * hits * c * cout
+    assert reps["cuda"]["sparse_conv"]["flops"] == flops == sum(
+        r["flops"] for r in levels["cuda"].values())
+    cpu = get_flops.main(["FocalFormer3D_L", "--engine", "cuda", "--device",
+                          "cpu"])
+    differ, only = get_flops.count_differs(reps["cuda"], cpu)
+    assert not differ and only, differ
+    for name in ("FocalFormer3D_LC", "FocalFormer3D_Waymo_L"):
+        train_step.reset_kernel_launches()
+        get_flops.main([name])
+        assert _kernel_launches() == _eval_launches("cuda", 1), name
+
+
+# ---------------------------------------------------------------------------
+# written dataset directories at a real sample's size through the CLIs
+# ---------------------------------------------------------------------------
+
+NUSC_METRICS = {"mAP", "mATE", "mASE", "mAOE", "mAVE", "nds_no_attr"}
+
+
+def _nuscenes_dir(root, name, seed, **kw):
+    """6 samples of a 30k-point key frame and 9 sweeps each (~290k points,
+    a real 10-sweep sample's size) in ``name``'s range and classes."""
+    cfg_all = get_config(name)
+    return synthetic_dirs.write_nuscenes(
+        root, seed=seed, samples=6, points=30000, sweeps=9,
+        pc_range=cfg_all["model"].voxel.point_cloud_range,
+        classes=cfg_all["class_names"], **kw)
+
+
+def _test_cli(argv, engine, passes, n_samples=6):
+    """The test CLI with the model-path launches counted from zero: what
+    ``passes`` eval scans launch on ``engine`` (none for no engine), the
+    metrics' keys, and ``n_samples`` tokens of at most 500 finite boxes in
+    the submission. Returns its run."""
+    from focalformer3d_tpu_torch.tools import test as test_cli
+
+    train_step.reset_kernel_launches()
+    out = argv[argv.index("--data-root") + 1] + "/sub.json"
+    res = test_cli.main([*argv, "--out", out])
+    want = (_eval_launches(engine, passes) if engine
+            else dict.fromkeys(KERNELS, 0))
+    assert _kernel_launches() == want, argv
+    classes = get_config(argv[0])["class_names"]
+    assert set(res.metrics) == NUSC_METRICS | {f"AP_{c}" for c in classes}
+    with open(out) as fh:
+        sub = json.load(fh)["results"]
+    assert len(sub) == n_samples
+    for token, anns in sub.items():
+        vals = [x for a in anns for k in ("translation", "size", "rotation",
+                                          "velocity") for x in a[k]]
+        vals += [a["detection_score"] for a in anns]
+        assert len(anns) <= 500 and np.isfinite(vals).all(), token
+    return res
+
+
+def _png_shows(path, points, boxes):
+    """``browse_dataset``'s PNG read back at its size: a red pixel at
+    every box corner in the drawn range, a non-white one at every point
+    in it."""
+    from focalformer3d_tpu_torch.tools import browse_dataset as bd
+    from focalformer3d_tpu_torch.utils import png
+
+    rgb = png.read_png(path)
+    assert rgb.shape == (bd.SIZE, bd.SIZE, 3)
+    x0, y0, x1, y1 = bd.PC_RANGE
+    canvas = png.Canvas(bd.SIZE, bd.SIZE, (x0, x1), (y0, y1))
+    xy, corners = bd.bev_geometry(points, boxes)
+    r, c = canvas.to_pixel(corners.reshape(-1, 2))
+    keep = canvas.inside(r, c)
+    assert keep.any() and (rgb[r[keep], c[keep]] == png.RED).all()
+    r, c = canvas.to_pixel(xy)
+    keep = canvas.inside(r, c)
+    assert keep.any() and (rgb[r[keep], c[keep]] != png.WHITE).any(-1).all()
+
+
+def test_nuscenes_directory_through_the_clis_on_card(dev, tmp_path, capsys):
+    """FocalFormer3D_L through the CLIs on a written nuScenes directory
+    (``_nuscenes_dir``) with its GT database. The train CLI (2 epochs of 2
+    steps at batch 2, GT-paste, ``Fading`` at epoch 1): four finite
+    losses, ``epoch_2``, K1 forward / dx / dW 16 / 15 / 16 a step, 10
+    native point loads (the first batch, drawn as the JAX CLI draws it,
+    and four steps' of 2), no ``ObjectSample`` after Fading. The test CLI
+    on its checkpoint (``_test_cli``) over the 6 samples on each kernel
+    engine, then with ``--tta`` (the double flip, 4 passes a sample) on
+    ``cuda`` and ``cuda_mxu`` and ``--tta-ensemble`` of the two caches (no
+    launch). ``analyze_logs`` reads the train log and the printed lines as
+    logged, prints their mean s/it and draws the curves;
+    ``browse_dataset`` draws a synthetic scene and the directory's samples
+    under both pipelines; matplotlib is never imported."""
+    from focalformer3d_tpu_torch.data import native
+    from focalformer3d_tpu_torch.tools import analyze_logs, browse_dataset
+    from focalformer3d_tpu_torch.tools import create_data
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+    from focalformer3d_tpu_torch.utils import png
+
+    root, work = str(tmp_path / "nusc"), str(tmp_path / "work")
+    ann = _nuscenes_dir(root, "FocalFormer3D_L", 20)
+    create_data.create_gt_database(ann, root, root)
+    train_step.reset_kernel_launches()
+    native.reset_call_count()
+    capsys.readouterr()
+    run = train_cli.main([
+        "FocalFormer3D_L", "--data-root", root, "--epochs", "2",
+        "--iters-per-epoch", "2", "--batch-size", "2", "--log-interval", "1",
+        "--work-dir", work, "--no-tensorboard"])
+    with open(tmp_path / "train_cli.log", "w") as fh:
+        fh.write(capsys.readouterr().out)
+    recs = _train_log(work)
+    assert len(recs) == 4 and np.isfinite([r["loss"] for r in recs]).all()
+    assert 2 in ckpt.list_epochs(work)
+    assert _kernel_launches() == {k: 4 * n for k, n in
+                                  STEP_LAUNCHES["cuda"].items()}
+    assert native.call_count() == 10
+    assert not any(type(t).__name__ == "ObjectSample"
+                   for t in run.pipeline.transforms)
+    base = ["FocalFormer3D_L", "--data-root", root, "--limit", "6"]
+    ckpt_args = ["--checkpoint", f"{work}/epoch_2"]
+    for engine in ENGINES:
+        _test_cli([*base, *ckpt_args, "--engine", engine], engine, 6)
+    caches = {"cuda": str(tmp_path / "tta_A"),
+              "cuda_mxu": str(tmp_path / "tta_B")}
+    for engine, cache in caches.items():
+        res = _test_cli([*base, *ckpt_args, "--engine", engine, "--tta",
+                         "--tta-cache-dir", cache], engine, 4 * 6)
+        assert res.passes == 4
+    _test_cli([*base, "--tta-ensemble", *caches.values()], None, 0)
+
+    logged = [(r["time"], r["loss"]) for r in recs]
+    printed = [(float(f"{t:.2f}"), float(f"{x:.4f}")) for t, x in logged]
+    logs = {f"{work}/train_log.jsonl": logged,
+            str(tmp_path / "train_cli.log"): printed}
+    for path, want in logs.items():
+        rows = analyze_logs.parse(path)
+        assert [(r["s_per_it"], r["loss"]) for r in rows] == want, path
+    curves = str(tmp_path / "curves.png")
+    analyze_logs.main([*logs, "--plot-out", curves])
+    out = capsys.readouterr().out.splitlines()
+    for path, want in logs.items():
+        times = [t for t, _ in want]
+        assert (f"{path}: {len(times)} log points, avg "
+                f"{sum(times) / len(times):.3f}s/it") in out
+    assert png.read_png(curves).ndim == 3
+    for flags in (["--synthetic"], ["--data-root", root],
+                  ["--data-root", root, "--train-pipeline"]):
+        out = str(tmp_path / "browse.png")
+        browse_dataset.main(flags + ["--out", out])
+        _png_shows(out, *browse_dataset.load_sample(
+            browse_dataset.parse_args(flags)))
+    assert "matplotlib" not in sys.modules
+
+
+def _fixture_digests():
+    """The committed fixtures of ``tests/torch_images/`` through the
+    port's decoder, resize, crop, flip and rotate on this machine: each
+    result's SHA-256 equals Pillow's (``digests.json``)."""
+    import hashlib
+    import pathlib
+
+    from focalformer3d_tpu_torch.data import image_io
+
+    root = pathlib.Path(__file__).resolve().parent / "torch_images"
+    digests = json.loads((root / "digests.json").read_text())
+    for name, rec in digests["files"].items():
+        img = image_io.imread(root / name)
+        got = {"decode": img}
+        chain = rec.get("chain")
+        if chain:
+            out = got["resize"] = image_io.resize(img, chain["resize"])
+            out = got["crop"] = image_io.crop(out, chain["crop"])
+            out = got["flip"] = image_io.flip_lr(out)
+            got["rotate"] = image_io.rotate(out, chain["rotate"])
+            got["scale"] = image_io.resize(img, chain["scale"])
+        for step, arr in got.items():
+            assert hashlib.sha256(arr.tobytes()).hexdigest() == rec[step], (
+                name, step)
+
+
+def test_camera_directory_through_the_clis_on_card(dev, tmp_path):
+    """The image fixtures' digests on this machine (``_fixture_digests``),
+    then FocalFormer3D_LC through the CLIs on a written directory
+    (``_nuscenes_dir`` with six 1600 x 900 JPEG cameras a sample): the
+    train CLI (2 epochs of 2 steps at batch 2 with its frozen branches:
+    four finite losses, K1 forward 11 a step and nothing else, six decodes
+    a sample of the first batch and four steps'), the test CLI over the 6
+    samples on ``cuda_mxu`` and with ``--tta`` on FocalFormer3D_LC_TTA over
+    2 samples on ``cuda`` (``_test_cli``; 12 passes a sample), six decodes
+    a sample."""
+    from focalformer3d_tpu_torch.data import image_io
+    from focalformer3d_tpu_torch.tools import train as train_cli
+
+    _fixture_digests()
+    root, work = str(tmp_path / "nusc"), str(tmp_path / "work")
+    _nuscenes_dir(root, "FocalFormer3D_LC", 21, cameras=True,
+                  img_hw=(900, 1600))
+    train_step.reset_kernel_launches()
+    image_io.reset_call_count()
+    train_cli.main(["FocalFormer3D_LC", "--data-root", root, "--epochs", "2",
+                    "--iters-per-epoch", "2", "--batch-size", "2",
+                    "--log-interval", "1", "--work-dir", work,
+                    "--no-tensorboard"])
+    losses = [r["loss"] for r in _train_log(work)]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert _kernel_launches() == {**dict.fromkeys(KERNELS, 0), "forward": 44}
+    assert image_io.call_count() == 6 * 2 * 5
+    tta = get_config("FocalFormer3D_LC_TTA")["tta"]
+    for name, engine, n, passes, extra in (
+            ("FocalFormer3D_LC", "cuda_mxu", 6, 1, []),
+            ("FocalFormer3D_LC_TTA", "cuda", 2,
+             4 * len(tta["pts_scale_ratio"]), ["--tta"])):
+        image_io.reset_call_count()
+        res = _test_cli([name, "--data-root", root, "--checkpoint",
+                         f"{work}/epoch_2", "--limit", str(n), "--engine",
+                         engine, *extra], engine, n * passes, n)
+        assert res.passes == passes and image_io.call_count() == 6 * n
+
+
+@pytest.mark.parametrize("name,must_move", [
+    ("FocalFormer3D_LC", ()),
+    ("FocalFormer3D_LC_Proj", ("imgpts_neck.shared_conv_img.",
+                               "imgpts_neck.fusion_blocks.0.I2P_block."))])
+def test_camera_frozen_train_steps_on_card(dev, name, must_move):
+    """Two float32 steps of a camera config at full width on ``cuda``,
+    batch 2 (two radial 200k-point scans, six 448 x 800 cameras each),
+    with the config's freeze flags: finite metrics, K1 forward 11 a step
+    (the frozen point branch at the eval boundary) and no dx or dW; the
+    frozen image, LSS and point branches bit-identical; half or more of
+    the trainable parameters moved, every one under ``must_move`` (LC_Proj:
+    ``shared_conv_img`` and I2P) among them."""
+    from focalformer3d_tpu_torch.training import optim
+
+    all_cfg = get_config(name)
+    cfg = dataclasses.replace(all_cfg["model"], sparse_engine="cuda")
+    batch = synthetic.make_batch(
+        np.random.RandomState(10), batch_size=2, n_points=200000,
+        n_boxes=24, max_gts=32, num_classes=cfg.decoder.num_classes,
+        pc_range=cfg.voxel.point_cloud_range, mode="radial",
+        with_images=True, img_hw=cfg.lss.img_scale)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    m = tdet.FocalFormer3D(cfg)
+    m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
+    m = m.to(dev).train()
+    tx = optim.make_optimizer(total_steps=10)
+    state = tx.init(m.named_parameters())
+    step = train_step.make_train_step(cfg, all_cfg["loss"], tx)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    before = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    train_step.reset_kernel_launches()
+    with torch.enable_grad():
+        for _ in range(2):
+            met = step(m, state, b, gen)
+            assert all(np.isfinite(float(v)) for v in met.values())
+    assert _kernel_launches() == {**dict.fromkeys(KERNELS, 0), "forward": 22}
+    after = m.state_dict()
+    frozen = [k for k in after if k.startswith((
+        "img_backbone.", "img_neck.", "imgpts_neck.cam_lss.",
+        "pts_middle_encoder.", "pts_backbone.", "pts_neck.",
+        "imgpts_neck.shared_conv_pts."))]
+    assert frozen and all(torch.equal(after[k], before[k]) for k in frozen)
+    trainable = [n for n, p in m.named_parameters() if p.requires_grad]
+    still = {k for k in trainable if torch.equal(after[k], before[k])}
+    assert 2 * len(still) <= len(trainable)
+    assert not [k for k in still if k.startswith(must_move)]
+    del m, state, b
+    torch.cuda.empty_cache()
+
+
+def test_camera_train_cli_loads_the_image_branch_on_card(dev, tmp_path):
+    """The train CLI: DeformFormer3D_C_R50 one step (no K1 launch; its
+    checkpoint holds an image branch), then FocalFormer3D_LC 2 steps at
+    batch 2 with ``--load-img-from`` it: the image branch as loaded, bit
+    for bit; two finite losses; K1 forward 11 a step."""
+    from focalformer3d_tpu_torch.tools import train as train_cli
+    from focalformer3d_tpu_torch.training import checkpoint as ckpt
+
+    common = ["--synthetic", "--epochs", "1", "--log-interval", "1",
+              "--no-tensorboard"]
+    train_step.reset_kernel_launches()
+    train_cli.main(["DeformFormer3D_C_R50", "--batch-size", "1",
+                    "--iters-per-epoch", "1", "--work-dir",
+                    str(tmp_path / "c"), *common])
+    assert not any(_kernel_launches().values())
+    run = train_cli.main([
+        "FocalFormer3D_LC", "--batch-size", "2", "--iters-per-epoch", "2",
+        "--work-dir", str(tmp_path / "lc"), "--load-img-from",
+        str(tmp_path / "c" / "epoch_1"), *common])
+    assert _kernel_launches()["forward"] == 22
+    losses = [r["loss"] for r in _train_log(tmp_path / "lc")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    src = ckpt.load_payload(str(tmp_path / "c" / "epoch_1"))["state_dict"]
+    got = run.model.state_dict()
+    img = [n for n, _ in run.model.named_parameters() if n.startswith((
+        "img_backbone.", "img_neck.", "imgpts_neck.cam_lss."))]
+    assert img and all(torch.equal(got[k].cpu(), src[k]) for k in img)
+
+
+def test_waymo_directory_through_the_clis_on_card(dev, tmp_path):
+    """A Waymo directory of 6 frames of 180k points (``write_waymo``)
+    through the CLIs: the train CLI on FocalFormer3D_Waymo_L (2 epochs of
+    2 steps at batch 2: four finite losses, K1 forward / dx / dW 16 / 16 /
+    16 a step, conv_input's dx too since the HardVFE trains), then on
+    DeformFormer3D_Waymo15_L for one epoch (its ``load_interval`` 5 leaves
+    2 of the 6 frames: one step); the test CLI on the first checkpoint
+    over the 6 frames on each kernel engine: the L1 / L2 mAP / mAPH and
+    per-class keys, all finite, and 6 frames' launches."""
+    from focalformer3d_tpu_torch.tools import test as test_cli
+    from focalformer3d_tpu_torch.tools import train as train_cli
+
+    cfg_all = get_config("FocalFormer3D_Waymo_L")
+    classes = cfg_all["class_names"]
+    root, work = str(tmp_path / "waymo"), str(tmp_path / "work")
+    synthetic_dirs.write_waymo(
+        root, seed=30, frames=6, points=180000,
+        pc_range=cfg_all["model"].voxel.point_cloud_range, classes=classes)
+    common = ["--data-root", root, "--batch-size", "2", "--log-interval",
+              "1", "--max-points", "200000", "--no-tensorboard"]
+    for name, steps, extra in (
+            ("FocalFormer3D_Waymo_L", 4, ["--epochs", "2",
+                                          "--iters-per-epoch", "2",
+                                          "--work-dir", work]),
+            ("DeformFormer3D_Waymo15_L", 1, ["--epochs", "1", "--work-dir",
+                                             work + "_15"])):
+        train_step.reset_kernel_launches()
+        train_cli.main([name, *common, *extra])
+        losses = [r["loss"] for r in _train_log(extra[-1])]
+        assert len(losses) == steps and np.isfinite(losses).all(), name
+        assert _kernel_launches() == {**STEP_LAUNCHES["cuda"],
+                                      "forward": 16 * steps,
+                                      "dx": 16 * steps,
+                                      "wgrad": 16 * steps}, name
+    keys = {f"L{lv}/{m}" for lv in (1, 2) for m in ("mAP", "mAPH")}
+    keys |= {f"L{lv}/{c}_{m}" for lv in (1, 2) for c in classes
+             for m in ("AP", "APH")}
+    for engine in ENGINES:
+        train_step.reset_kernel_launches()
+        res = test_cli.main(["FocalFormer3D_Waymo_L", "--data-root", root,
+                             "--checkpoint", f"{work}/epoch_2", "--engine",
+                             engine, "--max-points", "200000"])
+        assert _kernel_launches() == _eval_launches(engine, 6)
+        assert res.samples == 6 and set(res.metrics) == keys
+        assert np.isfinite(list(res.metrics.values())).all()
+
+
+# ---------------------------------------------------------------------------
+# data parallel at full width: two gloo ranks on this card
+# ---------------------------------------------------------------------------
+
+def test_full_width_two_rank_step_holds_the_floor(dev, tmp_path):
+    """FocalFormer3D_L's float32 step at full width (dropouts off, the
+    denoising groups' noise fixed) on two ``tools/dryrun_ddp`` workers
+    over gloo on this card, batch 1 each, on ``plain``, ``cuda`` and
+    ``cuda_mxu``: per rank ``train_step``'s launches of a step exactly;
+    the ranks' gradients and state equal bit for bit; against this
+    process's world-size-1 step at batch 2 every gradient and the state
+    after the update within tolerance and no tighter than twice what the
+    reversed batch moves them, the loss within 1e-5 on ``plain`` and
+    bf16's unit roundoff on a kernel engine
+    (``dryrun_ddp.compare_to_floor``: at full width a change of the sums'
+    order alone flips top-k picks and bf16 roundings). Each of
+    ``dryrun_ddp.FAULTS``, planted in both workers, fails that gate."""
+    from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
+
+    engines = ("plain", "cuda", "cuda_mxu")
+    cfg = get_config("FocalFormer3D_L")["model"]
+    inputs = dd.step_inputs(cfg, seed=10, batch_size=2, n_points=200000,
+                            n_boxes=24, max_gts=32, mode="radial")
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    swapped = {k: v[::-1].copy() for k, v in inputs.items()}
+    refs = {}
+    for engine in engines:
+        refs[engine] = [dd.one_step("FocalFormer3D_L", engine, x, 0, dev)
+                        for x in (inputs, swapped)]
+        torch.cuda.empty_cache()
+    dd.spawn(2, ["--init-method", f"file://{tmp_path}/rendezvous",
+                 "--device", "cuda:0", "--config", "FocalFormer3D_L",
+                 "--engines", ",".join(engines), "--inputs",
+                 str(tmp_path / "inputs.npz"), "--weights-seed", "0",
+                 "--out", str(tmp_path), "--plant", ",".join(dd.FAULTS)],
+             600, str(tmp_path))
+    for engine in engines:
+        ranks = [torch.load(dd.result_path(str(tmp_path), engine, r),
+                            weights_only=True) for r in range(2)]
+        for r in ranks:
+            assert r["world"] == 2
+            assert {k: r["launches"][k] for k in KERNELS} == \
+                STEP_LAUNCHES[engine], engine
+        for part in ("grads", "state"):
+            for k in ranks[0][part]:
+                assert torch.equal(ranks[0][part][k], ranks[1][part][k]), k
+        report = dd.compare_to_floor(ranks[0], *refs[engine])
+        assert report["ok"], (engine, report)
+        for fault in dd.FAULTS:
+            got = torch.load(dd.result_path(str(tmp_path), engine, 0, fault),
+                             weights_only=True)
+            assert not dd.compare_to_floor(got, *refs[engine])["ok"], (
+                engine, fault)
+
+
+@pytest.mark.parametrize("backend,world,steps", [("gloo", 2, 2),
+                                                 ("nccl", 1, 1)])
+def test_train_cli_data_parallel_on_card(dev, tmp_path, backend, world,
+                                         steps):
+    """The train CLI under torchrun's environment on FocalFormer3D_L
+    (``--synthetic``, global batch 2): world size 2 over gloo, both ranks
+    on ``cuda:0`` (NCCL takes one rank a card), and world size 1 over
+    NCCL. Every rank exits 0; rank 0 alone prints its losses, logs and
+    saves ``epoch_1``."""
+    from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
+
+    work, logs = tmp_path / "work", tmp_path / "logs"
+    logs.mkdir()
+    extra = ["--device", "cuda:0"] if backend == "gloo" else []
+    out = dd.spawn(world, [
+        "FocalFormer3D_L", "--synthetic", "--epochs", "1",
+        "--iters-per-epoch", str(steps), "--batch-size", "2",
+        "--log-interval", "1", "--dist-backend", backend, "--work-dir",
+        str(work), "--no-tensorboard", *extra], 600, str(logs),
+        module="focalformer3d_tpu_torch.tools.train",
+        env={"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())})
+    losses = [r["loss"] for r in _train_log(work)]
+    assert len(losses) == steps and np.isfinite(losses).all()
+    assert sorted(os.listdir(work)) == ["epoch_1", "train_log.jsonl"]
+    assert out[0].count("loss=") == steps and "device: cuda:0" in out[0]
+    assert not any("loss=" in o or "saved" in o for o in out[1:])

@@ -1,9 +1,9 @@
 """The port's train and test CLIs on a written nuScenes-format directory.
 
 Tiny_L on the CPU (``--device cpu``), on a directory that
-``chip_smoke.write_nuscenes`` writes from the port's synthetic scenes (the
-writer phase 10 of ``chip_smoke.py`` uses), with the GT database of the
-port's ``create_gt_database``:
+``data/synthetic_dirs.write_nuscenes`` writes from the port's synthetic
+scenes (the writer of the card tests' directories), with the GT database
+of the port's ``create_gt_database``:
 
 - the train CLI trains 2 epochs of 1 step with GT-paste and Fading,
   saves ``epoch_2`` and auto-resumes; the test CLI scores that checkpoint
@@ -42,8 +42,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from focalformer3d_tpu_torch.configs import get_config
+from focalformer3d_tpu_torch.data import synthetic_dirs
 from focalformer3d_tpu_torch.tools import create_data
 from focalformer3d_tpu_torch.tools import print_config
 from focalformer3d_tpu_torch.tools import test as test_cli
@@ -58,7 +58,7 @@ MAX_POINTS = 6000
 def write_tiny(root, seed=3, samples=4):
     """A Tiny_L-sized directory with its GT database; returns its root."""
     cfg_all = get_config("Tiny_L")
-    ann = chip_smoke.write_nuscenes(
+    ann = synthetic_dirs.write_nuscenes(
         root, seed=seed, samples=samples, points=1500, sweeps=2,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=4)
@@ -181,7 +181,7 @@ def test_cli_batches_equal_jax(dataset, tmp_path, monkeypatch, extra):
 def waymo_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("waymo")
     cfg_all = get_config("Tiny_Waymo_L")
-    chip_smoke.write_waymo(
+    synthetic_dirs.write_waymo(
         root, seed=2, frames=3, points=3000,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=6)

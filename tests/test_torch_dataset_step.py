@@ -1,6 +1,6 @@
 """Slice parity: one Tiny_L training step on a batch from the dataset layer.
 
-A written nuScenes-format directory (``chip_smoke.write_nuscenes``, with
+A written nuScenes-format directory (``synthetic_dirs.write_nuscenes``, with
 the GT database of the port's ``create_gt_database``) goes through the
 train CLI's data path in each package for one seed: the port's
 ``tools/train.nuscenes_batches`` and the JAX CLI's nuScenes branch

@@ -20,8 +20,8 @@
   data-parallel step broken (``dryrun_ddp.planted``: SyncBN's backward
   without the other rank's cotangents, the loss normalisers counted on the
   rank's shard, no gradient all-reduce) fails that comparison, and
-  fails the gate that ``chip_smoke.py`` phase 18 holds the full-width step
-  to (``dryrun_ddp.compare_to_floor``), which the clean step passes.
+  fails the gate that the card tests hold the full-width step to
+  (``dryrun_ddp.compare_to_floor``), which the clean step passes.
 - The train CLI at world size 2 on a 7-sample written directory at a
   global batch of 4: shards of 4 and 3 samples, and both ranks take the
   shortest shard's one step (the JAX CLI would take 2 and 1, and hang).
@@ -44,11 +44,11 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from focalformer3d_tpu.parallel import mesh as jmesh
 from focalformer3d_tpu_torch.parallel import mesh as tmesh
 from focalformer3d_tpu_torch.tools import dryrun_ddp as dd
 from focalformer3d_tpu_torch.training import checkpoint as ckpt
+from test_torch_cuda import _free_port
 from test_torch_dataset_cli import write_tiny
 from test_torch_train_step import (_batch, _configs, _noise, _port_model,
                                    check_gradients, check_losses,
@@ -335,7 +335,7 @@ def test_train_cli_takes_the_shortest_shards_steps(tmp_path):
     work = tmp_path / "work"
     env = {**os.environ, "PYTHONPATH": str(REPO), "WORLD_SIZE": "2",
            "MASTER_ADDR": "127.0.0.1", "OMP_NUM_THREADS": "2",
-           "MASTER_PORT": str(chip_smoke._free_port())}
+           "MASTER_PORT": str(_free_port())}
     argv = [sys.executable, "-m", "focalformer3d_tpu_torch.tools.train",
             "Tiny_L", "--device", "cpu", "--data-root", str(data),
             "--no-cbgs", "--epochs", "1", "--batch-size", "4",

@@ -19,9 +19,9 @@ libjpeg-turbo) writes and reads every case here:
 - the committed fixtures of ``tests/torch_images/``: their SHA-256
   digests in ``digests.json`` (of Pillow's decode and of a resize, crop,
   flip and rotate chain, as ``ImageAug3D`` runs it) are Pillow's, and the
-  port gives them. ``chip_smoke.py`` checks the same digests on the card's
-  machine. ``python tests/test_torch_image_io.py --write-fixtures``
-  rewrites the fixtures and the digests with Pillow.
+  port gives them. ``tests/test_torch_cuda.py`` checks the same digests on
+  the card's machine. ``python tests/test_torch_image_io.py
+  --write-fixtures`` rewrites the fixtures and the digests with Pillow.
 """
 import hashlib
 import io

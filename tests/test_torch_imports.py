@@ -2,11 +2,11 @@
 Pillow.
 
 ``test_no_jax_imports`` walks the syntax tree of every module of
-``focalformer3d_tpu_torch/`` and of ``chip_smoke.py`` (imports inside
-functions included) and fails on any import of ``jax``, ``jaxlib``,
-``flax``, ``optax``, ``orbax``, ``focalformer3d_tpu`` or ``PIL`` (the
-card's machine has no Pillow: the port decodes and resamples the cameras
-itself, ``data/image_io.py``). The port's copy
+``focalformer3d_tpu_torch/`` (imports inside functions included) and
+fails on any import of ``jax``, ``jaxlib``, ``flax``, ``optax``,
+``orbax``, ``focalformer3d_tpu`` or ``PIL`` (the card's machine has no
+Pillow: the port decodes and resamples the cameras itself,
+``data/image_io.py``). The port's copy
 of the reference checkpoint's key inventory and key mapping
 (``utils/jax_keys.py``) is held here against the JAX package's originals,
 for the LiDAR, camera and Waymo configs: the same keys, shapes and flax
@@ -30,8 +30,7 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "focalformer3d_tpu",
 
 
 def _port_files():
-    files = sorted((REPO / "focalformer3d_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "focalformer3d_tpu_torch").rglob("*.py"))
 
 
 def _imported_roots(tree):
@@ -82,7 +81,7 @@ def test_walk_covers_the_camera_data_layer():
     pkg = "focalformer3d_tpu_torch/"
     for mod in ("data/image_io.py", "data/native/__init__.py",
                 "data/transforms.py", "data/nuscenes.py", "data/pipelines.py",
-                "data/synthetic.py"):
+                "data/synthetic.py", "data/synthetic_dirs.py"):
         assert pkg + mod in files, mod
     roots = [r for _, r in _imported_roots(ast.parse(
         "def f():\n    from PIL import Image\n"))]

@@ -529,25 +529,19 @@ def _report(ops, flops=10, nbytes=None):
 
 
 def test_card_count_against_cpu_names_what_differs():
-    """``chip_smoke._count_differs``: the CPU's count may hold
+    """``get_flops.count_differs``: the CPU's count may hold
     ``F.one_hot``'s range check beyond the card's, and nothing else."""
-    import chip_smoke
-
     card = {"aten.add": [3, 0, 96], "aten.mm": [1, 10, 48]}
     check = {"aten.min": [2, 0, 20], "aten.max": [2, 0, 20],
              "aten._local_scalar_dense": [4, 0, 32]}
-    differ, only = chip_smoke._count_differs(_report(card),
-                                             _report({**card, **check}))
+    differ, only = gf.count_differs(_report(card), _report({**card, **check}))
     assert differ == [] and only == check
-    assert chip_smoke._count_differs(_report(card), _report(card)) == ([],
-                                                                       {})
+    assert gf.count_differs(_report(card), _report(card)) == ([], {})
     half = {**check, "aten._local_scalar_dense": [2, 0, 16]}
-    differ, _ = chip_smoke._count_differs(_report(card),
-                                          _report({**card, **half}))
+    differ, _ = gf.count_differs(_report(card), _report({**card, **half}))
     assert len(differ) == 1 and "not one_hot's" in differ[0]
     other = {**card, "aten.add": [4, 0, 128]}
-    differ, _ = chip_smoke._count_differs(_report(card), _report(other))
+    differ, _ = gf.count_differs(_report(card), _report(other))
     assert differ == ["bytes", "aten.add [3, 0, 96] against [4, 0, 128]"]
-    differ, _ = chip_smoke._count_differs(_report(card),
-                                          _report(card, flops=11))
+    differ, _ = gf.count_differs(_report(card), _report(card, flops=11))
     assert differ == ["flops"]

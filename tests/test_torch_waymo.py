@@ -7,7 +7,7 @@
   (the KITTI axis swap, and a rotated and shifted one), bit for bit;
   ``get_sample`` on the fixtures of ``tests/test_waymo.py`` (a DontCare
   row, no difficulty keys) and ``tests/test_waymo_e2e.py`` (identity
-  calibration), and on a directory that ``chip_smoke.write_waymo`` writes
+  calibration), and on a directory that ``synthetic_dirs.write_waymo`` writes
   (non-identity calibration, LEVEL_2-only boxes), with ``load_interval``
   and under both packages' train and test pipelines, bit for bit;
 - the evaluator on every case of ``tests/test_eval_waymo.py``: each case
@@ -38,7 +38,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 import test_eval_waymo
 from focalformer3d_tpu.core import eval_waymo as jew
 from focalformer3d_tpu.data import nuscenes as jnusc
@@ -48,6 +47,7 @@ from focalformer3d_tpu.training import train_step as jts
 from focalformer3d_tpu.utils.convert import convert_tree
 from focalformer3d_tpu_torch.configs import get_config
 from focalformer3d_tpu_torch.core import eval_waymo as tew
+from focalformer3d_tpu_torch.data import synthetic_dirs
 from focalformer3d_tpu_torch.data import pipelines as tpl
 from focalformer3d_tpu_torch.data import waymo as twaymo
 from focalformer3d_tpu_torch.models.detector import FocalFormer3D
@@ -154,7 +154,7 @@ def test_get_sample_on_the_e2e_fixture(tmp_path):
 def waymo_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("waymo")
     cfg_all = get_config("Tiny_Waymo_L")
-    chip_smoke.write_waymo(
+    synthetic_dirs.write_waymo(
         root, seed=2, frames=6, points=3000,
         pc_range=cfg_all["model"].voxel.point_cloud_range,
         classes=cfg_all["class_names"], boxes=6)
