@@ -43,15 +43,18 @@ Engines (the JAX engine each mirrors in parentheses):
 
 - ``plain`` (``voxel``): float32 gather + matmul, the dense tail in the input
   dtype.
-- ``cuda`` (``pallas``): the torch-op index build (``build_table_csr``,
-  ``build_downsample``, ``build_conv_rules``, and ``transpose_rules`` for
-  the strided convs' dx in training) and every sparse conv on K1
-  (``ops/sparse_conv_cuda``: bf16 operands, f32 accumulation); the dense
-  tail's input rounded to bfloat16 (computed in bfloat16 at eval).
-- ``cuda_zrun`` (``pallas_zrun``): the same index build, but one z-run plan
-  per conv (``ops/sparse_conv_zrun.build_zplan``) in place of its rulebook,
-  and every sparse conv on K3 (``ops/sparse_conv_zrun_cuda.zrun_conv``); the
-  dense tail in bfloat16.
+- ``cuda`` (``pallas``): the index build on the kernels of
+  ``ops/plan_builder_cuda`` (``index_table``, ``index_downsample``, and K2's
+  rulebooks from the source level's meta and the packed output sites;
+  ``transpose_rules`` for the strided convs' dx in training) and every
+  sparse conv on K1 (``ops/sparse_conv_cuda``: bf16 operands, f32
+  accumulation); the dense tail's input rounded to bfloat16 (computed in
+  bfloat16 at eval). The index build gives the bits of ``build_table_csr``,
+  ``build_downsample`` and ``build_conv_rules``, which ``plain`` runs.
+- ``cuda_zrun`` (``pallas_zrun``): the same tables and output sets, but one
+  z-run plan per conv (``ops/sparse_conv_zrun.build_zplan``, torch ops) in
+  place of its rulebook, and every sparse conv on K3
+  (``ops/sparse_conv_zrun_cuda.zrun_conv``); the dense tail in bfloat16.
 - ``cuda_mxu`` (``pallas_mxu``): the meta chain. Each level is known by its
   column meta and packed sites (``downsample_meta``, ``colz_from_meta``), every
   rulebook comes from K2 (``ops/plan_builder_cuda.plan_rules``) and every conv
@@ -61,7 +64,7 @@ Engines (the JAX engine each mirrors in parentheses):
   the next level's active set parts from the coordinate engines'.
 
 On a card the kernel engines' index build runs as CUDA graph replays: it is
-all torch ops and the K2 kernel on static shapes (fixed capacities), so
+kernels and torch ops on static shapes (fixed capacities), so
 ``SparseEncoder._index_blocks`` captures it once per input geometry, a
 graph for each "index build" span, and replays it at every later call
 (``utils/graphs``; counted in ``INDEX_BLOCKS``). The CPU and ``plain`` run
@@ -85,7 +88,9 @@ from torch import nn
 from ..ops import cuda_build
 from ..ops import plan_builder as pb
 from ..ops import sparse_conv as sc
-from ..ops.plan_builder_cuda import plan_rules
+from ..ops.plan_builder_cuda import (index_downsample,
+                                     index_downsample_plain, index_table,
+                                     index_table_plain, plan_rules)
 from ..ops.sparse_conv_cuda import (apply_conv_plain, sparse_conv,
                                     sparse_conv_train)
 from ..ops.sparse_conv_zrun import build_zplan, zrun_rules
@@ -177,22 +182,26 @@ class Level:
         return self.coords
 
     @staticmethod
-    def from_voxels(coords, valid, shape, meta_chain: bool) -> "Level":
-        meta = torch.stack([sc.build_table_csr(coords[b], valid[b],
-                                               shape).meta
-                            for b in range(valid.shape[0])])
+    def from_voxels(coords, valid, shape, meta_chain: bool,
+                    plain: bool = False) -> "Level":
+        """L0 from the voxelizer's sets: the metas of ``index_table`` or,
+        with ``plain``, of its plain version wherever the tensors lie."""
+        meta = (index_table_plain if plain else index_table)(coords, valid,
+                                                             shape)
         if meta_chain:
             return Level(shape, valid, meta,
                          colz=pb.colz_from_coords(coords, valid, shape[2]))
         return Level(shape, valid, meta, coords=coords)
 
-    def downsample(self, ks, stride, pad, capacity: int) -> "Level":
+    def downsample(self, ks, stride, pad, capacity: int,
+                   plain: bool = False) -> "Level":
         """The active output set of a strided conv: from the coordinate
-        lists (``build_downsample``) or, on the meta chain, from the metas
+        lists (``index_downsample`` or, with ``plain``, its plain version
+        wherever the tensors lie) or, on the meta chain, from the metas
         alone (``downsample_meta`` + ``colz_from_meta``, whose ``d`` is the
         input level's depth, as the JAX engine calls it)."""
-        B = self.valid.shape[0]
         if self.coords is None:
+            B = self.valid.shape[0]
             outs = [sc.downsample_meta(self.meta[b], self.shape, ks, stride,
                                        pad) for b in range(B)]
             total = torch.stack([o[2] for o in outs])
@@ -203,12 +212,11 @@ class Level:
                                 for o in outs])
             return Level(outs[0][1], valid,
                          torch.stack([o[0] for o in outs]), colz=colz)
-        outs = [sc.build_downsample(self.coords[b], self.valid[b], self.shape,
-                                    ks, stride, pad, capacity)
-                for b in range(B)]
-        return Level(outs[0][2], torch.stack([o[1] for o in outs]),
-                     torch.stack([o[4] for o in outs]),
-                     coords=torch.stack([o[0] for o in outs]))
+        down = index_downsample_plain if plain else index_downsample
+        coords, valid, shape, _, meta = down(self.coords, self.valid,
+                                             self.shape, ks, stride, pad,
+                                             capacity)
+        return Level(shape, valid, meta, coords=coords)
 
     def clone(self) -> "Level":
         """A copy in memory of its own: a replayed level lives in its
@@ -235,10 +243,14 @@ def backward_index(index: torch.Tensor, in_capacity: int, engine: str,
 
 def conv_index(src: Level, dst: Level, ks, stride, pad, engine: str):
     """What the sparse conv from ``src`` to ``dst`` reads on ``engine``: the
-    rulebook (B, K, V_out), from K2 on the meta chain, or the z-run plan
-    (B, ky*kx, V_out) on ``cuda_zrun``."""
-    if engine == "cuda_mxu":
-        return plan_rules(src.meta, dst.colz, src.capacity, ks, stride, pad,
+    rulebook (B, K, V_out), from K2 on ``cuda`` and ``cuda_mxu`` (the
+    output sites packed from their coordinates, or the meta chain's), from
+    ``build_conv_rules`` on ``plain``, or the z-run plan (B, ky*kx, V_out)
+    on ``cuda_zrun``."""
+    if engine in ("cuda", "cuda_mxu"):
+        colz = dst.colz if dst.coords is None else pb.colz_from_coords(
+            dst.coords, dst.valid, dst.shape[2])
+        return plan_rules(src.meta, colz, src.capacity, ks, stride, pad,
                           src.shape, dst.shape[2])
     build = build_zplan if engine == "cuda_zrun" else sc.build_conv_rules
     return torch.stack([
@@ -359,14 +371,16 @@ class SparseEncoder(nn.Module):
         in training on a kernel engine, else None). L0's table is built in
         the first block."""
         meta_chain = engine == "cuda_mxu"
-        want_bwd = self.training and engine != "plain"
-        lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain)
+        plain = engine == "plain"
+        want_bwd = self.training and not plain
+        lvl = Level.from_voxels(coords, valid, self.sparse_shape, meta_chain,
+                                plain)
         for spec in self._index_specs(meta_chain):
             src = lvl
             ks, stride, pad = 3, 1, 1
             if spec is not None:
                 ks, stride, pad, capacity = spec
-                lvl = lvl.downsample(ks, stride, pad, capacity)
+                lvl = lvl.downsample(ks, stride, pad, capacity, plain)
             index = conv_index(src, lvl, ks, stride, pad, engine)
             yield lvl, index, (
                 backward_index(index, src.capacity, engine, stride != 1)

@@ -30,8 +30,11 @@ line with the exact integers. The count has three parts:
   (each operand read once, the output written once). On ``cuda_zrun`` the
   hits are counted on the absolute rulebook that the level's z-run codes
   encode, so a level counts the same on every engine.
-- ``plan_rules``: K2's rulebooks on ``cuda_mxu``, bytes by
+- ``plan_rules``: K2's rulebooks on ``cuda`` and ``cuda_mxu``, bytes by
   ``_common.rulebook_bytes`` (K2 does no arithmetic).
+- ``index_build``: the kernel engines' column tables and strided output
+  sets (``plan_builder_cuda.index_table`` and ``index_downsample``), their
+  inputs read once and outputs written once (integer work, no FLOPs).
 
 One scan counts the same on the card and the CPU but for what PyTorch
 itself runs on one device only: on the CPU ``F.one_hot`` checks its
@@ -42,10 +45,11 @@ two reports of one scan, the card's and the CPU's, to that
 (``tests/test_torch_cuda.py::test_get_flops_on_card_counts_as_the_cpu``).
 
 Both counting modes are suspended inside each conv
-(``SparseEncoder._sparse_conv``, weight folding included) and inside K2
-(``plan_rules``): whatever runs there, the kernel on the card or its plain
-version on the CPU, counts as the function, so one scan counts the same on
-both devices. ``--repeat N`` times N more forwards after the counted one
+(``SparseEncoder._sparse_conv``, weight folding included), inside K2
+(``plan_rules``) and inside the index build's tables and output sets:
+whatever runs there, the kernels on the card or their plain versions on
+the CPU, counts as the function, so one scan counts the same on both
+devices. ``--repeat N`` times N more forwards after the counted one
 (nothing counted; host clock around each, ending in a synchronise) and
 reports their median as ``forward_ms``.
 
@@ -128,6 +132,7 @@ class Count:
         self.bytes = ByteCounter()
         self.levels: Dict[str, Dict[str, int]] = {}
         self.plan = {"calls": 0, "bytes": 0}
+        self.index = {"calls": 0, "bytes": 0}
 
     def __enter__(self):
         self.flops.__enter__()
@@ -165,9 +170,10 @@ class Count:
                   "levels": dict(sorted(self.levels.items()))}
         return {"flops": dense["flops"] + sparse["flops"],
                 "bytes": dense["bytes"] + sparse["bytes"]
-                + self.plan["bytes"],
+                + self.plan["bytes"] + self.index["bytes"],
                 "dense": dense, "sparse_conv": sparse,
-                "plan_rules": dict(self.plan)}
+                "plan_rules": dict(self.plan),
+                "index_build": dict(self.index)}
 
 
 def _conv_levels(enc) -> Dict[int, str]:
@@ -192,8 +198,9 @@ def _conv_levels(enc) -> Dict[int, str]:
 
 @contextlib.contextmanager
 def observed(model, count: Count):
-    """Route the encoder's sparse convs and K2 through ``count``: each
-    counted from its rulebook, then run with both counting modes off."""
+    """Route the encoder's sparse convs, K2 and the index build's tables
+    and output sets through ``count``: each counted from its operands,
+    then run with both counting modes off."""
     from ..models import sparse_encoder as se
     from ..ops.sparse_conv_zrun import zrun_rules
 
@@ -203,6 +210,7 @@ def observed(model, count: Count):
         return
     levels = _conv_levels(enc)
     conv, k2 = enc._sparse_conv, se.plan_rules
+    table, down = se.index_table, se.index_downsample
 
     def sparse_conv(x, index, wmod, bn, valid, engine, bwd=None):
         with _disable_current_modes():
@@ -219,13 +227,30 @@ def observed(model, count: Count):
             count.plan["bytes"] += _common.rulebook_bytes(meta, colz, rules)
             return rules
 
+    def index_table(coords, valid, *args):
+        with _disable_current_modes():
+            meta = table(coords, valid, *args)
+            count.index["calls"] += 1
+            count.index["bytes"] += _nbytes([coords, valid, meta])
+            return meta
+
+    def index_downsample(coords, valid, *args):
+        with _disable_current_modes():
+            out = down(coords, valid, *args)
+            count.index["calls"] += 1
+            count.index["bytes"] += _nbytes([coords, valid, *out[:2],
+                                             *out[3:]])
+            return out
+
     enc._sparse_conv = sparse_conv
     se.plan_rules = plan_rules
+    se.index_table, se.index_downsample = index_table, index_downsample
     try:
         yield
     finally:
         del enc._sparse_conv
         se.plan_rules = k2
+        se.index_table, se.index_downsample = table, down
 
 
 def make_inputs(cfg, n_points: int, device: torch.device):
@@ -291,10 +316,10 @@ def time_forward(model, cfg, points, mask, img, repeat: int
 def count_differs(card: dict, cpu: dict):
     """What differs between two reports of one scan, the card's and the
     CPU's: the totals, each dense op by name ([calls, FLOPs, bytes]), each
-    sparse level, K2; the ops of ``CPU_ONLY_OPS`` that only the CPU's count
-    holds are set apart and must be ``F.one_hot``'s range check (a min and
-    a max a call, two item()s). Returns (what differs, the CPU-only ops'
-    rows)."""
+    sparse level, K2, the index build; the ops of ``CPU_ONLY_OPS`` that
+    only the CPU's count holds are set apart and must be ``F.one_hot``'s
+    range check (a min and a max a call, two item()s). Returns (what
+    differs, the CPU-only ops' rows)."""
     ops_a, ops_b = card["dense"]["by_op"], cpu["dense"]["by_op"]
     only = {op: ops_b[op] for op in CPU_ONLY_OPS
             if op in ops_b and op not in ops_a}
@@ -309,8 +334,8 @@ def count_differs(card: dict, cpu: dict):
                      calls["aten._local_scalar_dense"]
                      == 2 * calls["aten.min"]):
         out.append(f"CPU-only ops {only} are not one_hot's range check")
-    for part in ("sparse_conv", "plan_rules"):
-        if card[part] != cpu[part]:
+    for part in ("sparse_conv", "plan_rules", "index_build"):
+        if card.get(part) != cpu.get(part):
             out.append(part)
     return out, only
 

@@ -1,8 +1,8 @@
-"""K3's and dW's times, or kernel B's or C's, on one card, for one
-checkout of the repo.
+"""K3's and dW's times, or kernel B's or C's, or the index build's, on one
+card, for one checkout of the repo.
 
     python -m focalformer3d_tpu_torch.tools.kernel_times --root DIR [--tag T]
-        [--kernels k3_dw|gather|widen]
+        [--kernels k3_dw|gather|widen|index]
 
 Imports ``focalformer3d_tpu_torch`` from the checkout at ``DIR`` (the repo
 itself, or an older commit unpacked beside it), so two versions of the
@@ -32,6 +32,21 @@ Each kernel on every route the checkout's wrapper offers
 (``route=``), each result held against the default route's (equal bit for
 bit), and each also timed eagerly (CUDA events around 10 calls issued from
 the host, after one warm-up call), beside the graph replay.
+
+``--kernels index`` times engine ``cuda``'s index build
+(``ops/plan_builder_cuda``: ``index_table``, ``index_downsample`` and K2's
+rulebooks through ``conv_index``, the output sites' packing included)
+beside the torch functions that engine ``plain`` runs and the engine ran
+before it (``build_table_csr``, ``build_downsample``, ``build_conv_rules``
+per sample), each result held against the torch one bit for bit, at each
+block of an eval scan of FocalFormer3D_L (a radial 200k-point scan, the
+grid and capacities of ``L.stream``) and FocalFormer3D_Waymo_L (180k
+points on its 1536 x 1536 grid, the config's capacities), and the whole
+build (``SparseEncoder._index_build``) at batch 1 and, for
+FocalFormer3D_L, at batch 4 (four scans, ``L.offline``'s batch), graph
+replay and eager. Beside each kernel row its byte bound (inputs read once,
+outputs written once, at the HBM rate). Needs a checkout that has the
+index kernels.
 """
 from __future__ import annotations
 
@@ -416,12 +431,108 @@ def widen_times(device) -> list:
     return out
 
 
+def _index_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def index_times(device) -> list:
+    from focalformer3d_tpu_torch.configs import get_config
+    from focalformer3d_tpu_torch.models.detector import preprocess_points
+    from focalformer3d_tpu_torch.models.sparse_encoder import (Level,
+                                                               SparseEncoder,
+                                                               conv_index)
+    from focalformer3d_tpu_torch.ops import plan_builder_cuda as pbc
+    from focalformer3d_tpu_torch.tools import _common
+
+    out = []
+
+    def flat(res) -> torch.Tensor:
+        """Every tensor a result holds, as one int32 vector."""
+        tensors = [t.reshape(-1).to(torch.int32)
+                   for t in torch.utils._pytree.tree_leaves(res)
+                   if isinstance(t, torch.Tensor)]
+        return torch.cat(tensors)
+
+    def add(name, kernel, plain, nbytes=None):
+        row = _timed(device, _common, name, kernel)
+        row["equal"] = bool(torch.equal(flat(kernel()), flat(plain())))
+        row["plain_ms"] = _common.time_ms(device, plain)[0]
+        text = _line(row) + f"; torch ops {row['plain_ms']:.4f}"
+        if nbytes is not None:
+            row.update(_common.bound(nbytes))
+            text += (f", bound {row['bound_ms']:.4f} (bytes), "
+                     f"{row['bound_ms'] / row['ms']:.3f} of it")
+        out.append(row)
+        print(text, flush=True)
+
+    for name, n_points in (("FocalFormer3D_L", N_POINTS),
+                           ("FocalFormer3D_Waymo_L", 180_000)):
+        cfg = get_config(name)["model"]
+        shape = tuple(cfg.sparse_shape)
+        vox = preprocess_points(cfg, *radial_scan(cfg, 0, device, n_points))
+        coords, valid = vox["coords"], vox["voxel_mask"]
+        add(f"{name} table", lambda: pbc.index_table(coords, valid, shape),
+            lambda: pbc.index_table_plain(coords, valid, shape),
+            _index_bytes(coords, valid) + (shape[1] * shape[2] + 1) * 16)
+        src = Level.from_voxels(coords, valid, shape, False)
+        for i in range(cfg.sparse_dense_from_eval):
+            pad = cfg.down_paddings[i]
+            cap = cfg.capacities[i + 1]
+            dst = src.downsample(3, 2, pad, cap)
+            res = pbc.index_downsample(src.coords, src.valid, src.shape, 3,
+                                       2, pad, cap)
+            add(f"{name} downsample L{i} -> L{i + 1}",
+                lambda src=src, pad=pad, cap=cap: pbc.index_downsample(
+                    src.coords, src.valid, src.shape, 3, 2, pad, cap),
+                lambda src=src, pad=pad, cap=cap: pbc.index_downsample_plain(
+                    src.coords, src.valid, src.shape, 3, 2, pad, cap),
+                _index_bytes(src.coords, src.valid, *res[:2], *res[3:]))
+            for conv, d, ks, st, p in ((f"L{i} subm", src, 3, 1, 1),
+                                       (f"down{i}", dst, 3, 2, pad)):
+                rules = conv_index(src, d, ks, st, p, "cuda")
+                add(f"{name} rules {conv} (K2 + packing)",
+                    lambda d=d, ks=ks, st=st, p=p, src=src: conv_index(
+                        src, d, ks, st, p, "cuda"),
+                    lambda d=d, ks=ks, st=st, p=p, src=src: conv_index(
+                        src, d, ks, st, p, "plain"),
+                    _index_bytes(src.meta, d.valid, rules)
+                    + d.valid.numel() * 4)
+            src = dst
+        batches = [(1, coords, valid)]
+        if name == "FocalFormer3D_L":
+            scans = [preprocess_points(cfg, *radial_scan(cfg, seed, device,
+                                                         n_points))
+                     for seed in range(4)]
+            batches.append((4, torch.cat([v["coords"] for v in scans]),
+                            torch.cat([v["voxel_mask"] for v in scans])))
+        enc = SparseEncoder(
+            sparse_shape=shape, encoder_channels=cfg.encoder_channels,
+            down_paddings=cfg.down_paddings, capacities=cfg.capacities,
+            out_capacity=cfg.out_capacity, engine="cuda",
+            dense_from=cfg.sparse_dense_from_eval).to(device).eval()
+        for b, c, v in batches:
+            def whole(engine, c=c, v=v):
+                return [(lvl.valid, lvl.meta, lvl.sites(), index)
+                        for lvl, index, _ in enc._index_build(c, v, engine)]
+            add(f"{name} whole eval build, batch {b}",
+                lambda: whole("cuda"), lambda: whole("plain"))
+            out[-1]["plain_eager_ms"] = eager_ms(lambda: whole("plain"))
+            print(f"  torch ops eager {out[-1]['plain_eager_ms']:.4f} ms",
+                  flush=True)
+        del vox, coords, valid, src, enc, batches
+        torch.cuda.empty_cache()
+    bad = [r["case"] for r in out if r.get("equal") is False]
+    if bad:
+        raise SystemExit(f"not equal to the torch functions: {bad}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--kernels", choices=("k3_dw", "gather", "widen"),
-                    default="k3_dw")
+    ap.add_argument("--kernels", choices=("k3_dw", "gather", "widen",
+                                          "index"), default="k3_dw")
     args = ap.parse_args()
     root = args.root.resolve()
     _import(root)
@@ -440,6 +551,10 @@ def main():
     if args.kernels == "widen":
         print(json.dumps({"tag": args.tag, "root": str(root),
                           "widen": widen_times(device)}), flush=True)
+        return
+    if args.kernels == "index":
+        print(json.dumps({"tag": args.tag, "root": str(root),
+                          "index": index_times(device)}), flush=True)
         return
     k3_rows, k3_total = k3_times(device)
     dw_rows, dw_total = wgrad_times(device)

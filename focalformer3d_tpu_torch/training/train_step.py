@@ -14,13 +14,17 @@ submanifold convs and the strided one, L3's four and conv_out; conv_input's
 voxel features need no dx), in the keys of ``kernel_launches``:
 
 - ``cuda`` (dense from L3): K1 ``forward`` 16, ``dx`` 15 (K1 on the
-  transposed rulebooks), ``wgrad`` 16 (the dW kernel);
+  transposed rulebooks), ``wgrad`` 16 (the dW kernel); the index build's
+  ``index_table`` 1, ``index_downsample`` 3 and ``plan`` 6 (K2, one per
+  conv geometry of the batch);
 - ``cuda_zrun`` (dense from L3): ``zrun`` 16 (K3), ``dx`` 15 and ``wgrad``
-  16 on the rulebooks its codes encode;
-- ``cuda_mxu`` (all-sparse): ``plan`` 8 (K2, one per conv geometry of the
-  batch), K1 ``forward`` 21, ``dx`` 20, ``wgrad`` 21;
+  16 on the rulebooks its codes encode; ``index_table`` 1,
+  ``index_downsample`` 3;
+- ``cuda_mxu`` (all-sparse): ``plan`` 8, ``index_table`` 1, K1 ``forward``
+  21, ``dx`` 20, ``wgrad`` 21;
 - a frozen point branch (``freeze_pts``) runs at eval: one eval scan's
-  forward launches (``forward`` 11 on ``cuda``), no ``dx``, no ``wgrad``;
+  forward launches (on ``cuda`` ``forward`` 11, ``plan`` 4,
+  ``index_table`` 1, ``index_downsample`` 2), no ``dx``, no ``wgrad``;
 - ``plain``: none.
 
 A camera config's batch also carries ``imgs``, ``lidar2img``, ``img_aug``
@@ -75,7 +79,9 @@ def kernel_launches() -> Dict[str, int]:
     """Launches of the model-path kernels since ``reset_kernel_launches``:
     K1 ``forward``, ``dx`` and ``wgrad`` (``ops/sparse_conv_cuda``), K2
     ``plan`` (``ops/plan_builder_cuda``) and K3 ``zrun``
-    (``ops/sparse_conv_zrun_cuda``); then the sparse encoder's index-build
+    (``ops/sparse_conv_zrun_cuda``); the index build's batched
+    ``index_table`` and ``index_downsample`` calls (``ops/plan_builder_cuda``,
+    a memset and three kernels each); then the sparse encoder's index-build
     blocks on a card (``sparse_encoder.INDEX_BLOCKS``):
     ``index_graph_replay``, ``index_graph_capture`` and ``index_eager``;
     then the head's blocks on a card (``focal_decoder.DECODER_BLOCKS``):
@@ -85,6 +91,8 @@ def kernel_launches() -> Dict[str, int]:
            for k in ("forward", "dx", "wgrad")}
     out["plan"] = plan_builder_cuda.launch_count()
     out["zrun"] = sparse_conv_zrun_cuda.launch_count()
+    out["index_table"] = plan_builder_cuda.launch_count("table")
+    out["index_downsample"] = plan_builder_cuda.launch_count("downsample")
     out.update(INDEX_BLOCKS.counts)
     out.update(DECODER_BLOCKS.counts)
     return out

@@ -70,7 +70,8 @@ import torch
 from focalformer3d_tpu_torch.configs import get_config
 from focalformer3d_tpu_torch.data import synthetic, synthetic_dirs
 from focalformer3d_tpu_torch.models import detector as tdet
-from focalformer3d_tpu_torch.models.sparse_encoder import (backward_index,
+from focalformer3d_tpu_torch.models.sparse_encoder import (Level,
+                                                           backward_index,
                                                            conv_index)
 from focalformer3d_tpu_torch.ops import plan_builder as tpb
 from focalformer3d_tpu_torch.ops import plan_builder_cuda as k2
@@ -92,17 +93,24 @@ GEOMS = {
 }
 ENGINES = ("cuda", "cuda_mxu", "cuda_zrun")
 # (K1, K2, K3) launches per eval scan on each kernel engine
-LAUNCHES_PER_SCAN = {"cuda": (11, 0, 0), "cuda_mxu": (21, 8, 0),
+LAUNCHES_PER_SCAN = {"cuda": (11, 4, 0), "cuda_mxu": (21, 8, 0),
                      "cuda_zrun": (0, 0, 11)}
-KERNELS = ("forward", "dx", "wgrad", "plan", "zrun")
-# K1 forward / dx / dW, K2 and K3 launches of a FocalFormer3D_L training
-# step: 16 sparse convs up to the dense boundary L3 (conv_input's features
-# take no dx); ``cuda_mxu`` is all-sparse, 21
+# the index build's (table, downsample) calls per eval scan (dense from L2)
+INDEX_PER_SCAN = {"cuda": (1, 2), "cuda_mxu": (1, 0), "cuda_zrun": (1, 2)}
+KERNELS = ("forward", "dx", "wgrad", "plan", "zrun", "index_table",
+           "index_downsample")
+# K1 forward / dx / dW, K2, K3 and index-build launches of a
+# FocalFormer3D_L training step: 16 sparse convs up to the dense boundary
+# L3 (conv_input's features take no dx), six conv geometries, three
+# downsamples; ``cuda_mxu`` is all-sparse, 21 convs, 8 geometries
 STEP_LAUNCHES = {
     "plain": dict.fromkeys(KERNELS, 0),
-    "cuda": {"forward": 16, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 0},
-    "cuda_mxu": {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8, "zrun": 0},
-    "cuda_zrun": {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 16}}
+    "cuda": {"forward": 16, "dx": 15, "wgrad": 16, "plan": 6, "zrun": 0,
+             "index_table": 1, "index_downsample": 3},
+    "cuda_mxu": {"forward": 21, "dx": 20, "wgrad": 21, "plan": 8, "zrun": 0,
+                 "index_table": 1, "index_downsample": 0},
+    "cuda_zrun": {"forward": 0, "dx": 15, "wgrad": 16, "plan": 0, "zrun": 16,
+                  "index_table": 1, "index_downsample": 3}}
 # points of a full-size radial scan: the benchmark cells' sizes
 FULL = {"FocalFormer3D_L": 200000, "FocalFormer3D_Waymo_L": 180000}
 
@@ -117,7 +125,7 @@ def dev():
 
 
 def _kernel_launches():
-    """K1 forward / dx / dW, K2 and K3 launches since
+    """K1 forward / dx / dW, K2, K3 and index-build launches since
     ``train_step.reset_kernel_launches``."""
     got = train_step.kernel_launches()
     return {k: got[k] for k in KERNELS}
@@ -126,8 +134,10 @@ def _kernel_launches():
 def _eval_launches(engine, passes):
     """What ``passes`` eval scans launch on ``engine``."""
     fwd, plan, zrun = LAUNCHES_PER_SCAN[engine]
+    table, down = INDEX_PER_SCAN[engine]
     return {"forward": fwd * passes, "dx": 0, "wgrad": 0,
-            "plan": plan * passes, "zrun": zrun * passes}
+            "plan": plan * passes, "zrun": zrun * passes,
+            "index_table": table * passes, "index_downsample": down * passes}
 
 
 def _free_port():
@@ -1817,6 +1827,8 @@ def test_two_rank_step_on_one_card_matches_world_size_1(dev, tmp_path):
 
 # index-build blocks a forward, (eval, training), per engine
 INDEX_BLOCKS = {"cuda": (4, 6), "cuda_mxu": (8, 8), "cuda_zrun": (4, 6)}
+# ``index_downsample`` calls a forward, (eval, training), per engine
+INDEX_LAUNCHES = {"cuda": (2, 3), "cuda_mxu": (0, 0), "cuda_zrun": (2, 3)}
 
 
 def _l_encoder(dev, engine, train):
@@ -1873,8 +1885,9 @@ def test_index_graph_replays_equal_the_eager_build(dev, engine, train,
     every later one replays it; each call's metas, sites, valid flags,
     rulebooks (z-run codes) and, in training, transposed rulebooks equal
     the eager build of its own scan bit for bit (a replay on stale inputs
-    would give the other scan's). The counters and K2's launches read one
-    forward's blocks a call."""
+    would give the other scan's). The counters read one forward's blocks
+    a call, K2 one launch a block (none on ``cuda_zrun``), the index build
+    one table a call and its downsamples (``INDEX_LAUNCHES``)."""
     from focalformer3d_tpu_torch.models.sparse_encoder import INDEX_BLOCKS \
         as counts
 
@@ -1896,7 +1909,9 @@ def test_index_graph_replays_equal_the_eager_build(dev, engine, train,
     torch.cuda.synchronize()
     assert counts.counts == {"index_eager": n, "index_graph_capture": n,
                              "index_graph_replay": 3 * n}
-    assert k2.launch_count() == (4 * n if engine == "cuda_mxu" else 0)
+    assert k2.launch_count() == (0 if engine == "cuda_zrun" else 4 * n)
+    assert k2.launch_count("table") == 4
+    assert k2.launch_count("downsample") == 4 * INDEX_LAUNCHES[engine][train]
 
 
 def test_levels_of_a_replay_outlive_the_next_replay(dev):
@@ -2214,9 +2229,139 @@ def test_k2_rulebooks_at_every_conv_of_a_full_scan(dev, name):
             pad)), conv
 
 
+def _encoder(dev, name, train, **caps):
+    """``name``'s sparse encoder on the card (engine ``cuda``; the index
+    build takes the engine as an argument), at eval or in training."""
+    from focalformer3d_tpu_torch.models.sparse_encoder import SparseEncoder
+
+    cfg = dataclasses.replace(get_config(name)["model"], **caps)
+    enc = SparseEncoder(
+        in_channels=cfg.voxel_feature_dim, sparse_shape=cfg.sparse_shape,
+        output_channels=cfg.sparse_out_channels,
+        encoder_channels=cfg.encoder_channels,
+        down_paddings=cfg.down_paddings, capacities=cfg.capacities,
+        out_capacity=cfg.out_capacity, engine="cuda",
+        dense_from=cfg.sparse_dense_from_eval,
+        train_dense_from=cfg.sparse_dense_from)
+    return cfg, enc.to(dev).train(train)
+
+
+def _index_build_against_plain(enc, coords, valid):
+    """The encoder's index build on ``cuda`` (the index kernels and K2)
+    against ``plain``'s (the torch functions), both on the card, block by
+    block: each level's valid flags, metas and sites, each rulebook and,
+    in training, each transposed rulebook (``transpose_rules`` of the
+    torch rulebook for a strided conv), bit for bit; and each downsample's
+    overflow count against ``build_downsample``'s. Returns the launches of
+    the ``cuda`` build and the overflow counts."""
+    blocks = enc._index_specs(False)
+    k2.reset_launch_count()
+    got = list(enc._index_build(coords, valid, "cuda"))
+    launches = {k: k2.launch_count(k) for k in ("rules", "table",
+                                                 "downsample")}
+    want = list(enc._index_build(coords, valid, "plain"))
+    assert len(got) == len(want) == len(blocks)
+    overflow = []
+    src = want[0][0]
+    for i, ((lg, ig, bg), (lw, iw, _)) in enumerate(zip(got, want)):
+        assert lg.shape == lw.shape, i
+        _assert_same([lg.valid, lg.meta, lg.coords, ig],
+                     [lw.valid, lw.meta, lw.coords, iw])
+        if bg is not None:
+            tw = iw if blocks[i] is None else torch.stack(
+                [tsc.transpose_rules(r, src.capacity) for r in iw])
+            _assert_same(list(bg), [iw, tw])
+        src = lw
+    lvl = want[0][0]
+    for ks, st, pad, cap in filter(None, blocks):
+        out = k2.index_downsample(lvl.coords, lvl.valid, lvl.shape, ks, st,
+                                  pad, cap)
+        for b in range(lvl.valid.shape[0]):
+            ref = tsc.build_downsample(lvl.coords[b], lvl.valid[b],
+                                       lvl.shape, ks, st, pad, cap)
+            assert torch.equal(out[3][b], ref[3])
+        overflow.append(out[3])
+        lvl = Level(out[2], out[1], out[4], coords=out[0])
+    return launches, overflow
+
+
+@pytest.mark.parametrize("name", list(FULL))
+@pytest.mark.parametrize("train", [False, True])
+def test_index_kernels_at_every_block_of_a_full_scan(dev, name, train):
+    """The ``cuda`` engine's index build on the card (``index_table``,
+    ``index_downsample``, K2 on the packed output sites) at every block of
+    a full-size radial scan at eval (dense from L2, batch 1) and of a
+    training batch of two (dense from L3; the training voxel cap) of
+    FocalFormer3D_L and _Waymo_L (1536 x 1536) equals the torch functions
+    bit for bit (``_index_build_against_plain``), with one table, a
+    downsample a strided conv and K2 a block."""
+    cfg, enc = _encoder(dev, name, train)
+    if train:
+        batch = kt.train_batch(cfg, dev, FULL[name])
+        vox = tdet.preprocess_points(cfg, batch["points"],
+                                     batch["points_mask"], train=True)
+    else:
+        vox = tdet.preprocess_points(cfg, *kt.radial_scan(cfg, 0, dev,
+                                                          FULL[name]))
+    launches, _ = _index_build_against_plain(enc, vox["coords"],
+                                             vox["voxel_mask"])
+    n = INDEX_BLOCKS["cuda"][train]
+    assert launches == {"rules": n, "table": 1,
+                        "downsample": INDEX_LAUNCHES["cuda"][train]}
+
+
+def test_index_kernels_when_l1_overflows_its_capacity(dev):
+    """FocalFormer3D_L at eval on a batch of two full-size scans with L1's
+    capacity cut to 150 000 (each scan has some 240 000 L1 sites) and L2's
+    to 40 000: both downsamples drop sites, and the kernels still equal
+    the torch functions bit for bit, overflow counts included (the next
+    level's meta keeps the dropped sites, its table the kept ones)."""
+    cfg, enc = _encoder(dev, "FocalFormer3D_L", False,
+                        capacities=(160000, 150000, 40000, 77824))
+    batch = kt.train_batch(cfg, dev)
+    vox = tdet.preprocess_points(cfg, batch["points"], batch["points_mask"])
+    _, overflow = _index_build_against_plain(enc, vox["coords"],
+                                             vox["voxel_mask"])
+    assert all(bool((o > 0).all()) for o in overflow), overflow
+
+
+@pytest.mark.parametrize("shape", [(41, 40, 36), (41, 200, 176),
+                                   (64, 96, 80)])
+def test_index_kernels_on_ragged_batches_and_grid_edges(dev, shape):
+    """``index_table`` and ``index_downsample`` on the card against
+    ``build_table_csr`` and ``build_downsample`` on the card, sample by
+    sample, on a batch of four of different counts (one empty, one full)
+    whose samples hold the grid's corners and a voxel on each face, at
+    each strided geometry of the encoder, with a capacity that holds every
+    output site and one that drops some: one tile of the scans (1 440
+    columns) and many (35 200, 7 680, not multiples of a tile)."""
+    from test_torch_index_kernels import DOWN_GEOMS, _batch
+
+    D, H, W = shape
+    cap = min(D * H * W // 4, 60000)
+    counts = (cap // 2, 0, 37, cap)
+    coords, valid = (t.to(dev) for t in _batch(counts, shape, cap))
+    meta = k2.index_table(coords, valid, shape)
+    for b in range(len(counts)):
+        _assert_same([meta[b]], [tsc.build_table_csr(coords[b], valid[b],
+                                                     shape).meta])
+    for ks, st, pad in DOWN_GEOMS.values():
+        out_shape = tsc.conv_out_shape(shape, ks, st, pad)
+        for out_cap in (4 * cap, cap // 3):
+            oc, ov, oshape, overflow, ometa = k2.index_downsample(
+                coords, valid, shape, ks, st, pad, out_cap)
+            assert oshape == out_shape
+            for b in range(len(counts)):
+                ref = tsc.build_downsample(coords[b], valid[b], shape, ks,
+                                           st, pad, out_cap)
+                _assert_same([oc[b], ov[b], overflow[b], ometa[b]],
+                             [ref[0], ref[1], ref[3], ref[4]])
+            assert bool(overflow[3] > 0) == (out_cap < cap), (ks, out_cap)
+
+
 @pytest.mark.parametrize("name", list(FULL))
 def test_k1_at_every_conv_of_a_full_scan(dev, name):
-    """K1 at the convs of ``cuda`` (torch-op rulebooks, L0-L1) and the
+    """K1 at the convs of ``cuda`` (K2's rulebooks, L0-L1) and the
     four more of ``cuda_mxu`` (K2's rulebooks: L2, L3, conv_out) on a
     full-size radial scan, at the model's widths: within 1e-3 of the plain
     version's scale on production's route and on the other one (the phase
@@ -2642,7 +2787,8 @@ def test_camera_directory_through_the_clis_on_card(dev, tmp_path):
     then FocalFormer3D_LC through the CLIs on a written directory
     (``_nuscenes_dir`` with six 1600 x 900 JPEG cameras a sample): the
     train CLI (2 epochs of 2 steps at batch 2 with its frozen branches:
-    four finite losses, K1 forward 11 a step and nothing else, six decodes
+    four finite losses, an eval scan's launches a step (the frozen point
+    branch) and nothing else, six decodes
     a sample of the first batch and four steps'), the test CLI over the 6
     samples on ``cuda_mxu`` and with ``--tta`` on FocalFormer3D_LC_TTA over
     2 samples on ``cuda`` (``_test_cli``; 12 passes a sample), six decodes
@@ -2662,7 +2808,7 @@ def test_camera_directory_through_the_clis_on_card(dev, tmp_path):
                     "--no-tensorboard"])
     losses = [r["loss"] for r in _train_log(work)]
     assert len(losses) == 4 and np.isfinite(losses).all()
-    assert _kernel_launches() == {**dict.fromkeys(KERNELS, 0), "forward": 44}
+    assert _kernel_launches() == _eval_launches("cuda", 4)
     assert image_io.call_count() == 6 * 2 * 5
     tta = get_config("FocalFormer3D_LC_TTA")["tta"]
     for name, engine, n, passes, extra in (
@@ -2683,8 +2829,9 @@ def test_camera_directory_through_the_clis_on_card(dev, tmp_path):
 def test_camera_frozen_train_steps_on_card(dev, name, must_move):
     """Two float32 steps of a camera config at full width on ``cuda``,
     batch 2 (two radial 200k-point scans, six 448 x 800 cameras each),
-    with the config's freeze flags: finite metrics, K1 forward 11 a step
-    (the frozen point branch at the eval boundary) and no dx or dW; the
+    with the config's freeze flags: finite metrics, an eval scan's
+    launches a step (the frozen point branch at the eval boundary: K1
+    forward 11, K2 4, the index build's 1 + 2) and no dx or dW; the
     frozen image, LSS and point branches bit-identical; half or more of
     the trainable parameters moved, every one under ``must_move`` (LC_Proj:
     ``shared_conv_img`` and I2P) among them."""
@@ -2712,7 +2859,7 @@ def test_camera_frozen_train_steps_on_card(dev, name, must_move):
         for _ in range(2):
             met = step(m, state, b, gen)
             assert all(np.isfinite(float(v)) for v in met.values())
-    assert _kernel_launches() == {**dict.fromkeys(KERNELS, 0), "forward": 22}
+    assert _kernel_launches() == _eval_launches("cuda", 2)
     after = m.state_dict()
     frozen = [k for k in after if k.startswith((
         "img_backbone.", "img_neck.", "imgpts_neck.cam_lss.",
@@ -2786,10 +2933,9 @@ def test_waymo_directory_through_the_clis_on_card(dev, tmp_path):
         train_cli.main([name, *common, *extra])
         losses = [r["loss"] for r in _train_log(extra[-1])]
         assert len(losses) == steps and np.isfinite(losses).all(), name
-        assert _kernel_launches() == {**STEP_LAUNCHES["cuda"],
-                                      "forward": 16 * steps,
-                                      "dx": 16 * steps,
-                                      "wgrad": 16 * steps}, name
+        assert _kernel_launches() == {
+            **{k: n * steps for k, n in STEP_LAUNCHES["cuda"].items()},
+            "dx": 16 * steps}, name
     keys = {f"L{lv}/{m}" for lv in (1, 2) for m in ("mAP", "mAPH")}
     keys |= {f"L{lv}/{c}_{m}" for lv in (1, 2) for c in classes
              for m in ("AP", "APH")}
