@@ -219,8 +219,9 @@ class FocalFormer3D(nn.Module):
         stage ends: "image backbone + FPN", "HardVFE" (the Waymo configs'
         PointNet), the encoder's (see
         ``SparseEncoder.forward``), "SECOND + neck", the LSS's ("LSS lift",
-        "LSS splat", "BevEncode"; or, with ``cam_proj="i2p"``, "I2P" after
-        the first fusion layer's projection, ``shared_conv_img`` included),
+        "LSS splat", "BevEncode"; or, with ``cam_proj="i2p"``, "image
+        proj" after ``shared_conv_img`` and "I2P" after the first fusion
+        layer's projection, ``shared_conv_pts`` included),
         "FocalEncoder" (the fusion layers) and "decoder". The generator
         also draws I2P's dropout. Each stage runs in a ``utils/profiler``
         span of its name, which calls ``mark``; the decoder's holds the

@@ -183,11 +183,12 @@ class FocalEncoder(nn.Module):
         ``lidar2img`` for I2P, optional ``img_aug`` and ``bev_aug``) ->
         (pts_feat_conv, stage feats [+ extra]). The LSS runs without
         autograd under ``freeze_camlss``; I2P's dropout draws from
-        ``generator``."""
+        ``generator``. With I2P, ``shared_conv_img`` runs in the span
+        "image proj", which calls ``mark("image proj")``."""
         img_feat = None
         if self.shared_conv_img is not None and img_data is not None:
             f = img_data["img_feats"]  # (B, Ncam, fH, fW, 256), float32
-            with _without_cudnn():
+            with span("image proj", mark), _without_cudnn():
                 img_feat = conv2d_nhwc(
                     f.flatten(0, 1), self.shared_conv_img.weight,
                     self.shared_conv_img.bias, 1, 1).unflatten(

@@ -51,10 +51,12 @@ def project_points_to_cams(pts: torch.Tensor, lidar2img: torch.Tensor,
     space, so float32 roundings that differ between devices (see
     ``bev_grid``) moved the sampled features by up to 3.8e-4 of their
     scale between an NVIDIA H100 80GB HBM3 and the CPU; in float64 both
-    give the same float32 xy."""
+    give the same float32 xy. The inverse is ``inv_ex``'s: ``inv``
+    computes the same matrix but reads its error code back to the host, a
+    sync in the middle of a forward on a card."""
     pts = pts.double()
     if bev_aug is not None:  # grid points back to the sensor frame
-        inv = torch.linalg.inv(bev_aug.double())
+        inv = torch.linalg.inv_ex(bev_aug.double()).inverse
         pts = pts @ inv[:3, :3].T + inv[:3, 3]
     ph = torch.cat([pts, torch.ones_like(pts[..., :1])], -1)  # (P, 4)
     cam = torch.einsum("nij,pj->npi", lidar2img.double(), ph)  # (N, P, 4)

@@ -32,11 +32,11 @@ memory of the timed scans and the card's name and power limit (as
 diagnostic. Then, per engine, the stage split of one scan by CUDA events
 (voxelize, index build, sparse convs, dense tail, SECOND + neck,
 FocalEncoder, decoder, get_bboxes; a camera config adds image backbone +
-FPN and LSS lift, LSS splat and BevEncode, or with I2P the stage I2P
-(``shared_conv_img`` and the projection), and its FocalEncoder is the
-fusion layers alone; the model's forward marks its stages) and each level's
-active voxels against its capacity, with the voxels a capacity dropped (an
-overflow is flagged).
+FPN and LSS lift, LSS splat and BevEncode, or with I2P the stages image
+proj (``shared_conv_img``) and I2P (``shared_conv_pts`` and the
+projection), and its FocalEncoder is the fusion layers alone; the model's
+forward marks its stages) and each level's active voxels against its
+capacity, with the voxels a capacity dropped (an overflow is flagged).
 
 ``--train`` times the training step instead (``training/train_step``,
 float32 as the config says and as the train CLI computes it, TF32 off) on
@@ -94,17 +94,17 @@ CAMERA_STAGES = ("voxelize", "image backbone + FPN", "index build",
 
 def stages_of(cfg):
     """The stage names a config's forward marks, in the order it marks
-    them: with I2P (``cam_proj="i2p"``) in place of the LSS, "I2P"
-    (``shared_conv_img`` and the first fusion layer's projection) before
-    the fusion layers; with the Waymo configs' PointNet VFE, "HardVFE"
-    after "voxelize"."""
+    them: with I2P (``cam_proj="i2p"``) in place of the LSS, "image proj"
+    (``shared_conv_img``) and "I2P" (``shared_conv_pts`` and the first
+    fusion layer's projection) before the fusion layers; with the Waymo
+    configs' PointNet VFE, "HardVFE" after "voxelize"."""
     if not cfg.input_img:
         return (STAGES[:1] + ("HardVFE",) + STAGES[1:]
                 if cfg.vfe_type == "HardVFE" else STAGES)
     if cfg.cam_proj != "i2p":
         return CAMERA_STAGES
     i = CAMERA_STAGES.index("FocalEncoder")
-    return CAMERA_STAGES[:6] + ("I2P",) + CAMERA_STAGES[i:]
+    return CAMERA_STAGES[:6] + ("image proj", "I2P") + CAMERA_STAGES[i:]
 
 
 def parse_args(argv=None):

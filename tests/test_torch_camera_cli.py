@@ -161,7 +161,7 @@ def test_benchmark_inference_on_a_camera_config(registered, capsys, name,
     assert rec["cameras"] == 6 and rec["peak_memory_gib"] is None
     names = engines.split(",") if name != "Tiny_C" else ["none"]
     assert sorted(rec["engines"]) == sorted(names)
-    camera = ("I2P",) if name == "Tiny_LC_Proj" else (
+    camera = ("image proj", "I2P") if name == "Tiny_LC_Proj" else (
         "LSS lift", "LSS splat", "BevEncode")
     for e in names:
         split = [x for x in lines[i + 1:]

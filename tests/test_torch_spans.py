@@ -192,7 +192,8 @@ def _camera_setup(cam_proj):
 
 
 @pytest.mark.parametrize("cam_proj,camera", [
-    ("lss", ["LSS lift", "LSS splat", "BevEncode"]), ("i2p", ["I2P"])])
+    ("lss", ["LSS lift", "LSS splat", "BevEncode"]),
+    ("i2p", ["image proj", "I2P"])])
 def test_camera_spans_nest_in_the_fusion_and_mark_as_before(cam_proj,
                                                             camera):
     cfg, model, batch = _camera_setup(cam_proj)
