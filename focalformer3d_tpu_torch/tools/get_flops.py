@@ -14,7 +14,7 @@ random weights (only shapes matter):
 
 It prints the JAX tool's five lines (``config:``, ``params:``, ``forward
 flops:``, ``bytes accessed:``, ``arithmetic intensity``), then one JSON
-line with the exact integers. The count has three parts:
+line with the exact integers. The count has five parts:
 
 - ``dense``: every torch op outside the sparse convs and K2. FLOPs from
   ``torch.utils.flop_counter.FlopCounterMode`` (matmuls, convolutions,
@@ -35,6 +35,10 @@ line with the exact integers. The count has three parts:
 - ``index_build``: the kernel engines' column tables and strided output
   sets (``plan_builder_cuda.index_table`` and ``index_downsample``), their
   inputs read once and outputs written once (integer work, no FLOPs).
+- ``local_attn``: the ``bevfusion`` fusion layers' local attention
+  (``ops/local_attn``): FLOPs 4 x C x k^2 a position (two per
+  multiply-add of the logits and of the weighted sum), bytes q, k and v
+  read once and the output written once.
 
 One scan counts the same on the card and the CPU but for what PyTorch
 itself runs on one device only: on the CPU ``F.one_hot`` checks its
@@ -46,7 +50,8 @@ two reports of one scan, the card's and the CPU's, to that
 
 Both counting modes are suspended inside each conv
 (``SparseEncoder._sparse_conv``, weight folding included), inside K2
-(``plan_rules``) and inside the index build's tables and output sets:
+(``plan_rules``), inside the index build's tables and output sets and
+inside the local attention:
 whatever runs there, the kernels on the card or their plain versions on
 the CPU, counts as the function, so one scan counts the same on both
 devices. ``--repeat N`` times N more forwards after the counted one
@@ -133,6 +138,7 @@ class Count:
         self.levels: Dict[str, Dict[str, int]] = {}
         self.plan = {"calls": 0, "bytes": 0}
         self.index = {"calls": 0, "bytes": 0}
+        self.local_attn = {"calls": 0, "flops": 0, "bytes": 0}
 
     def __enter__(self):
         self.flops.__enter__()
@@ -168,12 +174,15 @@ class Count:
                   "bytes": sum(r["bytes"] for r in self.levels.values()),
                   "convs": sum(r["convs"] for r in self.levels.values()),
                   "levels": dict(sorted(self.levels.items()))}
-        return {"flops": dense["flops"] + sparse["flops"],
+        return {"flops": dense["flops"] + sparse["flops"]
+                + self.local_attn["flops"],
                 "bytes": dense["bytes"] + sparse["bytes"]
-                + self.plan["bytes"] + self.index["bytes"],
+                + self.plan["bytes"] + self.index["bytes"]
+                + self.local_attn["bytes"],
                 "dense": dense, "sparse_conv": sparse,
                 "plan_rules": dict(self.plan),
-                "index_build": dict(self.index)}
+                "index_build": dict(self.index),
+                "local_attn": dict(self.local_attn)}
 
 
 def _conv_levels(enc) -> Dict[int, str]:
@@ -198,9 +207,32 @@ def _conv_levels(enc) -> Dict[int, str]:
 
 @contextlib.contextmanager
 def observed(model, count: Count):
-    """Route the encoder's sparse convs, K2 and the index build's tables
-    and output sets through ``count``: each counted from its operands,
-    then run with both counting modes off."""
+    """Route the encoder's sparse convs, K2, the index build's tables and
+    output sets and the fusion layers' local attention through ``count``:
+    each counted from its operands, then run with both counting modes
+    off."""
+    from ..models import focal_encoder as fe
+
+    attn = fe.local_attention
+
+    def local_attention(q, k, v, kernel_size=9):
+        with _disable_current_modes():
+            out = attn(q, k, v, kernel_size)
+            count.local_attn["calls"] += 1
+            count.local_attn["flops"] += 4 * q.numel() * kernel_size ** 2
+            count.local_attn["bytes"] += _nbytes([q, k, v, out])
+            return out
+
+    fe.local_attention = local_attention
+    try:
+        with _observed_encoder(model, count):
+            yield
+    finally:
+        fe.local_attention = attn
+
+
+@contextlib.contextmanager
+def _observed_encoder(model, count: Count):
     from ..models import sparse_encoder as se
     from ..ops.sparse_conv_zrun import zrun_rules
 
@@ -316,10 +348,10 @@ def time_forward(model, cfg, points, mask, img, repeat: int
 def count_differs(card: dict, cpu: dict):
     """What differs between two reports of one scan, the card's and the
     CPU's: the totals, each dense op by name ([calls, FLOPs, bytes]), each
-    sparse level, K2, the index build; the ops of ``CPU_ONLY_OPS`` that
-    only the CPU's count holds are set apart and must be ``F.one_hot``'s
-    range check (a min and a max a call, two item()s). Returns (what
-    differs, the CPU-only ops' rows)."""
+    sparse level, K2, the index build, the local attention; the ops of
+    ``CPU_ONLY_OPS`` that only the CPU's count holds are set apart and
+    must be ``F.one_hot``'s range check (a min and a max a call, two
+    item()s). Returns (what differs, the CPU-only ops' rows)."""
     ops_a, ops_b = card["dense"]["by_op"], cpu["dense"]["by_op"]
     only = {op: ops_b[op] for op in CPU_ONLY_OPS
             if op in ops_b and op not in ops_a}
@@ -334,7 +366,7 @@ def count_differs(card: dict, cpu: dict):
                      calls["aten._local_scalar_dense"]
                      == 2 * calls["aten.min"]):
         out.append(f"CPU-only ops {only} are not one_hot's range check")
-    for part in ("sparse_conv", "plan_rules", "index_build"):
+    for part in ("sparse_conv", "plan_rules", "index_build", "local_attn"):
         if card.get(part) != cpu.get(part):
             out.append(part)
     return out, only

@@ -1,8 +1,8 @@
-"""K3's and dW's times, or kernel B's or C's, or the index build's, on one
-card, for one checkout of the repo.
+"""K3's and dW's times, or kernel B's or C's, or the index build's, or the
+local attention's, on one card, for one checkout of the repo.
 
     python -m focalformer3d_tpu_torch.tools.kernel_times --root DIR [--tag T]
-        [--kernels k3_dw|gather|widen|index]
+        [--kernels k3_dw|gather|widen|index|local_attn]
 
 Imports ``focalformer3d_tpu_torch`` from the checkout at ``DIR`` (the repo
 itself, or an older commit unpacked beside it), so two versions of the
@@ -47,6 +47,17 @@ FocalFormer3D_L, at batch 4 (four scans, ``L.offline``'s batch), graph
 replay and eager. Beside each kernel row its byte bound (inputs read once,
 outputs written once, at the HBM rate). Needs a checkout that has the
 index kernels.
+
+``--kernels local_attn`` times the fusion layers' local attention
+(``ops/local_attn``) at the camera cells' shape (1 x 180 x 180 x 128, k 9,
+seeded maps): the kernel in bf16 (the cells' call), in bf16 writing the
+softmax weights (a training forward) and in float32, graph replay and
+eager, each beside its bound (operations at the float32 CUDA-core peak,
+or q, k, v and the output once at the HBM rate); and the plain loop
+(``local_attention_plain``) in bf16 and float32, eager only (its -1e9
+scalar is a host copy that no graph captures). The bf16 kernel is held
+within 2**-8 of the output's scale of the float32 plain loop on the same
+values, the float32 kernel within 1e-5.
 """
 from __future__ import annotations
 
@@ -527,12 +538,64 @@ def index_times(device) -> list:
     return out
 
 
+LOCAL_ATTN_SHAPE = (1, 180, 180, 128)  # the fusion layers' BEV maps
+
+
+def local_attn_times(device) -> list:
+    from focalformer3d_tpu_torch.ops import local_attn as la
+    from focalformer3d_tpu_torch.tools import _common
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    f32 = [0.3 * torch.randn(LOCAL_ATTN_SHAPE, generator=gen, device=device)
+           for _ in range(3)]
+    b16 = [t.bfloat16() for t in f32]
+    ref16 = la.local_attention_plain(*(t.float() for t in b16))
+    ref32 = la.local_attention_plain(*f32)
+    B, H, W, C = LOCAL_ATTN_SHAPE
+    flops = 4 * B * H * W * C * 81
+    out = []
+    for name, ops, ref, weights, tol in (
+            ("bf16", b16, ref16, False, 2.0 ** -8),
+            ("bf16 with weights", b16, ref16, True, 2.0 ** -8),
+            ("float32", f32, ref32, False, 1e-5)):
+        def run(ops=ops, weights=weights):
+            return la.local_attention_cuda(*ops, 9, weights=weights)[0]
+
+        row = _timed(device, _common, f"kernel {name}", run)
+        la.reset_launch_count()
+        got = run().float()
+        row["launches"] = la.launch_count()
+        nbytes = 4 * B * H * W * C * ops[0].element_size() + (
+            B * H * W * 81 * 4 if weights else 0)
+        row.update(_common.bound(nbytes, flops, "f32"))
+        row["rel_err"] = float((got - ref).abs().max() / ref.abs().max())
+        row["ok"] = row["rel_err"] <= tol
+        out.append(row)
+        print(f"{_line(row)}; {row['launches']} launch a call; bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}), "
+              f"{row['bound_ms'] / row['ms']:.3f} of it; max|diff| "
+              f"{row['rel_err']:.3g} of scale against the float32 plain "
+              f"loop", flush=True)
+    for name, ops in (("bf16", b16), ("float32", f32)):
+        row = {"case": f"plain loop {name}",
+               "eager_ms": eager_ms(lambda ops=ops: la.local_attention_plain(
+                   *ops, 9))}
+        out.append(row)
+        print(f"{row['case']}: eager {row['eager_ms']:.4f} ms", flush=True)
+    bad = [r["case"] for r in out if r.get("ok") is False]
+    if bad:
+        raise SystemExit(f"not within tolerance of the plain loop: {bad}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path)
     ap.add_argument("--tag", default="")
     ap.add_argument("--kernels", choices=("k3_dw", "gather", "widen",
-                                          "index"), default="k3_dw")
+                                          "index", "local_attn"),
+                    default="k3_dw")
     args = ap.parse_args()
     root = args.root.resolve()
     _import(root)
@@ -555,6 +618,11 @@ def main():
     if args.kernels == "index":
         print(json.dumps({"tag": args.tag, "root": str(root),
                           "index": index_times(device)}), flush=True)
+        return
+    if args.kernels == "local_attn":
+        print(json.dumps({"tag": args.tag, "root": str(root),
+                          "local_attn": local_attn_times(device)}),
+              flush=True)
         return
     k3_rows, k3_total = k3_times(device)
     dw_rows, dw_total = wgrad_times(device)

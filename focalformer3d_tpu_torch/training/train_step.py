@@ -27,6 +27,11 @@ voxel features need no dx), in the keys of ``kernel_launches``:
   ``index_table`` 1, ``index_downsample`` 2), no ``dx``, no ``wgrad``;
 - ``plain``: none.
 
+A camera config's fusion layers (``iterbev="bevfusion"``) launch the local
+attention kernel (``ops/local_attn``) once a layer on a card:
+``local_attn`` 2 a FocalFormer3D_LC or _LC_Proj forward, 0 in the LiDAR
+configs.
+
 A camera config's batch also carries ``imgs``, ``lidar2img``, ``img_aug``
 and ``bev_aug`` (``_img_data_from_batch``); with ``use_grid_mask`` the
 step masks the images with ``models/grid_mask``, drawn from the step's
@@ -56,7 +61,8 @@ from ..models.detector import (FocalFormer3D, preprocess_points,
                                trainable_mask)
 from ..models.focal_decoder import DECODER_BLOCKS
 from ..models.sparse_encoder import INDEX_BLOCKS
-from ..ops import plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda
+from ..ops import (local_attn, plan_builder_cuda, sparse_conv_cuda,
+                   sparse_conv_zrun_cuda)
 from ..parallel import mesh
 from ..utils.profiler import span
 from .losses import LossConfig, detection_loss
@@ -81,7 +87,8 @@ def kernel_launches() -> Dict[str, int]:
     ``plan`` (``ops/plan_builder_cuda``) and K3 ``zrun``
     (``ops/sparse_conv_zrun_cuda``); the index build's batched
     ``index_table`` and ``index_downsample`` calls (``ops/plan_builder_cuda``,
-    a memset and three kernels each); then the sparse encoder's index-build
+    a memset and three kernels each); the fusion layers' ``local_attn``
+    (``ops/local_attn``); then the sparse encoder's index-build
     blocks on a card (``sparse_encoder.INDEX_BLOCKS``):
     ``index_graph_replay``, ``index_graph_capture`` and ``index_eager``;
     then the head's blocks on a card (``focal_decoder.DECODER_BLOCKS``):
@@ -93,13 +100,15 @@ def kernel_launches() -> Dict[str, int]:
     out["zrun"] = sparse_conv_zrun_cuda.launch_count()
     out["index_table"] = plan_builder_cuda.launch_count("table")
     out["index_downsample"] = plan_builder_cuda.launch_count("downsample")
+    out["local_attn"] = local_attn.launch_count()
     out.update(INDEX_BLOCKS.counts)
     out.update(DECODER_BLOCKS.counts)
     return out
 
 
 def reset_kernel_launches() -> None:
-    for mod in (plan_builder_cuda, sparse_conv_cuda, sparse_conv_zrun_cuda):
+    for mod in (local_attn, plan_builder_cuda, sparse_conv_cuda,
+                sparse_conv_zrun_cuda):
         mod.reset_launch_count()
     INDEX_BLOCKS.reset()
     DECODER_BLOCKS.reset()

@@ -34,8 +34,9 @@ against the CPU (masks, labels and scores exactly, boxes 1e-5), and the
 train and benchmark CLIs on DeformFormer3D_L. The camera path closes it:
 the tiny LC model on ``cuda`` against the CPU's plain engine (the LSS BEV
 1e-4, the heads 1e-2), FocalFormer3D_LC's launches per scan on each
-engine equal to FocalFormer3D_L's on the same scan, and
-DeformFormer3D_C_R50 launching no kernel. Training on the kernel engines
+engine equal to FocalFormer3D_L's on the same scan beside its two local
+attention launches (``tests/test_torch_local_attn.py`` holds that kernel),
+and DeformFormer3D_C_R50 launching no kernel. Training on the kernel engines
 ends it: dW at (128, 128) with 27 and 3 taps (``cuda_mxu``'s L3 and
 conv_out) against ``wgrad_plain``, ``zrun_conv_train`` against autograd
 through its plain version (1e-3), and one full-width FocalFormer3D_L step
@@ -1542,10 +1543,12 @@ def test_lc_launches_equal_the_lidar_models(dev, engine):
     """FocalFormer3D_LC and _LC_Proj at full width (bf16, one radial
     200k-point scan and its six 448 x 800 cameras) launch per scan exactly
     what FocalFormer3D_L launches on the same scan, its point branch:
-    ``LAUNCHES_PER_SCAN``; finite boxes, 200 kept."""
+    ``LAUNCHES_PER_SCAN``; and the local attention kernel once in each of
+    their two fusion layers, which FocalFormer3D_L lacks; finite boxes,
+    200 kept."""
     from focalformer3d_tpu_torch.configs import with_compute_dtype
 
-    counts = {}
+    counts, attn = {}, {}
     for name in ("FocalFormer3D_L", "FocalFormer3D_LC",
                  "FocalFormer3D_LC_Proj"):
         cfg = with_compute_dtype(dataclasses.replace(
@@ -1554,17 +1557,19 @@ def test_lc_launches_equal_the_lidar_models(dev, engine):
         m.load_state_dict(make_fake_state_dict(m, 0), strict=True)
         m = m.to(dev)
         batch = _camera_batch(cfg, 0, 200000, dev)
-        for k in (k1, k2, k3):
-            k.reset_launch_count()
+        train_step.reset_kernel_launches()
         out = _camera_run(cfg, m, batch)
         counts[name] = (k1.launch_count(), k2.launch_count(),
                         k3.launch_count())
+        attn[name] = train_step.kernel_launches()["local_attn"]
         dec = m.get_bboxes(out, 200)
         assert torch.isfinite(dec["bboxes"]).all()
         assert int(dec["mask"].sum()) == 200
         del m, out
         torch.cuda.empty_cache()
     assert set(counts.values()) == {LAUNCHES_PER_SCAN[engine]}
+    assert attn == {"FocalFormer3D_L": 0, "FocalFormer3D_LC": 2,
+                    "FocalFormer3D_LC_Proj": 2}
 
 
 def test_camera_only_launches_no_kernel(dev):
@@ -1701,7 +1706,7 @@ def test_full_width_train_step_per_engine(dev, engine):
                                                                gen)
     torch.cuda.synchronize()
     assert train_step.kernel_launches() == {
-        **STEP_LAUNCHES[engine], "index_graph_replay": 0,
+        **STEP_LAUNCHES[engine], "local_attn": 0, "index_graph_replay": 0,
         "index_graph_capture": 0, "index_eager": INDEX_BLOCKS[engine][1],
         "decoder_graph_replay": 0, "decoder_graph_capture": 0,
         "decoder_eager": 7}
@@ -2610,10 +2615,13 @@ def test_get_flops_on_card_counts_as_the_cpu(dev):
                           "cpu"])
     differ, only = get_flops.count_differs(reps["cuda"], cpu)
     assert not differ and only, differ
-    for name in ("FocalFormer3D_LC", "FocalFormer3D_Waymo_L"):
+    for name, attn in (("FocalFormer3D_LC", 2), ("FocalFormer3D_Waymo_L",
+                                                 0)):
         train_step.reset_kernel_launches()
-        get_flops.main([name])
+        rep = get_flops.main([name])
         assert _kernel_launches() == _eval_launches("cuda", 1), name
+        assert train_step.kernel_launches()["local_attn"] == attn
+        assert rep["local_attn"]["calls"] == attn
 
 
 # ---------------------------------------------------------------------------
@@ -2860,6 +2868,7 @@ def test_camera_frozen_train_steps_on_card(dev, name, must_move):
             met = step(m, state, b, gen)
             assert all(np.isfinite(float(v)) for v in met.values())
     assert _kernel_launches() == _eval_launches("cuda", 2)
+    assert train_step.kernel_launches()["local_attn"] == 4
     after = m.state_dict()
     frozen = [k for k in after if k.startswith((
         "img_backbone.", "img_neck.", "imgpts_neck.cam_lss.",
